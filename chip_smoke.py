@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Drives the port (`src/repro_torch`) only; imports nothing of JAX or of the
+reference package.  Phases, in order; any failure exits non-zero and
+prints no result line:
+
+  1. build   every hand-written kernel from `src/repro_torch/csrc` (one
+             nvcc per source, in parallel) into `build/kernels/`; print the
+             card's name and power limit (nvidia-smi).
+  2. kernels each kernel against its plain PyTorch version on the card at
+             the serving path's shapes, bit for bit (K1 qmatmul, K2
+             quantize, K4 ubn_norm, K7 page_gather, K6 paged_attention),
+             with its time, bound, plain time and the time of one PyTorch
+             call for the same function where one exists (used only as a
+             yardstick).
+  3. serve   `make_engine("granite-3-8b", reduced=False, n_layers=4)`: the
+             full-width model (4096 wide, 32 query / 8 KV heads of 128,
+             FFN 12800, vocab 49155) with depth cut to 4 of 40 layers and
+             random weights from a seed; 4 greedy requests (prompts of 100,
+             37, 256 and 64 tokens, 16 new tokens each) through chunked
+             prefill and decode, every kernel's launch count > 0; then the
+             same requests through the plain versions on the card, which
+             must give the same tokens and logits; then a torch.profiler
+             breakdown of the decode step.
+
+It ends with a line `{"kernels": [...]}`, then the card line, then
+`{"ok": true, "device": {...}}` as the last line.  Needs one card.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (dense): HBM bytes/s, int8 tensor-core ops/s,
+# fp32 (non-tensor) flop/s; bound_ms is the larger of bytes and operations
+# over these rates
+HBM_BPS = 3.35e12
+INT8_OPS = 1979e12
+FP32_OPS = 67e12
+
+RESULTS: list[dict] = []
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BPS, ops / rate if rate else 0.0
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def record(name, source, replaces, ms, plain_ms, nbytes, ops, rate,
+           library_ms, max_abs_err):
+    b, by = bound_ms(nbytes, ops, rate)
+    RESULTS.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": 0,
+                    "max_abs_err": float(max_abs_err), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                    "library_ms": library_ms})
+    log(f"  {name}: {ms:.4f} ms (bound {b:.4f} ms by {by}), plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
+        f"max_abs_err {max_abs_err}")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> str:
+    from repro_torch.kernels import _build
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[build] card: {card}")
+    t0 = time.time()
+    paths = _build.build()
+    log(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f} s "
+        f"into {_build.build_dir()}")
+    for name, p in paths.items():
+        logf = p.with_suffix(".log")
+        info = [ln.strip() for ln in logf.read_text().splitlines()
+                if "registers" in ln or "spill" in ln] if logf.exists() else []
+        for ln in info:
+            log(f"  ptxas {name}: {ln}")
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels() -> None:
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def f32(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # ---- K1 qmatmul: every qdense shape of the path, both attention dots
+    log("[kernels] K1 qmatmul (bitwise)")
+    shapes = [(m, k, n) for m in (4, 16) for (k, n) in
+              ((4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096))]
+    for m, k, n in shapes:
+        a, b = i8(m, k), i8(k, n)
+        got, want = ops.qmatmul(a, b), ref.qmatmul(a, b)
+        assert torch.equal(got, want), f"qmatmul {m}x{k}x{n} differs"
+        inv = torch.tensor(2.0 ** -14, device=dev)
+        assert torch.equal(ops.qmatmul(a, b, inv), ref.qmatmul(a, b, inv)), \
+            f"qmatmul requant {m}x{k}x{n} differs"
+    for a, b in ((i8(8, 64, 128), i8(8, 128, 512)),
+                 (i8(8, 64, 512), i8(8, 512, 128))):
+        assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), \
+            "batched qmatmul differs"
+    m, k, n = 4, 4096, 12800          # decode w_gate / w_up: the largest
+    a, b = i8(m, k), i8(k, n)
+    log("  library: none at this shape (torch._int_mm takes M > 16 only)")
+    record("qmatmul", "src/repro_torch/csrc/qmatmul.cu",
+           "src/repro/kernels/qmatmul.py:62",
+           time_ms(lambda: ops.qmatmul(a, b)),
+           time_ms(lambda: ref.qmatmul(a, b), 5),
+           m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS, None, 0)
+
+    # ---- K2 quantize: the largest per-forward weight (Q_W of w_gate)
+    log("[kernels] K2 quantize (bitwise)")
+    w = f32(4096, 12800) * 0.02
+    inv = torch.tensor(128.0, device=dev)
+    assert torch.equal(ops.quantize(w, inv), ref.quantize(w, inv))
+    x = f32(16, 4096) * 3
+    inv2 = torch.tensor(2.0 ** 5, device=dev)
+    assert torch.equal(ops.quantize(x, inv2), ref.quantize(x, inv2))
+    xo = f32(1, 4097)[:, 1:]          # unaligned view: scalar path
+    assert torch.equal(ops.quantize(xo, inv2), ref.quantize(xo, inv2))
+    record("quantize", "src/repro_torch/csrc/quantize.cu",
+           "src/repro/kernels/quantize.py:30",
+           time_ms(lambda: ops.quantize(w, inv)),
+           time_ms(lambda: ref.quantize(w, inv), 5),
+           5 * w.numel(), 3 * w.numel(), FP32_OPS, None, 0)
+
+    # ---- K4 ubn_norm (rms): rows of the prefill page and decode lanes.
+    # Bitwise: the row sums are float64 rounded once, and every division and
+    # sqrt is float64 rounded once on both sides (csrc/ubn.cu)
+    log("[kernels] K4 ubn_norm (bitwise)")
+    gam = 1.0 + 0.1 * f32(4096)
+    for m in (4, 16, 512):
+        x = f32(m, 4096) * 2
+        assert torch.equal(ops.ubn_norm(x, gam), ref.ubn_norm(x, gam)), \
+            f"ubn_norm M={m} differs"
+    x = f32(16, 4096) * 2
+    record("ubn_norm", "src/repro_torch/csrc/ubn.cu",
+           "src/repro/kernels/ubn.py:66",
+           time_ms(lambda: ops.ubn_norm(x, gam)),
+           time_ms(lambda: ref.ubn_norm(x, gam)),
+           8 * x.numel() + 4 * 4096, 8 * x.numel(), FP32_OPS, None,
+           float((ops.ubn_norm(x, gam) - ref.ubn_norm(x, gam)).abs().max()))
+
+    # ---- K7 page_gather: one lane's 32 pages of (16, 8, 128) int8
+    log("[kernels] K7 page_gather (bitwise)")
+    pages = i8(129, 16, 8, 128)
+    table = torch.randint(0, 140, (4, 32), generator=g, device=dev,
+                          dtype=torch.int32)            # ids past P clamp
+    assert torch.equal(ops.page_gather(pages, table),
+                       ref.page_gather(pages, table))
+    t1 = torch.randperm(128, generator=g, device=dev)[:32].reshape(1, 32)
+    t1 = (t1 + 1).to(torch.int32)             # one lane's 32 valid pages
+    record("page_gather", "src/repro_torch/csrc/page_gather.cu",
+           "src/repro/kernels/page_gather.py:29",
+           time_ms(lambda: ops.page_gather(pages, t1)),
+           time_ms(lambda: ref.page_gather(pages, t1)),
+           2 * 32 * pages[0].numel() + 4 * 32, 0, FP32_OPS,
+           time_ms(lambda: pages[t1.long()]), 0)
+
+    # ---- K6 paged_attention: 4 decode lanes of 32 heads over 8 KV heads.
+    # Bitwise: m, l, the probability payload p8 and the output (l is a
+    # float64 sum rounded once; exp and the division by l are float64
+    # rounded once on both sides, csrc/paged_attention.cu)
+    log("[kernels] K6 paged_attention (bitwise: m, l, p8, out)")
+    kp, vp = i8(129, 16, 8, 128), i8(129, 16, 8, 128)
+    q8 = i8(4, 32, 128)
+    tbl = torch.arange(1, 129, device=dev, dtype=torch.int32).reshape(4, 32)
+    q_pos = torch.tensor([115, 52, 271, 79], device=dev, dtype=torch.int32)
+    t_valid = q_pos.max() + 1
+    sc = [torch.tensor(s, device=dev) for s in (2.0 ** -6, 2.0 ** -7,
+                                                 2.0 ** -7)]
+    sm = 1.0 / math.sqrt(128)
+    args = (q8, kp, vp, tbl, q_pos, t_valid, *sc)
+    pk = ops.paged_attention_parts(*args, sm_scale=sm)
+    pp = ref.paged_attention_parts(*args, sm_scale=sm)
+    for part in ("m", "l", "p8", "out"):
+        assert torch.equal(pk[part], pp[part]), \
+            f"paged_attention {part} differs"
+    valid = int((q_pos + 1).sum())
+    record("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+           "src/repro/kernels/paged_attention.py:119",
+           time_ms(lambda: ops.paged_attention(*args, sm_scale=sm)),
+           time_ms(lambda: ref.paged_attention(*args, sm_scale=sm)),
+           2 * valid * 8 * 128 + q8.numel() + 4 * tbl.numel()
+           + 4 * 4 * 32 * 128, 2 * 2 * valid * 32 * 128, INT8_OPS, None,
+           float((pk["out"] - pp["out"]).abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve granite-3-8b at full width, 4 layers
+# ---------------------------------------------------------------------------
+
+PROMPT_LENS = (100, 37, 256, 64)
+NEW_TOKENS = 16
+ENGINE_KW = dict(max_lanes=4, page_size=16, max_ctx=512)
+
+
+def _serve(engine, prompts):
+    for p in prompts:
+        engine.submit(p, NEW_TOKENS)
+    out = engine.drain()
+    return [out[i] for i in range(len(prompts))]
+
+
+def phase_serve() -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, make_engine
+    t0 = time.time()
+    eng = make_engine("granite-3-8b", reduced=False, n_layers=4,
+                      device="cuda", seed=0, **ENGINE_KW)
+    model = eng.model
+    a = model.a
+    log(f"[serve] granite-3-8b at full width (d={a.d_model}, heads "
+        f"{a.n_heads}/{a.n_kv} x {a.dh}, ffn {a.d_ff}, vocab {a.vocab} -> "
+        f"{a.vocab_padded}), depth cut to {a.n_layers} of 40 layers, "
+        f"{model.n_params() / 1e9:.2f} G fp32 params, random weights "
+        f"(seed 0); engine {ENGINE_KW}; built in {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+               for n in PROMPT_LENS]
+
+    # per-decode-step launch counts: count around the engine's decode call
+    decode_counts = dict.fromkeys(ops.LAUNCHES, 0)
+    inner = eng._decode
+
+    def counted():
+        before = dict(ops.LAUNCHES)
+        res = inner()
+        for k in decode_counts:
+            decode_counts[k] += ops.LAUNCHES[k] - before[k]
+        return res
+
+    eng._decode = counted
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    toks = _serve(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    met = eng.metrics()
+    log(f"[serve] {len(prompts)} requests, prompts {PROMPT_LENS}, "
+        f"{NEW_TOKENS} new tokens each: wall {wall:.3f} s, prefill "
+        f"{met['prefill_wall_s']:.3f} s ({met['prefill_tokens']} tokens), "
+        f"decode {met['decode_wall_s']:.3f} s over {met['decode_steps']} "
+        f"steps ({1e3 * met['decode_wall_s'] / max(met['decode_steps'], 1):.2f}"
+        f" ms/step, {met['decode_tok_s']:.1f} tok/s), TTFT mean "
+        f"{1e3 * met['ttft_mean_s']:.1f} ms, TPOT mean "
+        f"{1e3 * met['tpot_mean_s']:.2f} ms, preemptions "
+        f"{met['preemptions']}")
+    log(f"[serve] kernel launches in the run: {launches}")
+    per_step = {k: v / max(met["decode_steps"], 1)
+                for k, v in decode_counts.items()}
+    log(f"[serve] kernel launches per decode step: {per_step}")
+    # the decode step's weight traffic as ported: every hidden weight is
+    # re-quantized each forward (fp32 master read, int8 payload written by
+    # K2 and read by K1: 6 bytes); the exempt lm_head is an fp32 product
+    hidden = sum(p.numel() for k, p in model.layers.items()
+                 if k not in ("ln1", "ln2"))
+    step_bytes = 6 * hidden + 4 * model.lm_head.numel()
+    log(f"[serve] decode-step weight traffic {step_bytes / 1e9:.3f} GB -> "
+        f"bound {1e3 * step_bytes / HBM_BPS:.3f} ms/step at 3.35 TB/s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was never launched on the main path"
+    for t in toks:
+        assert len(t) == NEW_TOKENS and all(0 <= x < a.vocab for x in t)
+
+    # the same requests through the plain versions on the card
+    t0 = time.time()
+    with ops.plain_reference():
+        plain = Engine(model, **ENGINE_KW)
+        ptoks = _serve(plain, prompts)
+    torch.cuda.synchronize()
+    assert all(v == launches[k] for k, v in ops.LAUNCHES.items()), \
+        "the plain run launched a kernel"
+    eq = np.mean([x == y for t, u in zip(toks, ptoks) for x, y in zip(t, u)])
+    first = np.mean([t[0] == u[0] for t, u in zip(toks, ptoks)])
+    log(f"[serve] plain versions on the card: {time.time() - t0:.1f} s; "
+        f"equal tokens {eq:.3f}, equal first tokens {first:.2f}")
+    for t, u in zip(toks, ptoks):
+        log(f"  kernels {t}\n  plain   {u}")
+
+    # first-step logits: one prefill page of prompt 0 on a fresh pool
+    from repro_torch.serving.pool import PagePool
+
+    def first_logits():
+        pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
+        tab = torch.arange(1, 33, device="cuda", dtype=torch.int32)[None]
+        tok = torch.as_tensor(prompts[0][:16], device="cuda")
+        return model.prefill_page(pool.view(tab), tok, 0)[0, :a.vocab]
+
+    lk = first_logits()
+    with ops.plain_reference():
+        lp = first_logits()
+    dist = float((lk - lp).abs().max())
+    rel = dist / float(lp.abs().max())
+    log(f"[serve] first-step logits: max |kernel - plain| {dist:.3e} "
+        f"({rel:.3e} of max |logit|), argmax {int(lk.argmax())} vs "
+        f"{int(lp.argmax())}")
+    assert bool(torch.isfinite(lk).all()), "non-finite logits"
+    # every kernel equals its plain version bit for bit (phase 2), and the
+    # rest of the path is the same PyTorch code in both runs, so the two
+    # runs agree exactly: the same tokens and the same logits
+    assert eq == 1.0, "the kernels' tokens differ from the plain versions'"
+    assert dist == 0.0, "the kernels' logits differ from the plain versions'"
+    profile_decode(eng)
+    return launches
+
+
+def profile_decode(eng, steps: int = 3) -> None:
+    """Where a decode step's time goes: torch.profiler over `steps` decode
+    steps of all lanes (dead: their tables point at the trash page, so the
+    attention is short and the weight traffic is the full step's).  Prints
+    device time by kernel name and the device's busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    lanes = eng.max_lanes
+    z = torch.zeros((lanes,), dtype=torch.int32, device="cuda")
+    view = eng.pool.view(torch.zeros((lanes, eng.n_blocks), dtype=torch.int32,
+                                     device="cuda"))
+    eng.model.paged_decode_step(view, z, z)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(steps):
+            eng.model.paged_decode_step(view, z, z)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.time() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, copies): a host op's device time
+    # is its kernels' time again
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows)
+    if busy <= 0:
+        log("[profile] the profiler saw no device time: not measured")
+        return
+    log(f"[profile] {steps} decode steps (profiler on): wall "
+        f"{wall_us / 1e3 / steps:.3f} ms/step, device busy "
+        f"{busy / 1e3 / steps:.3f} ms/step, busy share {busy / wall_us:.3f}")
+    for e in rows[:12]:
+        log(f"  {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
+            f"{e.count // steps:4d} calls/step  {e.key[:70]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    card = phase_build()
+    phase_kernels()
+    launches = phase_serve()
+    for r in RESULTS:
+        r["launches"] = launches[r["name"]]
+    log(f"[done] {time.time() - t0:.1f} s")
+    print(json.dumps({"kernels": RESULTS}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

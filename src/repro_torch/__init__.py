@@ -1,0 +1,11 @@
+"""PyTorch + CUDA port of the WAGEUBN full-int8 system for NVIDIA Hopper.
+
+The JAX package `repro` stays the reference.  This package mirrors it
+module by module and imports nothing of it (nor JAX); every TPU kernel on
+a ported path is a hand-written CUDA kernel for sm_90a (`csrc/`), with a
+plain PyTorch version beside it (`kernels/ref.py`).
+
+Ported so far: the chunked-prefill + decode serving path of the dense LM
+(`serving.make_engine`), on the kernels qmatmul, quantize, ubn_norm,
+page_gather and paged_attention.
+"""

@@ -1,0 +1,16 @@
+"""Architecture configs the port serves; `get(name)` resolves `--arch` ids."""
+from .base import ArchConfig
+from .granite_3_8b import CFG as granite_3_8b
+
+ARCHS = {c.name: c for c in [granite_3_8b]}
+
+
+def get(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}); "
+            "the other families are ROADMAP Queue 1 item 4")
+    return ARCHS[name]
+
+
+__all__ = ["ArchConfig", "ARCHS", "get"]

@@ -1,0 +1,51 @@
+"""Architecture configuration schema (the fields the dense LM slice reads).
+
+Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM: the same
+field names, `dh`, `vocab_padded` and `reduced()`, so a configuration reads
+the same in both packages.  Families that the port does not serve yet (MoE,
+SSM, hybrid, enc-dec, ResNet) keep no fields here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                  # lm (the only family served so far)
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv: int = 0
+    d_ff: int = 0
+    vocab: int = 0
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    act: str = "silu"
+    rope_theta: float = 1e4
+    source: str = ""
+
+    @property
+    def dh(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def vocab_padded(self) -> int:
+        """vocab padded to a multiple of 512 (the reference's TP padding)."""
+        return ((self.vocab + 511) // 512) * 512
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's sizes:
+        2 layers, width 64, 4 heads / 2 KV heads of width 16)."""
+        return self.replace(
+            name=self.name + "-smoke", n_layers=min(self.n_layers, 2),
+            d_model=64, n_heads=4, n_kv=min(self.n_kv, 2) if self.n_kv else 0,
+            d_ff=96 if self.d_ff else 0, vocab=min(self.vocab, 128),
+            head_dim=16)

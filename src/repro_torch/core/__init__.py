@@ -1,0 +1,10 @@
+"""WAGEUBN quantized core for the port: QTensor, quantizers, QConfig and the
+forward ops (qdense / qact / qrmsnorm)."""
+from .qconfig import FULL8, PRESETS, QConfig, preset
+from .qdense import qact, qdense, qprobs, qweight
+from .qnorm import qlayernorm, qrmsnorm
+from .qtensor import QTensor, QuantSpec, get_quantizer, qt_carrier
+
+__all__ = ["FULL8", "PRESETS", "QConfig", "preset", "qact", "qdense",
+           "qprobs", "qweight", "qlayernorm", "qrmsnorm", "QTensor",
+           "QuantSpec", "get_quantizer", "qt_carrier"]

@@ -1,0 +1,345 @@
+"""The five ops of the serving slice: a Hopper kernel for a CUDA tensor,
+the plain PyTorch version (`kernels/ref.py`) for a CPU tensor.
+
+  qmatmul          K1  int8 x int8 -> int32 MAC (batched), optional fused
+                       requantize epilogue emitting an int8 payload
+  quantize         K2  payload emission clip(rint(x * inv_step), +-lim)
+  ubn_norm         K4  fused UBN: statistics + normalize + quantizers
+  page_gather      K7  paged int8 KV gather through a page table
+  paged_attention  K6  two-pass paged int8 decode attention
+
+Routing is by the tensor's device alone.  On a CUDA tensor an op launches
+its kernel or raises: no shape guard sends it elsewhere and nothing falls
+back.  The one way to run the plain versions on the card is to ask for it,
+`with plain_reference():` (chip_smoke.py holds the kernels against them
+that way); the serving path never enters it.
+
+`LAUNCHES` counts kernel launches per op: an op adds one each time it
+launches its kernel (K6 counts one per call, which is two launches with
+the glue between) and never on the plain route.
+"""
+from __future__ import annotations
+
+import contextlib
+from ctypes import c_float, c_int, c_longlong, c_void_p
+
+import torch
+
+from . import _build, ref
+
+Tensor = torch.Tensor
+
+LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
+            "paged_attention": 0}
+
+_PLAIN = False
+
+# entry point -> argument types (pointers and the stream as c_void_p)
+_P = c_void_p
+_SIGS = {
+    ("quantize", "quantize_launch"): [_P, _P, c_float, _P, c_longlong, _P],
+    ("qmatmul", "qmatmul_launch"): [_P, _P, _P, _P, _P, c_float, c_int,
+                                    c_int, c_int, c_int, c_int, c_int, _P],
+    ("ubn", "ubn_launch"): [_P, _P, _P, _P, c_int, c_int, c_int, c_float,
+                            c_float, c_float, c_float, c_float, c_float, _P],
+    ("page_gather", "page_gather_launch"): [_P, _P, _P, c_int, c_int, c_int,
+                                            c_longlong, _P],
+    ("paged_attention", "pa_stats_launch"): [_P, _P, _P, _P, _P, _P, c_float,
+                                             c_int, c_int, c_int, c_int,
+                                             c_int, c_int, c_int, _P, _P, _P],
+    ("paged_attention", "pa_out_launch"): [_P, _P, _P, _P, _P, _P, _P,
+                                           c_float, c_int, c_int, c_int,
+                                           c_int, c_int, c_int, c_int, _P,
+                                           _P, _P, _P, c_float, c_float, _P,
+                                           _P, _P],
+}
+_FNS: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def plain_reference():
+    """Run the plain PyTorch versions on any device inside this context
+    (for holding the kernels against them on the card)."""
+    global _PLAIN
+    prev, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = prev
+
+
+def _on_kernel(t: Tensor) -> bool:
+    if t.device.type == "cpu" or _PLAIN:
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {t.device}")
+    return True
+
+
+def _fn(lib: str, name: str):
+    key = (lib, name)
+    if key not in _FNS:
+        f = getattr(_build.library(lib), name)
+        f.argtypes = _SIGS[key]
+        f.restype = c_int
+        _FNS[key] = f
+    return _FNS[key]
+
+
+def _launch(lib: str, name: str, *args) -> None:
+    rc = _fn(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def _ptr(t: Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _scalar(v, like: Tensor) -> Tensor:
+    """A device fp32 0-d tensor (scales stay on the device: no host sync)."""
+    return torch.as_tensor(v, dtype=torch.float32,
+                           device=like.device).reshape(())
+
+
+# --------------------------------------------------------------------------
+# K1 qmatmul
+# --------------------------------------------------------------------------
+
+def _splits(tiles: int, k: int, sms: int) -> tuple[int, int]:
+    """Split K so that about two blocks per SM are in flight; returns
+    (splits, k per split, a multiple of the 64-deep K tile)."""
+    ktiles = max(1, -(-k // 64))
+    want = max(1, min(ktiles, (2 * sms) // max(tiles, 1)))
+    per = -(-ktiles // want)
+    return -(-ktiles // per), per * 64
+
+
+def qmatmul(a8: Tensor, b8: Tensor, requant_inv=None, *,
+            lim: float = 127.0) -> Tensor:
+    """int8 (.., M, K) x int8 (.., K, N) -> int32 (.., M, N).
+
+    2-D operands, or 3-D with a shared leading batch.  With `requant_inv`
+    (scalar: the pow2 rescale a_scale * b_scale / out_step) the epilogue
+    emits clip(round(acc * requant_inv), +-lim) as int8."""
+    if not _on_kernel(a8):
+        inv = None if requant_inv is None else _scalar(requant_inv, a8)
+        return ref.qmatmul(a8, b8, inv, lim=lim)
+    _need(a8.dtype == torch.int8 and b8.dtype == torch.int8,
+          "qmatmul takes int8 operands")
+    _need(a8.dim() == b8.dim() and a8.dim() in (2, 3),
+          "qmatmul takes 2-D operands or 3-D with a shared batch")
+    _need(b8.device == a8.device, "qmatmul operands on different devices")
+    a, b = a8.contiguous(), b8.contiguous()
+    if a.dim() == 2:
+        a, b = a[None], b[None]
+    bt, m, k = a.shape
+    _need(b.shape[0] == bt and b.shape[1] == k,
+          f"qmatmul shapes {tuple(a8.shape)} x {tuple(b8.shape)}")
+    n = b.shape[2]
+    tiles = bt * -(-m // 64) * -(-n // 64)
+    if requant_inv is None:
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        splits, kchunk = _splits(tiles, k, sms)
+        out = (torch.zeros if splits > 1 else torch.empty)(
+            (bt, m, n), dtype=torch.int32, device=a.device)
+        out8, inv = None, None
+    else:
+        splits, kchunk = 1, max(64, -(-k // 64) * 64)
+        inv = _scalar(requant_inv, a)
+        out8 = torch.empty((bt, m, n), dtype=torch.int8, device=a.device)
+        out = None
+    _need(bt * splits < 65536, "qmatmul batch too large for one launch")
+    _launch("qmatmul", "qmatmul_launch", _ptr(a), _ptr(b), _ptr(out),
+            _ptr(out8), _ptr(inv), lim, bt, m, n, k, splits, kchunk,
+            _stream(a))
+    LAUNCHES["qmatmul"] += 1
+    res = out if out8 is None else out8
+    return res if a8.dim() == 3 else res[0]
+
+
+# --------------------------------------------------------------------------
+# K2 quantize
+# --------------------------------------------------------------------------
+
+
+def quantize(x: Tensor, inv_step, lim: float = 127.0) -> Tensor:
+    """x f32 (any shape) -> int8 payload clip(round(x * inv_step), +-lim);
+    inv_step is the exact pow2 reciprocal of the grid step (scalar)."""
+    inv = _scalar(inv_step, x)
+    if not _on_kernel(x):
+        return ref.quantize(x, inv, lim)
+    _need(x.dtype == torch.float32, "quantize takes fp32 input")
+    xc = x.contiguous()
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _launch("quantize", "quantize_launch", _ptr(xc), _ptr(inv), lim,
+            _ptr(out), xc.numel(), _stream(xc))
+    LAUNCHES["quantize"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K4 ubn_norm
+# --------------------------------------------------------------------------
+
+
+def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
+             kind: str = "rms", k_mu: int = 16, k_sigma: int = 16,
+             k_bn: int = 16, k_gamma: int = 8, k_beta: int = 8,
+             eps: float = 2.0 ** -8) -> Tensor:
+    """Fused UBN over a 2-D view: x (M, N) f32, rows are tokens for "rms"
+    and "layer".  Returns (M, N) f32 on the k_BN/k_gamma grid."""
+    kw = dict(kind=kind, k_mu=k_mu, k_sigma=k_sigma, k_bn=k_bn,
+              k_gamma=k_gamma, k_beta=k_beta, eps=eps)
+    if not _on_kernel(x):
+        return ref.ubn_norm(x, gamma, beta, **kw)
+    if kind == "batch":
+        raise NotImplementedError(
+            "ubn_norm kind='batch' needs a two-phase column reduction; it "
+            "comes with the ResNet training slice (ROADMAP Queue 1 item 1)")
+    _need(kind in ("rms", "layer"), f"unknown UBN kind {kind!r}")
+    _need(x.dim() == 2 and x.dtype == torch.float32, "ubn_norm takes (M, N) f32")
+    xc = x.contiguous()
+    m, n = xc.shape
+    g = gamma.contiguous().float()
+    b = g if beta is None else beta.contiguous().float()
+    _need(g.numel() == n and b.numel() == n, "ubn_norm gamma/beta width")
+    out = torch.empty_like(xc)
+    s = lambda k: 2.0 ** (k - 1)  # noqa: E731
+    _launch("ubn", "ubn_launch", _ptr(xc), _ptr(g), _ptr(b), _ptr(out), m, n,
+            int(kind == "layer"), s(k_mu), s(k_sigma), s(k_bn), s(k_gamma),
+            s(k_beta), eps, _stream(xc))
+    LAUNCHES["ubn_norm"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K7 page_gather
+# --------------------------------------------------------------------------
+
+
+def page_gather(pages: Tensor, table: Tensor) -> Tensor:
+    """pages (P, page, *rest) int8 + table (B, NB) page ids (clamped; 0 is
+    the trash page) -> (B, NB, page, *rest) int8, no dequantize."""
+    if not _on_kernel(pages):
+        return ref.page_gather(pages, table)
+    _need(pages.dtype == torch.int8, "page_gather takes int8 pages")
+    pc = pages.contiguous()
+    tb = table.to(device=pc.device, dtype=torch.int32).contiguous()
+    b, nb = tb.shape
+    out = torch.empty((b, nb) + tuple(pc.shape[1:]), dtype=torch.int8,
+                      device=pc.device)
+    _need(pc.shape[0] > 0, "page_gather needs at least one page")
+    page_bytes = pc[0].numel()
+    _launch("page_gather", "page_gather_launch", _ptr(pc), _ptr(tb),
+            _ptr(out), pc.shape[0], b, nb, page_bytes, _stream(pc))
+    LAUNCHES["page_gather"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K6 paged_attention
+# --------------------------------------------------------------------------
+
+
+def _pa_glue(l: Tensor, v_scale: Tensor, k_a: int):
+    """The single probability step from the batch-global amax: max p per
+    row is exp(0)/l == 1/l, so the GridQuantizer amax of the quantized
+    probabilities reduces over l alone."""
+    s_ = 2.0 ** (k_a - 1)
+    amax_pg = torch.round(torch.amax(ref._div32(1.0, l)) * s_) / s_
+    step = torch.clamp(ref._pow2_ceil(amax_pg), min=2.0 ** -24) \
+        * 2.0 ** (1 - k_a)
+    pinv = (1.0 / step).reshape(())
+    pv = (step * v_scale).reshape(()).float()
+    return pinv, pv
+
+
+def _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos, t_valid,
+                            q_scale, k_scale, v_scale, sm_scale, k_a,
+                            want_p8: bool) -> dict:
+    _need(q8.dtype == torch.int8 and k_pages.dtype == torch.int8
+          and v_pages.dtype == torch.int8, "paged_attention takes int8")
+    p_cnt, page, kv, dh = k_pages.shape
+    b, h, dh2 = q8.shape
+    _need(dh2 == dh and h % kv == 0, "paged_attention head shapes")
+    g = h // kv
+    _need(dh % 4 == 0 and dh <= 128 and g <= 8,
+          f"paged_attention kernel takes dh % 4 == 0, dh <= 128, g <= 8 "
+          f"(got dh={dh}, g={g})")
+    dev = q8.device
+    qc, kc, vc = q8.contiguous(), k_pages.contiguous(), v_pages.contiguous()
+    tb = table.to(device=dev, dtype=torch.int32).contiguous()
+    nb = tb.shape[1]
+    qp = q_pos.to(device=dev, dtype=torch.int32).contiguous()
+    tv = torch.as_tensor(t_valid, device=dev).to(torch.int32).reshape(())
+    kq = _scalar(q_scale * k_scale, q8)
+    m = torch.empty((b, h), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h), dtype=torch.float32, device=dev)
+    st = _stream(qc)
+    dims = (b, p_cnt, page, kv, g, dh, nb)
+    _launch("paged_attention", "pa_stats_launch", _ptr(qc), _ptr(kc),
+            _ptr(tb), _ptr(qp), _ptr(tv), _ptr(kq), sm_scale, *dims,
+            _ptr(m), _ptr(l), st)
+    pinv, pv = _pa_glue(l, _scalar(v_scale, q8), k_a)
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    p8 = (torch.empty((b, h, nb * page), dtype=torch.int8, device=dev)
+          if want_p8 else None)
+    s_ = 2.0 ** (k_a - 1)
+    _launch("paged_attention", "pa_out_launch", _ptr(qc), _ptr(kc), _ptr(vc),
+            _ptr(tb), _ptr(qp), _ptr(tv), _ptr(kq), sm_scale, *dims,
+            _ptr(m), _ptr(l), _ptr(pinv), _ptr(pv), s_, s_ - 1.0, _ptr(out),
+            _ptr(p8), st)
+    LAUNCHES["paged_attention"] += 1
+    return {"m": m, "l": l, "p8": p8, "out": out}
+
+
+def paged_attention_parts(q8, k_pages, v_pages, table, q_pos, t_valid,
+                          q_scale, k_scale, v_scale, *, sm_scale: float,
+                          k_a: int = 8) -> dict:
+    """`paged_attention` with its intermediates {m, l, p8, out} (for the
+    kernel-against-plain checks: m exact, l in ulps, p8 flip rate)."""
+    if not _on_kernel(q8):
+        return ref.paged_attention_parts(
+            q8, k_pages, v_pages, table, q_pos, t_valid, q_scale, k_scale,
+            v_scale, sm_scale=sm_scale, k_a=k_a)
+    return _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos,
+                                   t_valid, q_scale, k_scale, v_scale,
+                                   sm_scale, k_a, True)
+
+
+def paged_attention(q8: Tensor, k_pages: Tensor, v_pages: Tensor,
+                    table: Tensor, q_pos: Tensor, t_valid, q_scale, k_scale,
+                    v_scale, *, sm_scale: float, k_a: int = 8) -> Tensor:
+    """Fused paged decode attention.
+
+    q8: (B, H, dh) int8 query payload (one decode token per lane);
+    k_pages/v_pages: (P, page, KV, dh) int8 arenas; table: (B, NB) page ids
+    (clamped; 0 = trash page); q_pos: (B,) positions; t_valid: bound on
+    valid positions; q/k/v_scale: pow2 payload scales; sm_scale: 1/sqrt(dh);
+    k_a: the probability grid width.  Returns (B, H, dh) f32, the pre-Q_A
+    attention output."""
+    if not _on_kernel(q8):
+        return ref.paged_attention(q8, k_pages, v_pages, table, q_pos,
+                                   t_valid, q_scale, k_scale, v_scale,
+                                   sm_scale=sm_scale, k_a=k_a)
+    return _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos,
+                                   t_valid, q_scale, k_scale, v_scale,
+                                   sm_scale, k_a, False)["out"]
+
+
+OPS = tuple(LAUNCHES)

@@ -1,0 +1,191 @@
+"""Decoder-only dense LM (granite-3-8b) for paged serving.
+
+Port of `repro.models.transformer.LMTransformer`, the serving modes only:
+`chunk` (chunked prefill, one lane, one page of tokens) and `decode` (one
+token per lane), driven through the decode-state slot API the engine uses
+(`paged_decode_step`, `prefill_page`).  Monolithic prefill and the
+training loss are not ported yet (ROADMAP Queue 1 items 2 and 1).
+
+Weights keep the reference's layouts: stacked per-layer tensors (L, ...)
+in `layers` (ln1, wq, wk, wv, wo, ln2, w_gate, w_up, w_down), `embed`
+(Vp, d), `final_norm` (d,), `lm_head` (d, Vp).  The embedding and lm_head
+are exempt from quantization (the paper's first/last layer rule); every
+hidden matmul, norm and activation goes through the WAGEUBN ops.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import qact, qdense
+from repro_torch.core.qconfig import QConfig
+from repro_torch.device import resolve_device
+
+from . import layers as L
+
+Tensor = torch.Tensor
+
+LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
+              "w_down")
+
+
+class LMTransformer(nn.Module):
+    def __init__(self, acfg: ArchConfig, qcfg: QConfig, device="cuda"):
+        super().__init__()
+        if acfg.family != "lm":
+            raise NotImplementedError(
+                f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+        qcfg.validate()
+        self.a, self.q = acfg, qcfg
+        self.device = resolve_device(device)
+        a = acfg
+        d, dh, h, kv, f = a.d_model, a.dh, a.n_heads, a.n_kv, a.d_ff
+        nl, vp = a.n_layers, a.vocab_padded
+        shapes = {"ln1": (nl, d), "wq": (nl, d, h * dh),
+                  "wk": (nl, d, kv * dh), "wv": (nl, d, kv * dh),
+                  "wo": (nl, h * dh, d), "ln2": (nl, d),
+                  "w_gate": (nl, d, f), "w_up": (nl, d, f),
+                  "w_down": (nl, f, d)}
+
+        def param(shape):
+            return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                            device=self.device),
+                                requires_grad=False)
+
+        self.layers = nn.ParameterDict({k: param(s) for k, s in shapes.items()})
+        self.embed = param((vp, d))
+        self.final_norm = param((d,))
+        self.lm_head = param((d, vp))
+
+    # ---------------- params ----------------
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "LMTransformer":
+        """Random weights from a torch.Generator by the reference's init
+        formulas (winit for hidden weights, N(0, 0.02^2) for the exempt
+        embedding and head, ones for the norm gains).  Same distributions as
+        the reference's `init`, not the same bits."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for k, p in self.layers.items():
+            if k in ("ln1", "ln2"):
+                p.fill_(1.0)
+                continue
+            for i in range(p.shape[0]):      # (L, fan_in, fan_out), in place
+                L.winit_(self.q, p[i], p.shape[1], gen)
+        self.embed.normal_(generator=gen).mul_(0.02)
+        self.lm_head.normal_(generator=gen).mul_(0.02)
+        self.final_norm.fill_(1.0)
+        return self
+
+    @torch.no_grad()
+    def load_params(self, params: dict) -> "LMTransformer":
+        """Copy a {"embed", "layers": {...}, "final_norm", "lm_head"} tree of
+        tensors or arrays in the reference layout into this module."""
+        for k in LAYER_KEYS:
+            self.layers[k].copy_(torch.as_tensor(params["layers"][k]))
+        for k in ("embed", "final_norm", "lm_head"):
+            getattr(self, k).copy_(torch.as_tensor(params[k]))
+        return self
+
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ---------------- forward ----------------
+
+    def _layer(self, i: int) -> dict:
+        return {k: p[i] for k, p in self.layers.items()}
+
+    def _attn(self, p, x, pos, mode, cache):
+        a, q = self.a, self.q
+        b, s, _ = x.shape
+        h = qact(q, "none", L.norm(q, a.norm, x, p["ln1"]))
+        qh = qdense(q, h, p["wq"]).reshape(b, s, a.n_heads, a.dh)
+        kh = qdense(q, h, p["wk"]).reshape(b, s, a.n_kv, a.dh)
+        vh = qdense(q, h, p["wv"]).reshape(b, s, a.n_kv, a.dh)
+        ks, vs = cache["k_scale"], cache["v_scale"]
+        kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
+        if mode == "chunk":
+            # chunked prefill: ONE lane, s == page_size tokens filling one
+            # pool page; every amax spans this page alone
+            qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
+            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+            # an index past the table clamps, as the reference's gather does
+            blk = min(cache["pos0"] // kp.shape[1], table.shape[1] - 1)
+            pid = table[0, blk]
+            L.page_write(kp, pid, L.kv_quantize(kh[0], ks))
+            L.page_write(vp, pid, L.kv_quantize(vh[0], vs))
+            o = L.paged_prefill_attention(q, qh, kp, vp, table, ks, vs,
+                                          q_pos=pos)
+        else:       # decode: s == 1, pos (B,)
+            rp = pos.reshape(b, 1)
+            qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
+            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+            L.page_scatter_token(kp, table, pos, L.kv_quantize(kh[:, 0], ks))
+            L.page_scatter_token(vp, table, pos, L.kv_quantize(vh[:, 0], vs))
+            o = L.paged_decode_attention(q, qh, kp, vp, table, ks, vs,
+                                         q_pos=pos, t_valid=pos.max() + 1)
+        o = o.reshape(b, s, a.n_heads * a.dh)
+        return x + qdense(q, o, p["wo"])
+
+    def _ffn(self, p, x):
+        a, q = self.a, self.q
+        h = qact(q, "none", L.norm(q, a.norm, x, p["ln2"]))
+        return x + L.swiglu(q, h, p["w_gate"], p["w_up"], p["w_down"], a.act)
+
+    def _backbone(self, x, pos, mode, view):
+        for i in range(self.a.n_layers):
+            cache = dict(view, k_pages=view["k_pages"][i],
+                         v_pages=view["v_pages"][i],
+                         k_scale=view["k_scale"][i],
+                         v_scale=view["v_scale"][i])
+            p = self._layer(i)
+            x = self._attn(p, x, pos, mode, cache)
+            x = self._ffn(p, x)
+        return x
+
+    def _logits(self, x):
+        h = L.norm(self.q, self.a.norm, x, self.final_norm)
+        logits = torch.matmul(h, self.lm_head)          # exempt last layer
+        if self.a.vocab_padded != self.a.vocab:
+            pad = torch.arange(self.a.vocab_padded,
+                               device=logits.device) >= self.a.vocab
+            logits = torch.where(pad, torch.full_like(logits, L.NEG_INF),
+                                 logits)
+        return logits
+
+    # ---------------- serving decode-state slot API ----------------
+
+    def decode_state_spec(self):
+        a = self.a
+        return {"kv_layers": a.n_layers, "n_kv": a.n_kv, "dh": a.dh}
+
+    @torch.no_grad()
+    def paged_decode_step(self, pool_view: dict, tokens: Tensor,
+                          pos: Tensor) -> Tensor:
+        """One decode step over all lanes against the paged pool.
+
+        pool_view: {"k_pages"/"v_pages": (L, P, page, KV, dh) int8,
+        "k_scale"/"v_scale": (L,), "table": (B, NB)}; tokens, pos: (B,).
+        Writes each lane's new KV into its page slot IN PLACE and returns
+        the logits (B, Vp)."""
+        x = self.embed[tokens.long()][:, None, :]
+        x = self._backbone(x, pos, "decode", pool_view)
+        return self._logits(x)[:, 0]
+
+    @torch.no_grad()
+    def prefill_page(self, pool_view: dict, tokens: Tensor,
+                     pos0: int) -> Tensor:
+        """Chunked prefill: run ONE page of one lane's prompt.
+
+        tokens: (page,); pos0: the page's first position (a multiple of
+        page_size); pool_view as in `paged_decode_step` with a (1, NB)
+        table.  Writes the page's KV into the pool IN PLACE and attends to
+        every earlier position through the table.  Returns the last token's
+        logits (1, Vp)."""
+        page = pool_view["k_pages"].shape[2]
+        x = self.embed[tokens.long()][None]
+        pos = pos0 + torch.arange(page, device=x.device)
+        x = self._backbone(x, pos, "chunk", dict(pool_view, pos0=pos0))
+        return self._logits(x[:, -1:])[:, 0]
