@@ -11,10 +11,12 @@ prints no result line:
              nvcc per source, in parallel) into `build/kernels/`; print the
              card's name and power limit (nvidia-smi).
   2. kernels each kernel against its plain PyTorch version on the card at
-             the serving path's shapes, bit for bit (K1 qmatmul, K2
-             quantize, K4 ubn_norm, K7 page_gather, K6 paged_attention),
-             with its time, bound, plain time and the time of one PyTorch
-             call for the same function where one exists (used only as a
+             the serving and training paths' shapes, bit for bit (K1
+             qmatmul, K2 quantize, K3 dgrad/wgrad in the affine k=8,
+             affine k=16 and flag k=8 modes, K4 ubn_norm, K5
+             flash_attention, K7 page_gather, K6 paged_attention), with its
+             time, bound, plain time and the time of one PyTorch call for
+             the same function where one exists (used only as a
              yardstick).
   3. serve   `make_engine("granite-3-8b", reduced=False, n_layers=4)`: the
              full-width model (4096 wide, 32 query / 8 KV heads of 128,
@@ -25,6 +27,15 @@ prints no result line:
              same requests through the plain versions on the card, which
              must give the same tokens and logits; then a torch.profiler
              breakdown of the decode step.
+  4. train   `repro_torch.launch.train.make_train_step` on granite-3-8b at
+             full width, 4 of 40 layers, seed 0, full8 native, one
+             TokenTask ("arith") sequence of the train_4k length (batch 1 x
+             4096 tokens): 3 steps with their loss, wall time, peak memory
+             and kernel launches (dgrad, wgrad and flash_attention > 0 in
+             every step); a torch.profiler breakdown of one more step; then
+             step 1 again from the same weights through the plain versions
+             on the card, whose loss, parameters and momentum accumulator
+             must equal the kernel run's bit for bit.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -73,6 +84,10 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
 
 
 def record(name, source, replaces, ms, plain_ms, nbytes, ops, rate,
@@ -149,12 +164,104 @@ def phase_kernels() -> None:
             "batched qmatmul differs"
     m, k, n = 4, 4096, 12800          # decode w_gate / w_up: the largest
     a, b = i8(m, k), i8(k, n)
-    log("  library: none at this shape (torch._int_mm takes M > 16 only)")
+    log(f"  decode shape {m}x{k}x{n}: "
+        f"{time_ms(lambda: ops.qmatmul(a, b)):.4f} ms (library: none, "
+        f"torch._int_mm takes M > 16 only)")
+    m = 4096                          # the training step's w_gate / w_up
+    a, b = i8(m, k), i8(k, n)
+    assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), \
+        "qmatmul at M=4096 differs"
     record("qmatmul", "src/repro_torch/csrc/qmatmul.cu",
            "src/repro/kernels/qmatmul.py:62",
            time_ms(lambda: ops.qmatmul(a, b)),
-           time_ms(lambda: ref.qmatmul(a, b), 5),
-           m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS, None, 0)
+           time_ms(lambda: ref.qmatmul(a, b), 3),
+           m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS,
+           time_ms(lambda: torch._int_mm(a, b)), 0)
+
+    # ---- K3 dgrad / wgrad: every qdense of the training step, M = 4096
+    # tokens; the three prologue modes (full8 = flag, e2_16 = affine k=16)
+    log("[kernels] K3 dgrad / wgrad (bitwise)")
+    m = 4096
+    modes = (("affine", 8, 2.0 ** 14), ("affine", 16, 2.0 ** 22),
+             ("flag", 8, 2.0 ** 13))
+    for kd, n in ((4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)):
+        e = f32(m, n) * 1e-3
+        b8, a8 = i8(kd, n), i8(m, kd)
+        for mode, kb, inv in modes:
+            sc = torch.tensor([inv, 2.0 ** -20, 2.0 ** -27], device=dev)
+            assert torch.equal(ops.dgrad(e, b8, sc, mode=mode, k=kb),
+                               ref.dgrad(e, b8, sc, mode=mode, k=kb)), \
+                f"dgrad {mode} k={kb} {m}x{n}x{kd} differs"
+            assert torch.equal(ops.wgrad(a8, e, sc, mode=mode, k=kb),
+                               ref.wgrad(a8, e, sc, mode=mode, k=kb)), \
+                f"wgrad {mode} k={kb} {m}x{n}x{kd} differs"
+    kd, n = 4096, 12800               # the backward of w_gate / w_up
+    e = f32(m, n) * 1e-3
+    b8, a8 = i8(kd, n), i8(m, kd)
+    sc = torch.tensor([2.0 ** 13, 2.0 ** -20, 2.0 ** -27], device=dev)
+    for mode, kb, inv in modes:
+        sck = torch.tensor([inv, 2.0 ** -20, 2.0 ** -27], device=dev)
+        log(f"  {mode} k={kb}: dgrad "
+            f"{time_ms(lambda: ops.dgrad(e, b8, sck, mode=mode, k=kb)):.4f}"
+            f" ms, wgrad "
+            f"{time_ms(lambda: ops.wgrad(a8, e, sck, mode=mode, k=kb)):.4f}"
+            f" ms")
+    planes = ref.bwd_error_planes(e, sc[0], mode="flag", k=8)
+    bt = b8.t().contiguous()
+    at = a8.t().contiguous()
+    nbytes = 4 * m * n + kd * n + 4 * m * kd
+    record("dgrad", "src/repro_torch/csrc/backward.cu",
+           "src/repro/kernels/backward.py:123",
+           time_ms(lambda: ops.dgrad(e, b8, sc, mode="flag", k=8)),
+           time_ms(lambda: ref.dgrad(e, b8, sc, mode="flag", k=8), 3),
+           nbytes, 2 * 2 * m * n * kd, INT8_OPS,
+           time_ms(lambda: [torch._int_mm(q, bt) for q in planes]),
+           max_err(ops.dgrad(e, b8, sc, mode="flag", k=8),
+                   ref.dgrad(e, b8, sc, mode="flag", k=8)))
+    record("wgrad", "src/repro_torch/csrc/backward.cu",
+           "src/repro/kernels/backward.py:153",
+           time_ms(lambda: ops.wgrad(a8, e, sc, mode="flag", k=8)),
+           time_ms(lambda: ref.wgrad(a8, e, sc, mode="flag", k=8), 3),
+           4 * m * n + m * kd + 4 * kd * n, 2 * 2 * m * n * kd, INT8_OPS,
+           time_ms(lambda: [torch._int_mm(at, q.contiguous())
+                            for q in planes]),
+           max_err(ops.wgrad(a8, e, sc, mode="flag", k=8),
+                   ref.wgrad(a8, e, sc, mode="flag", k=8)))
+
+    # ---- K5 flash_attention: one layer's causal attention at train_4k
+    log("[kernels] K5 flash_attention (bitwise)")
+    s_, h, kvh, dh = 4096, 32, 8, 128
+    q8, k8, v8 = i8(1, s_, h, dh), i8(1, s_, kvh, dh), i8(1, s_, kvh, dh)
+    pos = torch.arange(s_, device=dev, dtype=torch.int32)
+    kval = torch.ones(s_, device=dev, dtype=torch.int32)
+    scs = [torch.tensor(v, device=dev) for v in (2.0 ** -6, 2.0 ** -7,
+                                                  2.0 ** -7)]
+    fkw = dict(causal=True, sm_scale=dh ** -0.5, q_chunk=1024, kv_chunk=512)
+    fargs = (q8, k8, v8, pos, pos, kval, *scs)
+    got, want = ops.flash_attention(*fargs, **fkw), \
+        ref.flash_attention(*fargs, **fkw)
+    assert torch.equal(got, want), "flash_attention differs"
+    kval2 = (pos < s_ - 300).to(torch.int32)       # padded kv slots
+    nc = dict(fkw, causal=False)
+    assert torch.equal(ops.flash_attention(q8, k8, v8, pos, pos, kval2,
+                                           *scs, **nc),
+                       ref.flash_attention(q8, k8, v8, pos, pos, kval2,
+                                           *scs, **nc)), \
+        "flash_attention (padded, not causal) differs"
+    qb = (q8.float() * scs[0]).to(torch.bfloat16).transpose(1, 2)
+    kb_ = (k8.float() * scs[1]).to(torch.bfloat16).transpose(1, 2)
+    vb = (v8.float() * scs[2]).to(torch.bfloat16).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s_ * (s_ + 1) // 2          # causal: the scores this data needs
+    record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/paged_attention.py:275",
+           time_ms(lambda: ops.flash_attention(*fargs, **fkw), 5),
+           time_ms(lambda: ref.flash_attention(*fargs, **fkw), 2),
+           q8.numel() + 2 * k8.numel() + 4 * got.numel(),
+           2 * 2 * pairs * h * dh, INT8_OPS,
+           time_ms(lambda: sdpa(qb, kb_, vb, is_causal=True,
+                                enable_gqa=True), 5),
+           max_err(got, want))
 
     # ---- K2 quantize: the largest per-forward weight (Q_W of w_gate)
     log("[kernels] K2 quantize (bitwise)")
@@ -239,6 +346,8 @@ def phase_kernels() -> None:
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = (100, 37, 256, 64)
+SERVE_KERNELS = ("qmatmul", "quantize", "ubn_norm", "page_gather",
+                 "paged_attention")
 NEW_TOKENS = 16
 ENGINE_KW = dict(max_lanes=4, page_size=16, max_ctx=512)
 
@@ -311,8 +420,9 @@ def phase_serve() -> dict:
         f"bound {1e3 * step_bytes / HBM_BPS:.3f} ms/step at 3.35 TB/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB")
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was never launched on the main path"
+    for k in SERVE_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was never launched on the " \
+            "serving path"
     for t in toks:
         assert len(t) == NEW_TOKENS and all(0 <= x < a.vocab for x in t)
 
@@ -378,6 +488,145 @@ def profile_decode(eng, steps: int = 3) -> None:
             eng.model.paged_decode_step(view, z, z)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
+    report_profile(prof, wall_us, steps, "decode step")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: train granite-3-8b at full width, 4 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 4096          # the reference's train_4k sequence length
+TRAIN_STEPS = 3
+TRAIN_KERNELS = ("qmatmul", "quantize", "ubn_norm", "dgrad", "wgrad",
+                 "flash_attention")
+
+
+def _host_copy(tree) -> list:
+    from repro_torch.optim import flatten
+    return [t.detach().to("cpu", copy=True) for t in flatten(tree)]
+
+
+def phase_train() -> dict:
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    t0 = time.time()
+    cfg = preset("full8")
+    model = build_model(get("granite-3-8b").replace(n_layers=4), cfg,
+                        device="cuda").init(0)
+    a = model.a
+    task = TokenTask(a.vocab, TRAIN_SEQ, 1, kind="arith")
+    init_params = _host_copy(model.params())
+    opt = init_momentum(model.params())
+    step = make_train_step(model, cfg, lr=0.05)
+    log(f"[train] granite-3-8b at full width, {a.n_layers} of 40 layers, "
+        f"{model.n_params() / 1e9:.2f} G fp32 params, full8 native, batch "
+        f"1 x {TRAIN_SEQ} tokens (TokenTask arith), q_chunk {a.q_chunk}, "
+        f"kv_chunk {a.kv_chunk}; built in {time.time() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, total = [], dict.fromkeys(ops.LAUNCHES, 0)
+    after1 = None
+    for i in range(TRAIN_STEPS):
+        ops.reset_launches()
+        t0 = time.time()
+        met = step(opt, task.batch(i), i)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        loss = float(met["loss"])
+        losses.append(loss)
+        counts = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += counts[k]
+        log(f"[train] step {i + 1}: loss {loss:.6f}, wall {wall:.3f} s, "
+            f"{TRAIN_SEQ / wall:.1f} tokens/s; launches {counts}")
+        assert math.isfinite(loss), "non-finite loss"
+        for k in TRAIN_KERNELS:
+            assert counts[k] > 0, f"kernel {k} not launched in train step"
+        if i == 0:
+            after1 = (_host_copy(model.params()), _host_copy(opt.acc))
+    log(f"[train] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    split_train(model, cfg, opt, task)
+    profile_train(step, opt, task)
+
+    # step 1 again from the same weights through the plain versions
+    with torch.no_grad():
+        for p, h in zip(flatten(model.params()), init_params):
+            p.copy_(h)
+    opt = init_momentum(model.params())
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    with ops.plain_reference():
+        ploss = float(step(opt, task.batch(0), 0)["loss"])
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == before, "the plain run launched a kernel"
+    same_p = [torch.equal(p.detach().cpu(), h)
+              for p, h in zip(flatten(model.params()), after1[0])]
+    same_a = [torch.equal(x.cpu(), h)
+              for x, h in zip(flatten(opt.acc), after1[1])]
+    log(f"[train] step 1 through the plain versions: {time.time() - t0:.1f}"
+        f" s, loss {ploss:.6f} vs {losses[0]:.6f}; parameters equal "
+        f"{sum(same_p)}/{len(same_p)}, accumulator equal "
+        f"{sum(same_a)}/{len(same_a)}")
+    assert ploss == losses[0], "plain step-1 loss differs from the kernels'"
+    assert all(same_p), "plain step-1 parameters differ from the kernels'"
+    assert all(same_a), "plain step-1 accumulator differs from the kernels'"
+    return total
+
+
+def split_train(model, cfg, opt, task) -> None:
+    """One more step by its parts, host clock around synchronised work:
+    forward (model.loss), backward (loss.backward()), optimizer (CQ noise,
+    gradient quantization and the Momentum update) - the parts that
+    make_train_step runs in this order."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.launch.train import SEED, _grad_tree
+    from repro_torch.optim import fixed_point_lr, momentum_update
+    i = TRAIN_STEPS
+    torch.cuda.synchronize()
+    t0 = time.time()
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(task.batch(i))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.time()
+    params = model.params()
+    key = prng.fold_in(prng.prng_key(SEED), i)
+    momentum_update(cfg, params, _grad_tree(params), opt, model.labels(),
+                    prng.fold_in(key, 1), fixed_point_lr(0.05, cfg))
+    torch.cuda.synchronize()
+    t3 = time.time()
+    model.zero_grad(set_to_none=True)
+    log(f"[train] step {i + 1} by parts: forward {t1 - t0:.3f} s, backward "
+        f"{t2 - t1:.3f} s, optimizer {t3 - t2:.3f} s (loss "
+        f"{float(loss.detach()):.6f})")
+
+
+def profile_train(step, opt, task) -> None:
+    """Where a training step's time goes: torch.profiler over one more
+    step; device time by kernel name and the busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(opt, task.batch(TRAIN_STEPS + 1), TRAIN_STEPS + 1)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.time() - t0)
+    report_profile(prof, wall_us, 1, "train step")
+
+
+def report_profile(prof, wall_us: float, steps: int, what: str) -> None:
+    import torch
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -390,14 +639,15 @@ def profile_decode(eng, steps: int = 3) -> None:
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
     if busy <= 0:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[profile] {what}: the profiler saw no device time: not "
+            f"measured")
         return
-    log(f"[profile] {steps} decode steps (profiler on): wall "
-        f"{wall_us / 1e3 / steps:.3f} ms/step, device busy "
-        f"{busy / 1e3 / steps:.3f} ms/step, busy share {busy / wall_us:.3f}")
-    for e in rows[:12]:
-        log(f"  {dev_us(e) / 1e3 / steps:8.3f} ms/step  "
-            f"{e.count // steps:4d} calls/step  {e.key[:70]}")
+    log(f"[profile] {steps} {what}(s) (profiler on): wall "
+        f"{wall_us / 1e3 / steps:.3f} ms each, device busy "
+        f"{busy / 1e3 / steps:.3f} ms each, busy share {busy / wall_us:.3f}")
+    for e in rows[:14]:
+        log(f"  {dev_us(e) / 1e3 / steps:9.3f} ms  "
+            f"{e.count // steps:5d} calls  {e.key[:70]}")
 
 
 def main() -> int:
@@ -409,6 +659,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # deterministic cuBLAS (read when the first handle is made)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -417,12 +669,19 @@ def main() -> int:
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the kernel run and the plain run of a training step must agree bit
+    # for bit: deterministic PyTorch algorithms (the embedding gradient's
+    # scatter-add among them) on both
+    torch.use_deterministic_algorithms(True, warn_only=True)
     t0 = time.time()
     card = phase_build()
     phase_kernels()
     launches = phase_serve()
+    train_launches = phase_train()
     for r in RESULTS:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (train_launches[r["name"]]
+                         if r["name"] in ("dgrad", "wgrad", "flash_attention")
+                         else launches[r["name"]])
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": RESULTS}))
     print(f"card: {card}")

@@ -5,7 +5,8 @@ module by module and imports nothing of it (nor JAX); every TPU kernel on
 a ported path is a hand-written CUDA kernel for sm_90a (`csrc/`), with a
 plain PyTorch version beside it (`kernels/ref.py`).
 
-Ported so far: the chunked-prefill + decode serving path of the dense LM
-(`serving.make_engine`), on the kernels qmatmul, quantize, ubn_norm,
-page_gather and paged_attention.
+Ported so far, for the dense LM: the chunked-prefill + decode serving path
+(`serving.make_engine`) and the single-device training step
+(`launch.train.make_train_step`), on the kernels qmatmul, quantize,
+dgrad/wgrad, ubn_norm, flash_attention, page_gather and paged_attention.
 """

@@ -25,6 +25,10 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     act: str = "silu"
     rope_theta: float = 1e4
+    # attention chunking of the training forward: the quantization chunks
+    # of the flash kernel (each per-chunk decomposition's amax spans one)
+    q_chunk: int = 1024
+    kv_chunk: int = 512
     source: str = ""
 
     @property
@@ -43,9 +47,9 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
-        2 layers, width 64, 4 heads / 2 KV heads of width 16)."""
+        2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16)."""
         return self.replace(
             name=self.name + "-smoke", n_layers=min(self.n_layers, 2),
             d_model=64, n_heads=4, n_kv=min(self.n_kv, 2) if self.n_kv else 0,
             d_ff=96 if self.d_ff else 0, vocab=min(self.vocab, 128),
-            head_dim=16)
+            head_dim=16, q_chunk=16, kv_chunk=16)

@@ -28,3 +28,10 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
             "layers": {k: t(tree["layers"][k]) for k in LAYER_KEYS},
             "final_norm": t(tree["final_norm"]),
             "lm_head": t(tree["lm_head"])}
+
+
+def momentum_from_jax(acc: dict, step: int = 0, device="cpu"):
+    """The reference's MomentumState.acc tree (numpy leaves) -> the port's
+    MomentumState, so both packages can start from one optimizer state."""
+    from repro_torch.optim import MomentumState
+    return MomentumState(acc=params_from_jax(acc, device), step=int(step))

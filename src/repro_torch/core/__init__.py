@@ -1,5 +1,6 @@
-"""WAGEUBN quantized core for the port: QTensor, quantizers, QConfig and the
-forward ops (qdense / qact / qrmsnorm)."""
+"""WAGEUBN quantized core for the port: QTensor, quantizers, QConfig, the
+threefry PRNG and the quantized ops with their Alg. 2 backward (qdense /
+qact / qrmsnorm)."""
 from .qconfig import FULL8, PRESETS, QConfig, preset
 from .qdense import qact, qdense, qprobs, qweight
 from .qnorm import qlayernorm, qrmsnorm

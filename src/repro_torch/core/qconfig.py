@@ -1,27 +1,46 @@
-"""Quantization configuration (the forward widths the serving slice reads).
+"""Quantization configuration for the WAGEUBN framework.
 
-Port of `repro.core.qconfig.QConfig`, forward subset: the mode, the
-forward-path widths and per-path quantizer specs.  The port serves with
-the fused kernels (UBN, paged decode attention) only: it has no unfused
-route, so the reference's `fuse_kernels` switch has no counterpart.
-Bit-width names follow the paper (k_W, k_A, k_BN, k_mu, k_sigma, k_gamma,
-k_beta, k_WU).  The error/gradient/optimizer widths arrive with the
-training step (ROADMAP Queue 1 item 1).
+Port of `repro.core.qconfig.QConfig`.  Bit-width names follow the paper
+(Yang et al. 2019, §III-B/§IV-A):
+  k_W, k_A, k_GW, k_E1, k_E2  weights / activations / weight-grad (dr bits) /
+                              error at layer boundary / error before matmul
+  k_GC                        constant scale bits of CQ (Eq. 7)
+  k_BN, k_mu, k_sigma, k_gamma, k_beta   BN / norm operand widths (Eq. 13)
+  k_Ggamma, k_Gbeta           gamma/beta gradient widths (Eq. 18)
+  k_Mom, k_Acc, k_lr, k_WU    Momentum optimizer + update widths (Eq. 19-24)
+
+Per-path quantizers are `QuantSpec`s resolved through the registry
+(`qtensor.py`): `w`/`a`/`e1`/`e2`/`e_attn`/`g`.  `e2_kind`/`e_attn_kind`
+are the reference's deprecated string aliases, reconciled with the specs in
+`__post_init__` exactly as the reference does.
+
+The port runs native mode only (int8/int16 payloads, integer dots) and
+always takes the fused kernels, so the reference's `fuse_kernels` switch
+has no counterpart.  Presets: `full8` and `e2_16` (the paper's two
+versions); the others raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 
-from .qtensor import QuantSpec
+from .qtensor import QuantSpec, legacy_kind, spec_from_alias
+
+# legacy single-width fields <-> structured spec fields
+_WIDTH_TO_SPEC = {"k_w": "w", "k_a": "a", "k_e1": "e1", "k_e2": "e2",
+                  "k_gc": "g"}
+
+UNPORTED = ("is not ported yet: the other numeric modes, presets and "
+            "microbatching are ROADMAP Queue 1 item 7")
 
 
 @dataclass(frozen=True)
 class QConfig:
-    # "native": QTensor int8 payloads + pow2 scales, integer dots.  The
-    # port serves native mode only so far; "sim" and "fp32" raise.
+    # "native": QTensor int8/int16 payloads + pow2 scales, integer dots.
+    # "sim" and "fp32" raise in validate().
     mode: str = "native"
 
+    # --- forward-path widths ---
     k_w: int = 8
     k_a: int = 8
     k_bn: int = 16
@@ -29,34 +48,125 @@ class QConfig:
     k_sigma: int = 16
     k_gamma: int = 8
     k_beta: int = 8
-    k_wu: int = 24           # master-weight grid (init, paper Eq. 9)
 
+    # --- error-path widths (backward) ---
+    k_e1: int = 8            # Q_E1 = shift-quantization at layer boundaries
+    k_e2: int = 8            # Q_E2 before weight matmuls (flag or 16-bit)
+
+    # --- structured per-path quantizer specs (registry-resolved) ---
     w: QuantSpec = field(default=QuantSpec("clip", 8))       # Q_W  (Eq. 10)
     a: QuantSpec = field(default=QuantSpec("scaled", 8))     # Q_A  (Eq. 14)
+    e1: QuantSpec = field(default=QuantSpec("sq", 8))        # Q_E1 (Eq. 15)
+    e2: QuantSpec = field(default=QuantSpec("flag", 8))      # Q_E2 (Eq. 17)
+    e_attn: QuantSpec = field(default=QuantSpec("sq", 8))    # act-act matmuls
+    g: QuantSpec = field(default=QuantSpec("cq", 15))        # CQ   (Eq. 7)
+
+    # deprecated string aliases; after __post_init__ they hold the
+    # canonical legacy names of the specs
+    e2_kind: str | None = None
+    e_attn_kind: str | None = None
+
+    # --- gradient / optimizer widths ---
+    k_gw: int = 8            # CQ dr bits: the base of the shrink schedule
+    k_gc: int = 15           # constant scale bits of CQ
+    k_ggamma: int = 15
+    k_gbeta: int = 15
+    k_mom: int = 3
+    k_acc: int = 13
+    k_lr: int = 10
+    k_wu: int = 24           # master-weight grid (init, paper Eq. 9)
+    stochastic_g: bool = True  # stochastic rounding inside CQ (Eq. 7)
+
+    # norm backward: autodiff through the statistics (True) or the paper's
+    # elementwise 1/sigma approximation (False)
+    norm_full_bwd: bool = True
+
+    # per-path switches (paper Table II single-path sensitivity runs)
+    quant_w: bool = True
+    quant_a: bool = True
+    quant_bn: bool = True
+    quant_g: bool = True
+    quant_e1: bool = True
+    quant_e2: bool = True
+    quant_u: bool = True
+
+    def __post_init__(self):
+        set_ = lambda n, v: object.__setattr__(self, n, v)  # noqa: E731
+        # a string alias wins only when it differs from its spec's own
+        # canonical name (a carried-through canonical string must not
+        # rebuild the spec)
+        e2_str = self.e2_kind
+        if e2_str is not None and e2_str != legacy_kind(self.e2):
+            set_("e2", spec_from_alias(e2_str, self.k_e2))
+        if (self.e_attn_kind is not None
+                and self.e_attn_kind != legacy_kind(self.e_attn)):
+            set_("e_attn", spec_from_alias(self.e_attn_kind, self.e_attn.k))
+        # an explicitly configured spec wins; an untouched default spec
+        # inherits its width field; a present e2 string pins e2's width
+        for kf, sf in _WIDTH_TO_SPEC.items():
+            if sf == "e2" and e2_str is not None:
+                set_("k_e2", self.e2.k)
+                continue
+            spec, kval = getattr(self, sf), getattr(self, kf)
+            if spec.k != kval:
+                if spec == _DEFAULT_SPECS[sf]:
+                    set_(sf, spec.replace(k=kval))
+                else:
+                    set_(kf, spec.k)
+        set_("e2_kind", legacy_kind(self.e2))
+        set_("e_attn_kind", legacy_kind(self.e_attn))
+
+    @property
+    def quantize(self) -> bool:
+        return self.mode != "fp32"
+
+    @property
+    def native(self) -> bool:
+        return self.mode == "native"
 
     def replace(self, **kw) -> "QConfig":
+        if "e2" in kw and "e2_kind" not in kw:
+            kw["e2_kind"] = None
+        if "e_attn" in kw and "e_attn_kind" not in kw:
+            kw["e_attn_kind"] = None
+        for kf, sf in _WIDTH_TO_SPEC.items():
+            if kf in kw and sf not in kw:
+                kw[sf] = getattr(self, sf).replace(k=kw[kf])
+                if sf == "e2" and "e2_kind" not in kw:
+                    kw["e2_kind"] = None
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
         if self.mode != "native":
-            raise NotImplementedError(
-                f"mode={self.mode!r}: the port serves native mode only (the "
-                "sim/fp32 modes come with the training step, ROADMAP Queue 1 "
-                "item 1)")
-        self.w.make()
-        self.a.make()
+            raise NotImplementedError(f"mode={self.mode!r} {UNPORTED}")
+        # Paper Eq. 22: k_Ggamma = k_Gbeta = k_GC = k_Mom + k_Acc - 1
+        if not (self.k_ggamma == self.k_gbeta == self.k_gc
+                == self.k_mom + self.k_acc - 1):
+            raise ValueError("bit-width closure Eq.(22) violated")
+        # Paper Eq. 24: k_WU = k_GC + k_lr - 1
+        if self.k_wu != self.k_gc + self.k_lr - 1:
+            raise ValueError("bit-width closure Eq.(24) violated")
+        for spec in (self.w, self.a, self.e1, self.e2, self.e_attn, self.g):
+            spec.make()
 
+
+_DEFAULT_SPECS = {sf: QConfig.__dataclass_fields__[sf].default
+                  for sf in _WIDTH_TO_SPEC.values()}
 
 FULL8 = QConfig()                                   # paper full 8-bit version
+E2_16 = QConfig(e2_kind="sq16", k_e2=16)            # paper 16-bit E2 version
 
-PRESETS = {"full8": FULL8}
+PRESETS = {"full8": FULL8, "e2_16": E2_16}
+# the reference's other presets, not ported yet
+UNPORTED_PRESETS = ("fp32", "w4a8", "a4", "g16")
 
 
 def preset(name: str, mode: str | None = None) -> QConfig:
+    if name in UNPORTED_PRESETS:
+        raise NotImplementedError(f"preset {name!r} {UNPORTED}")
     if name not in PRESETS:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet (ported: {sorted(PRESETS)}; "
-            "the others come with the training step, ROADMAP Queue 1 item 1)")
+        raise ValueError(f"unknown preset {name!r} (ported: "
+                         f"{sorted(PRESETS)})")
     cfg = PRESETS[name]
     if mode is not None:
         cfg = cfg.replace(mode=mode)

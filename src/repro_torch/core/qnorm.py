@@ -1,8 +1,13 @@
 """Quantized normalization (paper Eq. 11-13), fused forward through UBN.
 
-Port of `repro.core.qnorm`, forward only: in native mode the whole norm
-chain (statistics, normalize, and the five direct quantizations Q(mu),
-Q(sigma), Q_BN, Q(gamma), Q(beta)) is ONE pass of the ubn_norm kernel (K4).
+Port of `repro.core.qnorm`.  The forward of every norm is ONE pass of the
+ubn_norm kernel (K4): statistics, normalize, and the five direct
+quantizations Q(mu), Q(sigma), Q_BN, Q(gamma), Q(beta).  The backward, as
+in the reference, is autograd of the unfused body (`_qrmsnorm_unfused`,
+`_qlayernorm_unfused`) re-run at the saved inputs: every quantizer there
+is a straight-through direct quantizer, so autograd through the body IS the
+paper's quantized backward evaluated on grid values.  Q_E2 on the outgoing
+error is applied by the adjacent qeinsum.
 """
 from __future__ import annotations
 
@@ -10,12 +15,49 @@ import torch
 
 from repro_torch.kernels import ops
 
+from . import qfuncs as qf
 from .qconfig import QConfig
-from .qtensor import qt_carrier
+from .qtensor import get_quantizer, qt_carrier
 
 Tensor = torch.Tensor
 
 EPS_Q = 2.0 ** -8  # epsilon_q: small fixed-point value (Eq. 12)
+
+
+def _qs(cfg: QConfig, t: Tensor, k: int) -> Tensor:
+    """Direct-quantize with STE when BN quantization is on."""
+    if not cfg.quant_bn:
+        return t
+    return qf.ste(get_quantizer("direct", k), t)
+
+
+def _maybe_stop(cfg: QConfig, t: Tensor) -> Tensor:
+    return t if cfg.norm_full_bwd else t.detach()
+
+
+def _qrmsnorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor) -> Tensor:
+    ms = _maybe_stop(cfg, torch.mean(torch.square(x), dim=-1, keepdim=True))
+    sigma = torch.sqrt(ms)
+    sigma_q = _qs(cfg, sigma, cfg.k_sigma)
+    xhat = x / (sigma_q + EPS_Q)
+    xhat = _qs(cfg, xhat, cfg.k_bn)
+    gamma_q = _qs(cfg, gamma, cfg.k_gamma)
+    return gamma_q * xhat
+
+
+def _qlayernorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor,
+                        beta: Tensor) -> Tensor:
+    mu = _maybe_stop(cfg, torch.mean(x, dim=-1, keepdim=True))
+    var = _maybe_stop(cfg, torch.mean(torch.square(x), dim=-1, keepdim=True)
+                      - torch.square(mu))
+    sigma = torch.sqrt(torch.clamp(var, min=0.0))
+    mu_q = _qs(cfg, mu, cfg.k_mu)
+    sigma_q = _qs(cfg, sigma, cfg.k_sigma)
+    xhat = (x - mu_q) / (sigma_q + EPS_Q)
+    xhat = _qs(cfg, xhat, cfg.k_bn)
+    gamma_q = _qs(cfg, gamma, cfg.k_gamma)
+    beta_q = _qs(cfg, beta, cfg.k_beta)
+    return gamma_q * xhat + beta_q
 
 
 def _ubn_widths(cfg: QConfig) -> dict:
@@ -23,17 +65,47 @@ def _ubn_widths(cfg: QConfig) -> dict:
                 k_gamma=cfg.k_gamma, k_beta=cfg.k_beta, eps=EPS_Q)
 
 
+class _FusedNorm(torch.autograd.Function):
+    """K4 forward; backward = autograd of the unfused body."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, cfg, kind):
+        ctx.cfg, ctx.kind = cfg, kind
+        ctx.save_for_backward(x, gamma, beta)
+        y = ops.ubn_norm(x.reshape(-1, x.shape[-1]), gamma, beta, kind=kind,
+                         **_ubn_widths(cfg))
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        ins = [t.detach().requires_grad_() for t in (x, gamma)]
+        if beta is not None:
+            ins.append(beta.detach().requires_grad_())
+        with torch.enable_grad():
+            if ctx.kind == "rms":
+                y = _qrmsnorm_unfused(ctx.cfg, *ins)
+            else:
+                y = _qlayernorm_unfused(ctx.cfg, *ins)
+            grads = torch.autograd.grad(y, ins, g)
+        beta_g = grads[2] if beta is not None else None
+        return grads[0], grads[1], beta_g, None, None
+
+
+def _norm(cfg: QConfig, kind: str, x, gamma, beta):
+    x = qt_carrier(x)
+    if not cfg.quant_bn:
+        if kind == "rms":
+            return _qrmsnorm_unfused(cfg, x, gamma)
+        return _qlayernorm_unfused(cfg, x, gamma, beta)
+    return _FusedNorm.apply(x, gamma, beta, cfg, kind)
+
+
 def qrmsnorm(cfg: QConfig, x, gamma: Tensor) -> Tensor:
     """Quantized RMSNorm: the BN recipe with per-token stats, no mean."""
-    x = qt_carrier(x)
-    y = ops.ubn_norm(x.reshape(-1, x.shape[-1]), gamma, None, kind="rms",
-                     **_ubn_widths(cfg))
-    return y.reshape(x.shape)
+    return _norm(cfg, "rms", x, gamma, None)
 
 
 def qlayernorm(cfg: QConfig, x, gamma: Tensor, beta: Tensor) -> Tensor:
     """Quantized LayerNorm (per-token mean + var), same widths as BN."""
-    x = qt_carrier(x)
-    y = ops.ubn_norm(x.reshape(-1, x.shape[-1]), gamma, beta, kind="layer",
-                     **_ubn_widths(cfg))
-    return y.reshape(x.shape)
+    return _norm(cfg, "layer", x, gamma, beta)

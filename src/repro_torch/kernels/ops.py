@@ -1,10 +1,12 @@
-"""The five ops of the serving slice: a Hopper kernel for a CUDA tensor,
-the plain PyTorch version (`kernels/ref.py`) for a CPU tensor.
+"""The port's ops: a Hopper kernel for a CUDA tensor, the plain PyTorch
+version (`kernels/ref.py`) for a CPU tensor.
 
   qmatmul          K1  int8 x int8 -> int32 MAC (batched), optional fused
                        requantize epilogue emitting an int8 payload
   quantize         K2  payload emission clip(rint(x * inv_step), +-lim)
+  dgrad, wgrad     K3  Alg. 2 backward dots with Q_E2 fused in the prologue
   ubn_norm         K4  fused UBN: statistics + normalize + quantizers
+  flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
   paged_attention  K6  two-pass paged int8 decode attention
 
@@ -16,7 +18,8 @@ that way); the serving path never enters it.
 
 `LAUNCHES` counts kernel launches per op: an op adds one each time it
 launches its kernel (K6 counts one per call, which is two launches with
-the glue between) and never on the plain route.
+the glue between; K3 and K5 count one per call likewise) and never on the
+plain route.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from . import _build, ref
 Tensor = torch.Tensor
 
 LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "dgrad": 0, "wgrad": 0,
+            "flash_attention": 0}
 
 _PLAIN = False
 
@@ -52,6 +56,12 @@ _SIGS = {
                                            c_int, c_int, c_int, c_int, _P,
                                            _P, _P, _P, c_float, c_float, _P,
                                            _P, _P],
+    ("backward", "bwd_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
+                                 c_float, c_int, c_int, c_int, c_int, c_int,
+                                 _P],
+    ("flash_attention", "fa_launch"): [c_int] + [_P] * 13 + [
+        c_float, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+        c_int, _P],
 }
 _FNS: dict = {}
 
@@ -189,6 +199,82 @@ def quantize(x: Tensor, inv_step, lim: float = 127.0) -> Tensor:
     _launch("quantize", "quantize_launch", _ptr(xc), _ptr(inv), lim,
             _ptr(out), xc.numel(), _stream(xc))
     LAUNCHES["quantize"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K3 dgrad / wgrad
+# --------------------------------------------------------------------------
+
+_BWD_MODES = {("affine", 8): 0, ("affine", 16): 1, ("flag", 8): 2}
+
+
+def _bwd_mode(mode: str, k: int) -> int:
+    key = (mode, 8 if mode == "affine" and k <= 8 else k)
+    _need(key in _BWD_MODES,
+          f"backward kernel takes affine k <= 8, affine k = 16 and flag "
+          f"k = 8 (got {mode} k={k})")
+    return _BWD_MODES[key]
+
+
+def _bwd_kernel(g, x8, scal, mode, k, dgrad_: bool) -> Tensor:
+    md = _bwd_mode(mode, k)
+    _need(g.dtype == torch.float32 and x8.dtype == torch.int8
+          and g.dim() == 2 and x8.dim() == 2,
+          "dgrad/wgrad take a 2-D f32 error and a 2-D int8 payload")
+    gc, xc = g.contiguous(), x8.contiguous()
+    sc = scal.to(device=g.device, dtype=torch.float32).contiguous()
+    _need(sc.numel() == 3, "scal is [inv, s1, s2]")
+    m, n = gc.shape
+    if dgrad_:
+        kd = xc.shape[0]
+        _need(xc.shape[1] == n, f"dgrad shapes {tuple(g.shape)} x "
+              f"{tuple(x8.shape)}")
+        rows, cols, depth = m, kd, n
+    else:
+        kd = xc.shape[1]
+        _need(xc.shape[0] == m, f"wgrad shapes {tuple(x8.shape)} x "
+              f"{tuple(g.shape)}")
+        rows, cols, depth = kd, n, m
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    splits, kchunk = _splits(-(-rows // 64) * -(-cols // 64), depth, sms)
+    _need(splits < 65536, "backward kernel: too many splits")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
+    ws1 = ws2 = None
+    if splits > 1:
+        ws1 = torch.zeros((rows, cols), dtype=torch.int32, device=g.device)
+        if md == 2:
+            ws2 = torch.zeros_like(ws1)
+    lim = 2.0 ** (k - 1) - 1.0
+    _launch("backward", "bwd_launch", _ptr(gc), _ptr(xc), _ptr(sc),
+            _ptr(out), _ptr(ws1), _ptr(ws2), md, int(dgrad_), lim, m, n, kd,
+            splits, kchunk, _stream(gc))
+    return out
+
+
+def dgrad(g: Tensor, b8: Tensor, scal: Tensor, *, mode: str,
+          k: int = 8) -> Tensor:
+    """Input-error dot of Alg. 2, e4 = Qe(g) . b8^T: g (M, N) f32, b8
+    (K, N) int8 payload of the weight, scal (3,) f32 [inv, s1, s2] (the
+    payload step's reciprocal and the planes' output scales).  Q_E2 runs in
+    the kernel's prologue (mode "affine" k <= 8 or 16, or "flag" k = 8);
+    no integer error tensor is stored.  Returns (M, K) f32."""
+    if not _on_kernel(g):
+        return ref.dgrad(g, b8, scal, mode=mode, k=k)
+    out = _bwd_kernel(g, b8, scal, mode, k, True)
+    LAUNCHES["dgrad"] += 1
+    return out
+
+
+def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
+          k: int = 8) -> Tensor:
+    """Weight-gradient dot of Alg. 2, g_W = a8^T . Qe(g): a8 (M, K) int8
+    payload of the saved input, g (M, N) f32; same prologue and scal as
+    `dgrad`.  Returns (K, N) f32."""
+    if not _on_kernel(g):
+        return ref.wgrad(a8, g, scal, mode=mode, k=k)
+    out = _bwd_kernel(g, a8, scal, mode, k, False)
+    LAUNCHES["wgrad"] += 1
     return out
 
 
@@ -340,6 +426,88 @@ def paged_attention(q8: Tensor, k_pages: Tensor, v_pages: Tensor,
     return _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos,
                                    t_valid, q_scale, k_scale, v_scale,
                                    sm_scale, k_a, False)["out"]
+
+
+# --------------------------------------------------------------------------
+# K5 flash_attention
+# --------------------------------------------------------------------------
+
+
+def _grid_steps(maxabs: Tensor, scale: Tensor, k: int) -> Tensor:
+    """(n, 2) [inv, step] of the grid decomposition of each chunk whose
+    payload max |n| is `maxabs` (n,): amax = maxabs * scale exactly."""
+    step = torch.clamp(ref._pow2_ceil(maxabs.float() * scale),
+                       min=2.0 ** -24) * 2.0 ** (1 - k)
+    return torch.stack([1.0 / step, step], -1).contiguous()
+
+
+def _chunk_maxabs(x8: Tensor, chunk: int) -> Tensor:
+    """max |payload| of each chunk of x8 (B, L, ...) along L -> (L/chunk,)."""
+    b, n = x8.shape[:2]
+    v = x8.reshape(b, n // chunk, -1).transpose(0, 1).reshape(n // chunk, -1)
+    return torch.maximum(v.amax(1).int(), -(v.amin(1).int()))
+
+
+def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
+                    k_pos: Tensor, k_valid: Tensor, q_scale, k_scale,
+                    v_scale, *, causal: bool, sm_scale: float, q_chunk: int,
+                    kv_chunk: int, k_a: int = 8) -> Tensor:
+    """Tiled online-softmax attention on int8 payloads (training forward).
+
+    q8: (B, S, H, dh) int8; k8/v8: (B, T, KV, dh) int8, pre-padded to chunk
+    multiples; q_pos (S,), k_pos (T,) int; k_valid (T,) mask of real kv
+    slots; q/k/v_scale: pow2 payload scales; q_chunk/kv_chunk: the
+    quantization chunks.  Returns (B, S, H, dh) f32, the pre-Q_A output.
+
+    On the card: (a) per-chunk payload amaxes and grid steps, (b) the
+    statistics launch (each row's masked score max per kv chunk), (c) the
+    running max and the per-(q chunk, kv step) probability step, (d) the
+    main launch (csrc/flash_attention.cu)."""
+    scales = [_scalar(v, q8) for v in (q_scale, k_scale, v_scale)]
+    if not _on_kernel(q8):
+        return ref.flash_attention(
+            q8, k8, v8, q_pos, k_pos, k_valid, *scales, causal=causal,
+            sm_scale=sm_scale, q_chunk=q_chunk, kv_chunk=kv_chunk, k_a=k_a)
+    _need(q8.dtype == torch.int8 and k8.dtype == torch.int8
+          and v8.dtype == torch.int8, "flash_attention takes int8 payloads")
+    _need(k_a == 8, "flash_attention kernel takes k_a = 8")
+    b, s, h, dh = q8.shape
+    t, kv = k8.shape[1], k8.shape[2]
+    _need(v8.shape == k8.shape and k8.shape[0] == b and k8.shape[3] == dh
+          and h % kv == 0, "flash_attention head shapes")
+    _need(s % q_chunk == 0 and t % kv_chunk == 0,
+          "flash_attention operands must be padded to chunk multiples")
+    _need(kv_chunk % 64 == 0 and dh % 32 == 0 and dh <= 128,
+          f"flash_attention kernel takes kv_chunk % 64 == 0 and dh in "
+          f"(32, 64, 96, 128) (got kv_chunk={kv_chunk}, dh={dh})")
+    dev = q8.device
+    nq, nk = s // q_chunk, t // kv_chunk
+    qc8, kc8, vc8 = q8.contiguous(), k8.contiguous(), v8.contiguous()
+    i32 = lambda x: x.to(device=dev, dtype=torch.int32).contiguous()  # noqa
+    qp, kp, kvl = i32(q_pos), i32(k_pos), i32(k_valid)
+    sc = torch.stack(scales).contiguous()
+    qst = _grid_steps(_chunk_maxabs(qc8, q_chunk), scales[0], k_a)
+    kst = _grid_steps(_chunk_maxabs(kc8, kv_chunk), scales[1], k_a)
+    vst = _grid_steps(_chunk_maxabs(vc8, kv_chunk), scales[2], k_a)
+    rowmax = torch.empty((b, s, h, nk), dtype=torch.float32, device=dev)
+    out = torch.empty((b, s, h, dh), dtype=torch.float32, device=dev)
+    dims = (float(sm_scale), int(causal), b, s, t, h, kv, dh, q_chunk,
+            kv_chunk, _stream(qc8))
+    args = [_ptr(x) for x in (qc8, kc8, vc8, qp, kp, kvl, sc, qst, kst, vst)]
+    _launch("flash_attention", "fa_launch", 0, *args, None, _ptr(rowmax),
+            None, *dims)
+    # glue: running max over kv steps; the probability amax of each
+    # (q chunk, kv step) block is its rows' largest quantized exp(rowmax - m)
+    m = torch.cummax(rowmax, dim=-1).values.contiguous()
+    s_ = 2.0 ** (k_a - 1)
+    pmax = torch.round(ref._exp32(rowmax - m) * s_) / s_
+    pmax = pmax.reshape(b, nq, q_chunk * h, nk).amax(dim=(0, 2))
+    pst = torch.clamp(ref._pow2_ceil(pmax), min=2.0 ** -24) * 2.0 ** (1 - k_a)
+    pst = torch.stack([1.0 / pst, pst], -1).contiguous()
+    _launch("flash_attention", "fa_launch", 1, *args, _ptr(pst), _ptr(m),
+            _ptr(out), *dims)
+    LAUNCHES["flash_attention"] += 1
+    return out
 
 
 OPS = tuple(LAUNCHES)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five Hopper kernels of the serving slice.
+"""Plain PyTorch versions of the Hopper kernels of the port.
 
 Each function repeats, operation for operation, the JAX package's oracle
 (`repro/kernels/ref.py`) for the same TPU kernel, so that:
@@ -8,9 +8,12 @@ Each function repeats, operation for operation, the JAX package's oracle
 
 `kernels/ops.py` sends a CPU tensor here and a CUDA tensor to the kernel.
 
-Integer dots run in float64: every product of two int8 values is exact and
-every sum stays far below 2^53, so the float64 result is the exact integer
-(`torch.mm` on int8 returns int8 and wraps, and CUDA has no int32 matmul).
+Integer dots run in float64: every product of two int8 or int16 payloads
+is exact and every sum stays far below 2^53, so the float64 result is the
+exact integer (`torch.mm` on int8 returns int8 and wraps, and CUDA has no
+int32 matmul).  It is then wrapped to int32 as the reference's int32
+accumulation wraps: an int16 error plane (e2_16) against int8 can pass 2^31
+once the contraction is longer than 516.
 Rounding is half to even (`torch.round`), as `jnp.round` and CUDA `rintf`.
 
 The fp32 divisions, square roots and exponentials of K4 and K6 are taken in
@@ -30,8 +33,10 @@ NEG_INF = -1e9   # the attention mask fill (models/layers.py uses the same)
 
 
 def _int_dot(a8: Tensor, b8: Tensor) -> Tensor:
-    """Exact int32 product of integer tensors (batched like torch.matmul)."""
-    return torch.matmul(a8.double(), b8.double()).to(torch.int32)
+    """Integer product of integer tensors (batched like torch.matmul),
+    accumulated as int32 with two's-complement wrap."""
+    acc = torch.matmul(a8.double(), b8.double()).to(torch.int64)
+    return (torch.remainder(acc + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -58,6 +63,53 @@ def qmatmul(a8: Tensor, b8: Tensor, requant_inv: Tensor | None = None, *,
 def quantize(x: Tensor, inv_step: Tensor, lim: float = 127.0) -> Tensor:
     """Payload emission clip(round(x * inv_step), +-lim) -> int8."""
     return torch.clamp(torch.round(x * inv_step), -lim, lim).to(torch.int8)
+
+
+# --------------------------------------------------------------------------
+# K3 bwd_dgrad / bwd_wgrad (repro/kernels/backward.py)
+# --------------------------------------------------------------------------
+
+
+def bwd_error_planes(g: Tensor, inv: Tensor, *, mode: str, k: int) -> tuple:
+    """Q_E payload plane(s) of an error tensor, the fused-prologue formula:
+    "affine" one clip(round(g * inv), +-lim) plane (int8 for k <= 8, else
+    int16); "flag" the two disjoint-support int8 planes of Eq. 17."""
+    lim = 2.0 ** (k - 1) - 1.0
+    dt = torch.int8 if k <= 8 else torch.int16
+    if mode == "affine":
+        return (torch.clamp(torch.round(g * inv), -lim, lim).to(dt),)
+    if mode != "flag":
+        raise ValueError(f"unknown prologue mode {mode!r}")
+    n = g * inv
+    nlo = torch.round(n * 2.0 ** (k - 1))
+    isbig = (torch.abs(n) >= 1.0) | (torch.abs(nlo) >= 2.0 ** (k - 1))
+    zero = torch.zeros_like(n)
+    hi = torch.where(isbig, torch.clamp(torch.round(n), -lim, lim), zero)
+    lo = torch.where(isbig, zero, torch.clamp(nlo, -lim, lim))
+    return (hi.to(dt), lo.to(dt))
+
+
+def _plane_sum(dots, scal: Tensor) -> Tensor:
+    y = None
+    for acc, s in zip(dots, (scal[1], scal[2])):
+        t = acc.float() * s
+        y = t if y is None else y + t
+    return y
+
+
+def dgrad(g: Tensor, b8: Tensor, scal: Tensor, *, mode: str,
+          k: int) -> Tensor:
+    """da (M, K) = sum_planes einsum('mn,kn->mk', Qe(g), b8)_int32 * s_plane;
+    scal = [inv, s1, s2] (f32, on the device)."""
+    planes = bwd_error_planes(g, scal[0], mode=mode, k=k)
+    return _plane_sum((_int_dot(q, b8.t()) for q in planes), scal)
+
+
+def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
+          k: int) -> Tensor:
+    """db (K, N) = sum_planes einsum('mk,mn->kn', a8, Qe(g))_int32 * s_plane."""
+    planes = bwd_error_planes(g, scal[0], mode=mode, k=k)
+    return _plane_sum((_int_dot(a8.t(), q) for q in planes), scal)
 
 
 # --------------------------------------------------------------------------
@@ -202,3 +254,94 @@ def paged_attention(q8: Tensor, k_pages: Tensor, v_pages: Tensor,
     return paged_attention_parts(q8, k_pages, v_pages, table, q_pos,
                                  t_valid, q_scale, k_scale, v_scale,
                                  sm_scale=sm_scale, k_a=k_a)["out"]
+
+
+# --------------------------------------------------------------------------
+# K5 flash_attention (repro/kernels/paged_attention.py)
+# --------------------------------------------------------------------------
+
+
+def _heads_dot(a8: Tensor, b8: Tensor, swap: bool) -> Tensor:
+    """Per-(batch, kv-head) integer dots.  swap=False (scores): a8
+    (b, qc, kv, g, dh) x b8 (b, kc, kv, dh) -> (b, qc, kv, g, kc);
+    swap=True (p.v): a8 (b, qc, kv, g, kc) x b8 (b, kc, kv, dh)
+    -> (b, qc, kv, g, dh)."""
+    b, qc, kv, g, n = a8.shape
+    lhs = a8.permute(0, 2, 1, 3, 4).reshape(b, kv, qc * g, n)
+    rhs = b8.permute(0, 2, 1, 3) if swap else b8.permute(0, 2, 3, 1)
+    acc = _int_dot(lhs, rhs)
+    return acc.reshape(b, kv, qc, g, -1).permute(0, 2, 1, 3, 4)
+
+
+def flash_attention_parts(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
+                          k_pos: Tensor, k_valid: Tensor, q_scale, k_scale,
+                          v_scale, *, causal: bool, sm_scale: float,
+                          q_chunk: int, kv_chunk: int, k_a: int = 8) -> dict:
+    """Tiled online-softmax attention on int8 payloads (forward), chunk
+    for chunk the reference oracle `flash_attention_ref`: per-chunk grid
+    decompositions with the amax over the whole (B, chunk, heads) block,
+    probabilities quantized UNNORMALIZED onto the Q_A grid per kv step, and
+    the online rescale m/l/alpha in fp32.  exp and the final division are
+    taken in float64 and rounded once (`_exp32`, `_div32`), as the kernel
+    takes them; the row sums of quantized probabilities are exact in fp32.
+
+    q8: (B, S, H, dh) int8; k8/v8: (B, T, KV, dh) int8, pre-padded to chunk
+    multiples; q_pos (S,), k_pos (T,) int; k_valid (T,) mask of real kv
+    slots; scales: pow2 payload scales.  Returns {"out": (B, S, H, dh)
+    f32, "m", "l": (B, S, H) the final softmax max and sum}."""
+    b, s, h, dh = q8.shape
+    t, kv = k8.shape[1], k8.shape[2]
+    g = h // kv
+    nq, nk = s // q_chunk, t // kv_chunk
+    qf = (q8.float() * q_scale).reshape(b, s, kv, g, dh)
+    kf = k8.float() * k_scale
+    vf = v8.float() * v_scale
+    valid = k_valid != 0
+    s_ = 2.0 ** (k_a - 1)
+    out = torch.empty((b, s, kv, g, dh), dtype=torch.float32,
+                      device=q8.device)
+    ms = torch.empty((b, s, kv, g), dtype=torch.float32, device=q8.device)
+    ls = torch.empty_like(ms)
+    for iq in range(nq):
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        qi8, q_step = grid_decompose(qf[:, rows], k_a)
+        qp = q_pos[rows]
+        m = torch.full(qi8.shape[:-1], NEG_INF, dtype=torch.float32,
+                       device=q8.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qi8.shape, dtype=torch.float32, device=q8.device)
+        for j in range(nk):
+            cols = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            ki8, k_step = grid_decompose(kf[:, cols], k_a)
+            sc = _heads_dot(qi8, ki8, False).float() * (q_step * k_step)
+            sc = sc * sm_scale
+            mask = valid[cols][None, :]
+            if causal:
+                mask = (qp[:, None] >= k_pos[cols][None, :]) & mask
+            sc = torch.where(mask[None, :, None, None, :], sc,
+                             torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = _exp32(sc - m_new[..., None])
+            p = torch.round(p * s_) / s_             # qprobs, unnormalized
+            pi8, p_step = grid_decompose(p, k_a)
+            vi8, v_step = grid_decompose(vf[:, cols], k_a)
+            pv = _heads_dot(pi8, vi8, True).float() * (p_step * v_step)
+            alpha = _exp32(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            o = o * alpha[..., None] + pv
+            m = m_new
+        out[:, rows] = _div32(o, torch.clamp(l, min=1e-9)[..., None])
+        ms[:, rows], ls[:, rows] = m, l
+    return {"out": out.reshape(b, s, h, dh), "m": ms.reshape(b, s, h),
+            "l": ls.reshape(b, s, h)}
+
+
+def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
+                    k_pos: Tensor, k_valid: Tensor, q_scale, k_scale,
+                    v_scale, *, causal: bool, sm_scale: float, q_chunk: int,
+                    kv_chunk: int, k_a: int = 8) -> Tensor:
+    """`flash_attention_parts`' output (B, S, H, dh) f32."""
+    return flash_attention_parts(
+        q8, k8, v8, q_pos, k_pos, k_valid, q_scale, k_scale, v_scale,
+        causal=causal, sm_scale=sm_scale, q_chunk=q_chunk,
+        kv_chunk=kv_chunk, k_a=k_a)["out"]

@@ -1,0 +1,154 @@
+"""Train-step builder + the CLI training driver (single device, native).
+
+Port of `repro.launch.train.make_train_step` and its CLI.  One step is the
+full WAGEUBN loop: the quantized forward (`model.loss`), the quantized
+backward (`loss.backward()` through the port's autograd Functions: Q_E1 in
+qact, Q_E2 fused into the dgrad/wgrad kernels, the flash kernel's forward
+with the plain chunked body's backward), then CQ/Q gradient quantization,
+quantized Momentum and the fixed-point update (`optim/momentum.py`).  The
+stochastic-rounding key is fold_in(PRNGKey(17), step), then fold_in(., 1)
+for the optimizer, as in the reference, so the bits are a pure function of
+the step index.
+
+    python -m repro_torch.launch.train --arch granite-3-8b --reduced \
+        --mode native --steps 3 --batch 2 --seq 32 --device cpu
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+microbatching (n_micro > 1), the sharded step and the elastic runtime
+(--dp, --tp, --elastic, ...), checkpoints (--ckpt-dir, --resume).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+from repro_torch.configs import get as get_arch
+from repro_torch.core import prng
+from repro_torch.core.qconfig import UNPORTED, preset
+from repro_torch.data import TokenTask
+from repro_torch.models import build_model
+from repro_torch.optim import (dr_bits_schedule, fixed_point_lr, flatten,
+                               init_momentum, momentum_update,
+                               parse_boundaries)
+
+SEED = 17
+
+SHARDED = ("is not ported yet: the sharded step, its gradient wire and the "
+           "elastic runtime are ROADMAP Queue 1 item 5")
+CKPT = "is not ported yet: checkpoints are ROADMAP Queue 1 item 1"
+
+
+def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
+                    mom: float = 0.75, dr_bits: int | None = None,
+                    n_micro: int = 1):
+    """The training step for `model` (an LMTransformer holding its
+    parameters): step(opt_state, batch, step_idx) -> {"loss": 0-d tensor},
+    updating the model's parameters and opt_state.acc IN PLACE.
+
+    dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
+    base)."""
+    if n_micro != 1:
+        raise NotImplementedError(f"n_micro={n_micro} {UNPORTED}")
+    lrq = fixed_point_lr(lr, qcfg)
+    labels = model.labels() if labels_tree is None else labels_tree
+
+    def train_step(opt_state, batch: dict, step_idx: int) -> dict:
+        key = prng.fold_in(prng.prng_key(SEED), step_idx)
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(batch)
+        loss.backward()
+        params = model.params()
+        grads = _grad_tree(params)
+        momentum_update(qcfg, params, grads, opt_state, labels,
+                        prng.fold_in(key, 1), lrq, mom=mom, dr_bits=dr_bits)
+        model.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
+
+    return train_step
+
+
+def _grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    return tree.grad
+
+
+def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
+    sharded = {"dp": 1, "tp": 1, "n_shards": 0, "wire_bits": 16,
+               "grad_sync": "int_ring", "wire_codec": "auto",
+               "opt_shard": "replicated", "elastic": False,
+               "rebalance_flags": 0}
+    ckpt = {"ckpt_dir": "", "resume": False, "save_every": 25}
+    for table, why in ((sharded, SHARDED), (ckpt, CKPT)):
+        for name, default in table.items():
+            if getattr(args, name) != default:
+                raise NotImplementedError(
+                    f"--{name.replace('_', '-')} {why}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("repro_torch.launch.train")
+    p.add_argument("--arch", required=True)
+    p.add_argument("--preset", default="full8")
+    p.add_argument("--mode", default="native",
+                   choices=["fp32", "sim", "native"])
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=64)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--reduced", action="store_true",
+                   help="use the reduced smoke config (CPU scale)")
+    p.add_argument("--dr-boundaries", default="",
+                   help="comma-separated steps where CQ's dr width shrinks "
+                        "one bit (paper §III-C); base width is k_gw")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: the plain PyTorch versions "
+                        "of the kernels")
+    # the reference CLI's other flags: accepted, and refused unless default
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--save-every", type=int, default=25)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--n-shards", type=int, default=0)
+    p.add_argument("--wire-bits", type=int, default=16)
+    p.add_argument("--grad-sync", default="int_ring")
+    p.add_argument("--wire-codec", default="auto")
+    p.add_argument("--opt-shard", default="replicated")
+    p.add_argument("--elastic", action="store_true")
+    p.add_argument("--rebalance-flags", type=int, default=0)
+    args = p.parse_args(argv)
+    _refuse_unported(p, args)
+
+    acfg = get_arch(args.arch)
+    if args.reduced:
+        acfg = acfg.reduced()
+    qcfg = preset(args.preset, args.mode)
+    model = build_model(acfg, qcfg, device=args.device).init(0)
+    task = TokenTask(vocab=acfg.vocab, seq_len=args.seq,
+                     global_batch=args.batch)
+    opt = init_momentum(model.params())
+    bounds = parse_boundaries(args.dr_boundaries)
+    print(f"[train] {acfg.name} {args.preset}/{args.mode} on {model.device}: "
+          f"{sum(t.numel() for t in flatten(model.params())) / 1e6:.2f} M "
+          f"params, batch {args.batch} x seq {args.seq}")
+    steps: dict[int, object] = {}
+    cur = None
+    t0 = time.time()
+    for step in range(args.steps):
+        bits = dr_bits_schedule(step, bounds, base_bits=qcfg.k_gw)
+        if bits != cur:
+            if bounds:
+                print(f"[dr] step {step}: CQ dr width -> {bits} bits")
+            cur = bits
+        if bits not in steps:
+            steps[bits] = make_train_step(model, qcfg, lr=args.lr,
+                                          dr_bits=bits)
+        metrics = steps[bits](opt, task.batch(step), step)
+        print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+              f"({time.time() - t0:.1f}s)")
+
+
+if __name__ == "__main__":
+    main()

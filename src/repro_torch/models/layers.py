@@ -1,11 +1,15 @@
-"""Model building blocks of the serving slice: RoPE, paged int8 attention
-(chunked prefill and decode), the int8 KV page writes, SwiGLU and the norm.
+"""Model building blocks: RoPE, chunked online-softmax attention for
+training (the fused flash kernel forward, autograd of the plain chunked
+body backward), paged int8 attention for serving (chunked prefill and
+decode), the int8 KV page writes, SwiGLU, the norm and the loss's target
+gather.
 
-Port of the serving half of `repro.models.layers`, with the reference's
-layouts at every public function: activations (B, S, H, dh), KV pages
-(P, page, KV, dh) int8, page tables (B, NB).  Attention follows the
-paper's scheme as the reference adapts it: q.k and p.v are int8 x int8
-integer dots, softmax runs in fp32, probabilities go onto the k_A grid.
+Port of `repro.models.layers`, with the reference's layouts at every
+public function: activations (B, S, H, dh), KV pages (P, page, KV, dh)
+int8, page tables (B, NB).  Attention follows the paper's scheme as the
+reference adapts it: q.k and p.v are int8 x int8 integer dots through
+qeinsum (error quantizer cfg.e_attn on the way back), softmax runs in fp32,
+probabilities go onto the k_A grid.
 
 Page writes update the arena IN PLACE (the reference returns new arrays;
 eager PyTorch saves the copy per step).
@@ -18,8 +22,8 @@ import torch
 
 from repro_torch.core import qact, qdense, qlayernorm, qprobs, qrmsnorm
 from repro_torch.core.qconfig import QConfig
-from repro_torch.core.qdense import _fwd_quantize, _qt_contract
-from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qdense import qeinsum
+from repro_torch.core.qtensor import QTensor, qt_carrier
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -69,37 +73,153 @@ def rope(x: Tensor, pos: Tensor, theta: float = 1e4) -> Tensor:
 # --------------------------------------------------------------------------
 
 
-def _heads_contract(a8: Tensor, b8: Tensor) -> Tensor:
-    """Integer dot batched over (B, KV): a8 (B, KV, M, K) x b8 (B, KV, K, N)
-    -> int32 (B, KV, M, N) through one batched qmatmul launch."""
-    b, kv = a8.shape[:2]
-    out = ops.qmatmul(a8.reshape(b * kv, *a8.shape[2:]),
-                      b8.reshape(b * kv, *b8.shape[2:]))
-    return out.reshape(b, kv, *out.shape[1:])
+def target_logit(logits: Tensor, labels: Tensor) -> Tensor:
+    """The labels' logits as a masked sum over the vocab (the reference's
+    formula, which partitions over a vocab-sharded tensor)."""
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    mask = iota == labels[..., None].long()
+    return torch.sum(torch.where(mask, logits, 0.0), dim=-1)
 
 
-def _scores(q: QTensor, k: QTensor) -> Tensor:
-    """'bskgd,btkd->bskgt' on payloads: q (B,S,KV,G,dh), k (B,T,KV,dh)."""
-    b, s, kv, g, dh = q.shape
-
-    def contract(q8, k8):
-        a = q8.permute(0, 2, 1, 3, 4).reshape(b, kv, s * g, dh)
-        acc = _heads_contract(a, k8.permute(0, 2, 3, 1))   # (B,KV,S*G,T)
-        return acc.reshape(b, kv, s, g, -1).permute(0, 2, 1, 3, 4)
-
-    return _qt_contract(contract, q, k)
+def _attn_scores(cfg: QConfig, q, k) -> Tensor:
+    """(B,S,KV,G,dh) x (B,T,KV,dh) -> (B,S,KV,G,T) through qeinsum (one
+    batched qmatmul over (B, KV)); QTensor operands (the int8 KV cache)
+    feed their payloads with no re-decomposition."""
+    return qeinsum(cfg, "bskgd,btkd->bskgt", cfg.e_attn, False, q, k)
 
 
-def _attn_out(p: QTensor, v: QTensor) -> Tensor:
-    """'bskgt,btkd->bskgd' on payloads: p (B,S,KV,G,T), v (B,T,KV,dh)."""
-    b, s, kv, g, t = p.shape
+def _attn_out(cfg: QConfig, p, v) -> Tensor:
+    """(B,S,KV,G,T) x (B,T,KV,dh) -> (B,S,KV,G,dh) through qeinsum."""
+    return qeinsum(cfg, "bskgt,btkd->bskgd", cfg.e_attn, False, p, v)
 
-    def contract(p8, v8):
-        a = p8.permute(0, 2, 1, 3, 4).reshape(b, kv, s * g, t)
-        acc = _heads_contract(a, v8.permute(0, 2, 1, 3))   # (B,KV,S*G,dh)
-        return acc.reshape(b, kv, s, g, -1).permute(0, 2, 1, 3, 4)
 
-    return _qt_contract(contract, p, v)
+def _payload8(x) -> bool:
+    """Single-plane int8 QTensor: what the fused attention kernel
+    consumes (its carrier, when present, takes the gradient)."""
+    return (isinstance(x, QTensor) and x.lo is None
+            and x.data.dtype == torch.int8)
+
+
+def chunked_attention(cfg: QConfig, q, k, v, *, causal: bool,
+                      q_pos: Tensor, k_pos: Tensor, q_chunk: int = 1024,
+                      kv_chunk: int = 512):
+    """Memory-efficient online-softmax attention (flash style).
+
+    q: (B, S, H, dh) on the activation grid; k/v: (B, T, KV, dh).  Returns
+    (B, S, H, dh), the normalized output on the activation grid.  int8
+    payload operands (what qact makes) take the fused route: the flash
+    kernel (K5) forward, autograd of `_chunked_core` backward; raw fp32
+    operands take `_chunked_core` whole.  The
+    reference also asks a TPU VMEM budget (`flash_attention_fits`) here; a
+    Hopper block's memory does not grow with the chunk, so the port does
+    not: the two routes give the same numbers by the reference's contract.
+    """
+    if all(map(_payload8, (q, k, v))):
+        out = _FlashFused.apply(q.carrier, k.carrier, v.carrier, cfg, causal,
+                                min(q_chunk, q.shape[1]),
+                                min(kv_chunk, k.shape[1]), q, k, v, q_pos,
+                                k_pos)
+        return qact(cfg, "none", out)
+    return qact(cfg, "none", _chunked_core(
+        cfg, q, k, v, causal=causal, q_pos=q_pos, k_pos=k_pos,
+        q_chunk=q_chunk, kv_chunk=kv_chunk))
+
+
+def _pad_seq(x: Tensor, n: int, value=0) -> Tensor:
+    """Pad dim 1 (the sequence) of x by n entries of `value`."""
+    if not n:
+        return x
+    shape = list(x.shape)
+    shape[1] = n
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], 1)
+
+
+def _chunked_core(cfg: QConfig, q, k, v, *, causal: bool, q_pos: Tensor,
+                  k_pos: Tensor, q_chunk: int, kv_chunk: int) -> Tensor:
+    """Plain online-softmax body on the fp32 grid carriers (pre-Q_A
+    output), the fused route's backward ground truth: the per-chunk
+    qeinsums re-enter the integer path and apply Q_E2 (cfg.e_attn) on the
+    way back (Alg. 2)."""
+    q, k, v = qt_carrier(q), qt_carrier(k), qt_carrier(v)
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(dh)
+    q_chunk, kv_chunk = min(q_chunk, s), min(kv_chunk, t)
+    s_orig = s
+    sp, tp = -s % q_chunk, -t % kv_chunk
+    q = _pad_seq(q, sp)
+    q_pos = _pad_seq(q_pos[None], sp)[0]
+    k, v = _pad_seq(k, tp), _pad_seq(v, tp)
+    k_pos = _pad_seq(k_pos[None], tp)[0]
+    k_valid = _pad_seq(torch.ones((1, t), dtype=torch.bool,
+                                  device=k.device), tp, False)[0]
+    s, t = s + sp, t + tp
+    q = q.reshape(b, s, kv, g, dh)
+    outs = []
+    for iq in range(s // q_chunk):
+        rows = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        qi, qp = q[:, rows], q_pos[rows]
+        m = torch.full(qi.shape[:-1], NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qi.shape, dtype=torch.float32, device=q.device)
+        for j in range(t // kv_chunk):
+            cols = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            sc = _attn_scores(cfg, qi, k[:, cols]) * scale
+            mask = k_valid[cols][None, :]
+            if causal:
+                mask = (qp[:, None] >= k_pos[cols][None, :]) & mask
+            sc = torch.where(mask[None, :, None, None, :], sc, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            p = qprobs(cfg, p)                        # Q_A on probabilities
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            o = o * alpha[..., None] + _attn_out(cfg, p, v[:, cols])
+            m = m_new
+        outs.append(o / torch.clamp(l, min=1e-9)[..., None])
+    out = torch.cat(outs, 1).reshape(b, s, h, dh)
+    return out[:, :s_orig]
+
+
+class _FlashFused(torch.autograd.Function):
+    """Fused-forward attention: pad the payloads to chunk multiples and run
+    the flash kernel (K5); backward = autograd of `_chunked_core` at the
+    saved payloads (the reference's `_flash_fused` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, qc, kc, vc, cfg, causal, q_chunk, kv_chunk, q, k, v,
+                q_pos, k_pos):
+        ctx.args = (cfg, causal, q_chunk, kv_chunk)
+        ctx.res = (q.drop_carrier(), k.drop_carrier(), v.drop_carrier(),
+                   q_pos, k_pos)
+        s, t, dh = q.shape[1], k.shape[1], q.shape[3]
+        sp, tp = -s % q_chunk, -t % kv_chunk
+        ones = torch.ones((1, t), dtype=torch.int32, device=k.data.device)
+        out = ops.flash_attention(
+            _pad_seq(q.data, sp), _pad_seq(k.data, tp), _pad_seq(v.data, tp),
+            _pad_seq(q_pos[None], sp)[0], _pad_seq(k_pos[None], tp)[0],
+            _pad_seq(ones, tp)[0], q.scale, k.scale, v.scale,
+            causal=causal, sm_scale=1.0 / math.sqrt(dh), q_chunk=q_chunk,
+            kv_chunk=kv_chunk, k_a=cfg.k_a)
+        return out[:, :s]
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg, causal, q_chunk, kv_chunk = ctx.args
+        q, k, v, q_pos, k_pos = ctx.res
+        ctx.res = None
+        ins = [t.dequantize().requires_grad_() for t in (q, k, v)]
+        qw, kw, vw = (QTensor(t.data, t.scale, t.k, carrier=c)
+                      for t, c in zip((q, k, v), ins))
+        with torch.enable_grad():
+            out = _chunked_core(cfg, qw, kw, vw, causal=causal, q_pos=q_pos,
+                                k_pos=k_pos, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
+            dq, dk, dv = torch.autograd.grad(out, ins, ct)
+        return (dq, dk, dv) + (None,) * 9
 
 
 def paged_decode_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
@@ -136,7 +256,8 @@ def paged_prefill_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
     k8 = ops.page_gather(k_pages, table).reshape(b, nb * page, kv, dh)
     v8 = ops.page_gather(v_pages, table).reshape(b, nb * page, kv, dh)
     qr = q.reshape(b, s, kv, g, dh)
-    sc = _scores(qr, QTensor(k8, k_scale, 8)) * (1.0 / math.sqrt(dh))
+    sc = _attn_scores(cfg, qr, QTensor(k8, k_scale, 8)) \
+        * (1.0 / math.sqrt(dh))
     kp = torch.arange(nb * page, device=sc.device)
     mask = q_pos[:, None] >= kp[None, :]                 # (S, T) causal+valid
     sc = torch.where(mask[None, :, None, None, :], sc,
@@ -144,8 +265,8 @@ def paged_prefill_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
     m = torch.amax(sc, dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     p = qprobs(cfg, p / torch.sum(p, dim=-1, keepdim=True))
-    pq = _fwd_quantize(cfg, p, cfg.k_a)                  # one amax, grid
-    out = _attn_out(pq, QTensor(v8, v_scale, 8)).reshape(b, s, h, dh)
+    # p is decomposed once, one amax over the block (grid quantizer)
+    out = _attn_out(cfg, p, QTensor(v8, v_scale, 8)).reshape(b, s, h, dh)
     return qact(cfg, "none", out)
 
 

@@ -1,16 +1,19 @@
-"""Decoder-only dense LM (granite-3-8b) for paged serving.
+"""Decoder-only dense LM (granite-3-8b): training loss and paged serving.
 
-Port of `repro.models.transformer.LMTransformer`, the serving modes only:
-`chunk` (chunked prefill, one lane, one page of tokens) and `decode` (one
-token per lane), driven through the decode-state slot API the engine uses
-(`paged_decode_step`, `prefill_page`).  Monolithic prefill and the
-training loss are not ported yet (ROADMAP Queue 1 items 2 and 1).
+Port of `repro.models.transformer.LMTransformer`: `train` mode (the loss
+of the training step: chunked causal attention through the flash kernel,
+backward by autograd) and the serving modes `chunk` (chunked prefill, one
+lane, one page of tokens) and `decode` (one token per lane), driven
+through the decode-state slot API the engine uses (`paged_decode_step`,
+`prefill_page`).  Monolithic prefill in the engine is not ported yet
+(ROADMAP Queue 1 item 2).
 
 Weights keep the reference's layouts: stacked per-layer tensors (L, ...)
 in `layers` (ln1, wq, wk, wv, wo, ln2, w_gate, w_up, w_down), `embed`
 (Vp, d), `final_norm` (d,), `lm_head` (d, Vp).  The embedding and lm_head
 are exempt from quantization (the paper's first/last layer rule); every
-hidden matmul, norm and activation goes through the WAGEUBN ops.
+hidden matmul, norm and activation goes through the WAGEUBN ops.  The
+parameters require grad; the serving entry points run under no_grad.
 """
 from __future__ import annotations
 
@@ -51,8 +54,7 @@ class LMTransformer(nn.Module):
 
         def param(shape):
             return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                            device=self.device),
-                                requires_grad=False)
+                                            device=self.device))
 
         self.layers = nn.ParameterDict({k: param(s) for k, s in shapes.items()})
         self.embed = param((vp, d))
@@ -97,6 +99,13 @@ class LMTransformer(nn.Module):
     def _layer(self, i: int) -> dict:
         return {k: p[i] for k, p in self.layers.items()}
 
+    def _layer_views(self) -> list[dict]:
+        """Per-layer views of the stacked parameters, made by ONE unbind
+        per tensor, so the backward assembles each stacked gradient once."""
+        per = {k: p.unbind(0) for k, p in self.layers.items()}
+        return [{k: v[i] for k, v in per.items()}
+                for i in range(self.a.n_layers)]
+
     def _attn(self, p, x, pos, mode, cache):
         a, q = self.a, self.q
         b, s, _ = x.shape
@@ -104,6 +113,14 @@ class LMTransformer(nn.Module):
         qh = qdense(q, h, p["wq"]).reshape(b, s, a.n_heads, a.dh)
         kh = qdense(q, h, p["wk"]).reshape(b, s, a.n_kv, a.dh)
         vh = qdense(q, h, p["wv"]).reshape(b, s, a.n_kv, a.dh)
+        if mode == "train":
+            qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
+            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+            o = L.chunked_attention(q, qh, kh, vh, causal=True, q_pos=pos,
+                                    k_pos=pos, q_chunk=a.q_chunk,
+                                    kv_chunk=a.kv_chunk)
+            o = o.reshape(b, s, a.n_heads * a.dh)
+            return x + qdense(q, o, p["wo"])
         ks, vs = cache["k_scale"], cache["v_scale"]
         kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
         if mode == "chunk":
@@ -154,6 +171,35 @@ class LMTransformer(nn.Module):
             logits = torch.where(pad, torch.full_like(logits, L.NEG_INF),
                                  logits)
         return logits
+
+    # ---------------- training ----------------
+
+    def loss(self, batch: dict) -> Tensor:
+        """Mean next-token cross entropy of {"tokens", "labels"} (B, S):
+        logsumexp minus the label's logit over fp32 logits."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = self.embed[tokens]                        # exempt first layer
+        pos = torch.arange(tokens.shape[1], device=self.device)
+        for p in self._layer_views():
+            x = self._attn(p, x, pos, "train", None)
+            x = self._ffn(p, x)
+        logits = self._logits(x)
+        lse = torch.logsumexp(logits, dim=-1)
+        return torch.mean(lse - L.target_logit(logits, labels))
+
+    def params(self) -> dict:
+        """The parameter tree in the reference's layout (live tensors)."""
+        return {"embed": self.embed, "final_norm": self.final_norm,
+                "layers": dict(self.layers), "lm_head": self.lm_head}
+
+    def labels(self) -> dict:
+        """Optimizer label per leaf: "w" (CQ), "gamma" (15-bit), "exempt"
+        (first/last layer, vanilla momentum)."""
+        layer = {k: ("gamma" if k in ("ln1", "ln2") else "w")
+                 for k in LAYER_KEYS}
+        return {"embed": "exempt", "final_norm": "gamma", "layers": layer,
+                "lm_head": "exempt"}
 
     # ---------------- serving decode-state slot API ----------------
 

@@ -80,8 +80,8 @@ class Engine:
                  watchdog: StepWatchdog | None = None, clock=time.monotonic):
         if prefill_mode == "monolithic":
             raise NotImplementedError(
-                "prefill_mode='monolithic' (and its flash_attention kernel "
-                "K5) is not ported yet: ROADMAP Queue 1 item 2")
+                "prefill_mode='monolithic' is not ported yet (its attention, "
+                "the flash_attention kernel K5, is): ROADMAP Queue 1 item 2")
         if prefill_mode != "chunked":
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if temperature > 0.0 or top_k:

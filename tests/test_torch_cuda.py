@@ -5,10 +5,11 @@ with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every kernel equals its plain version bit for bit: K1, K2 and K7 by
-construction (integer work, or one rounding per element); K4 and K6
-because both sides take their sums in float64 and every division, sqrt
-and exp in float64, each rounded once to fp32.  Without a card each test
+Every kernel equals its plain version bit for bit: K1, K2, K3 and K7 by
+construction (integer work, or one rounding per element); K4, K5 and K6
+because both sides take their sums in float64 (K5's sums of quantized
+probabilities are exact in fp32) and every division, sqrt and exp in
+float64, each rounded once to fp32.  Without a card each test
 skips.
 """
 import numpy as np
@@ -76,3 +77,58 @@ def test_cuda_ubn_and_paged_attention_bitwise(cuda):
     pp = ref.paged_attention_parts(*args, sm_scale=128 ** -0.5)
     for part in ("m", "l", "p8", "out"):
         assert torch.equal(pk[part], pp[part]), part
+
+
+def _scal(inv, s1, s2, dev):
+    return torch.tensor([inv, s1, s2], dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k,inv", [("affine", 8, 2.0 ** 9),
+                                        ("affine", 16, 2.0 ** 17),
+                                        ("flag", 8, 2.0 ** 8)])
+def test_cuda_dgrad_wgrad_bitwise(cuda, mode, k, inv):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    scal = _scal(inv, 2.0 ** -16, 2.0 ** -23, cuda)
+    # ragged tiles, an aligned case, and a long contraction that splits
+    for m, n, kd in ((100, 96, 72), (256, 512, 128), (64, 8192, 64),
+                     (37, 45, 19)):
+        e = torch.randn((m, n), generator=g, device=cuda) * 0.01
+        b8, a8 = _i8(g, (kd, n), cuda), _i8(g, (m, kd), cuda)
+        assert torch.equal(ops.dgrad(e, b8, scal, mode=mode, k=k),
+                           ref.dgrad(e, b8, scal, mode=mode, k=k)), (m, n, kd)
+        assert torch.equal(ops.wgrad(a8, e, scal, mode=mode, k=k),
+                           ref.wgrad(a8, e, scal, mode=mode, k=k)), (m, n, kd)
+
+
+@pytest.mark.cuda
+def test_cuda_dgrad_int16_wraps_like_the_plain_version(cuda):
+    n = 20000                   # 20000 * 32767 * 127 > 2^31: the sum wraps
+    e = torch.ones((2, n), device=cuda)
+    b8 = torch.full((3, n), 127, dtype=torch.int8, device=cuda)
+    scal = _scal(2.0 ** 15, 1.0, 0.0, cuda)
+    got = ops.dgrad(e, b8, scal, mode="affine", k=16)
+    assert torch.equal(got, ref.dgrad(e, b8, scal, mode="affine", k=16))
+    wrapped = (n * 32767 * 127 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert float(got[0, 0]) == float(np.float32(wrapped))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,dh,pad", [(True, 128, 0), (False, 64, 40),
+                                           (True, 32, 17)])
+def test_cuda_flash_attention_bitwise(cuda, causal, dh, pad):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, s, t, h, kv = 2, 256, 256, 8, 2
+    q8, k8, v8 = (_i8(g, (b, s, h, dh), cuda), _i8(g, (b, t, kv, dh), cuda),
+                  _i8(g, (b, t, kv, dh), cuda))
+    q_pos = torch.arange(s, device=cuda, dtype=torch.int32)
+    k_pos = torch.arange(t, device=cuda, dtype=torch.int32)
+    k_valid = (k_pos < t - pad).to(torch.int32)
+    sc = [torch.tensor(v, device=cuda) for v in (2.0 ** -6, 2.0 ** -7,
+                                                 2.0 ** -5)]
+    kw = dict(causal=causal, sm_scale=dh ** -0.5, q_chunk=128, kv_chunk=64)
+    args = (q8, k8, v8, q_pos, k_pos, k_valid, *sc)
+    got = ops.flash_attention(*args, **kw)
+    want = ref.flash_attention(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)

@@ -4,7 +4,8 @@ On the CPU each op runs its plain PyTorch version; it is held against
 `repro.kernels.ref` and against the Pallas kernel in interpret mode on the
 same numpy inputs.  Tolerances:
 
-  K1 qmatmul, K2 quantize, K7 page_gather: bitwise.
+  K1 qmatmul, K2 quantize, K3 dgrad/wgrad, K7 page_gather: bitwise (K3's
+     int16 planes included, whose int32 sums wrap as the reference's do).
   K4 ubn_norm: a row's statistic is a sum taken in another order (float64
      here, fp32 in the reference) and an sqrt that XLA and PyTorch round
      differently on the CPU, so its k_sigma-grid value may land one grid
@@ -15,6 +16,11 @@ same numpy inputs.  Tolerances:
      the two libraries, and the order differs), so |dl| <= T * 2^-23 * l;
      the probability payload may flip by one code, which shows in the
      output as at most 2 * 127 * step * v_scale, on at most 2% of entries.
+  K5 flash_attention: the final row max m is bitwise equal; the row sum l
+     is rescaled by exp(m_old - m_new) at each kv step (exp differs by an
+     ulp between the libraries), so |dl| <= T * 2^-23 * l; the output's
+     Q_A payload codes (the grid the layer puts it on) differ by at most 1
+     on at most 1% of entries.
 
 The CUDA kernels are held against the plain versions on the card in
 test_torch_cuda.py.
@@ -34,6 +40,9 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.backward import bwd_dgrad as pallas_dgrad
+from repro.kernels.backward import bwd_wgrad as pallas_wgrad
+from repro.kernels.paged_attention import flash_attention as pallas_flash
 from repro.kernels.page_gather import page_gather as pallas_page_gather
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro.kernels.qmatmul import qmatmul as pallas_qmatmul
@@ -121,6 +130,141 @@ def test_quantize_bitwise(shape, inv):
 def test_quantize_half_to_even():
     x = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 200.0, -200.0])
     assert ops.quantize(x, 1.0).tolist() == [0, 2, 2, 0, -2, 127, -127]
+
+
+# --------------------------------------------------------------------------
+# K3 dgrad / wgrad
+# --------------------------------------------------------------------------
+
+BWD_MODES = [("affine", 8, 2.0 ** 9), ("affine", 16, 2.0 ** 17),
+             ("flag", 8, 2.0 ** 8)]
+
+
+@pytest.mark.parametrize("mode,k,inv", BWD_MODES)
+@pytest.mark.parametrize("m,n,kd", [(37, 70, 45), (16, 64, 32), (5, 600, 9)])
+def test_dgrad_wgrad_bitwise(mode, k, inv, m, n, kd):
+    r = np.random.default_rng(m * n + kd + k)
+    g = (r.standard_normal((m, n)) * 0.01).astype(np.float32)
+    b8, a8 = _i8(r, (kd, n)), _i8(r, (m, kd))
+    scal = np.array([inv, 2.0 ** -16, 2.0 ** -23], np.float32)
+    jg, js = jnp.asarray(g), jnp.asarray(scal)
+    kw = dict(mode=mode, k=k)
+    got = ops.dgrad(_t(g), _t(b8), _t(scal), **kw).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.dgrad_ref(jg, jnp.asarray(b8), js, **kw)))
+    np.testing.assert_array_equal(got, np.asarray(pallas_dgrad(
+        jg, jnp.asarray(b8), js, bm=32, bk=32, bn=32, interpret=True, **kw)))
+    got = ops.wgrad(_t(a8), _t(g), _t(scal), **kw).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.wgrad_ref(jnp.asarray(a8), jg, js, **kw)))
+    np.testing.assert_array_equal(got, np.asarray(pallas_wgrad(
+        jnp.asarray(a8), jg, js, bm=32, bk=32, bn=32, interpret=True, **kw)))
+
+
+def test_dgrad_int16_sum_wraps_like_the_reference():
+    n = 2000                   # 2000 * 32767 * 127 > 2^31: int32 wraps
+    g = np.ones((2, n), np.float32)
+    b8 = np.full((3, n), 127, np.int8)
+    scal = np.array([2.0 ** 15, 1.0, 0.0], np.float32)
+    got = ops.dgrad(_t(g), _t(b8), _t(scal), mode="affine", k=16).numpy()
+    want = np.asarray(jref.dgrad_ref(jnp.asarray(g), jnp.asarray(b8),
+                                     jnp.asarray(scal), mode="affine", k=16))
+    np.testing.assert_array_equal(got, want)
+    wrapped = (n * 32767 * 127 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert got[0, 0] == np.float32(wrapped) and wrapped != n * 32767 * 127
+
+
+@pytest.mark.parametrize("mode,k,inv", BWD_MODES)
+def test_error_planes_match_the_reference(mode, k, inv):
+    from repro_torch.kernels import ref
+    g = (np.random.default_rng(k).standard_normal((9, 33)) * 0.03).astype(
+        np.float32)
+    got = ref.bwd_error_planes(_t(g), torch.tensor(inv), mode=mode, k=k)
+    want = jref.bwd_error_planes_ref(jnp.asarray(g), jnp.float32(inv),
+                                     mode=mode, k=k)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# --------------------------------------------------------------------------
+# K5 flash_attention
+# --------------------------------------------------------------------------
+
+
+def _jax_flash_ml(q8, k8, qp, kp, kval, scales, *, causal, sm, qc, kc):
+    """The reference oracle's final m and l per row, by its own formulas
+    (flash_attention_ref keeps them internal)."""
+    b, s, h, dh = q8.shape
+    t, kv = k8.shape[1], k8.shape[2]
+    g = h // kv
+    qf = (q8.astype(jnp.float32) * scales[0]).reshape(b, s, kv, g, dh)
+    kf = k8.astype(jnp.float32) * scales[1]
+    ms, ls = [], []
+    for iq in range(s // qc):
+        qi8, q_step = jref._grid_decompose(qf[:, iq * qc:(iq + 1) * qc], 8)
+        qpos = qp[iq * qc:(iq + 1) * qc]
+        m = jnp.full(qi8.shape[:-1], jref.NEG_INF, jnp.float32)
+        l = jnp.zeros_like(m)
+        for j in range(t // kc):
+            ki8, k_step = jref._grid_decompose(kf[:, j * kc:(j + 1) * kc], 8)
+            sc = jnp.einsum("bskgd,btkd->bskgt", qi8, ki8,
+                            preferred_element_type=jnp.int32
+                            ).astype(jnp.float32) * (q_step * k_step)
+            sc = sc * sm
+            kval_j = kval[j * kc:(j + 1) * kc] != 0
+            mask = kval_j[None, :] if not causal else (
+                (qpos[:, None] >= kp[j * kc:(j + 1) * kc][None, :])
+                & kval_j[None, :])
+            sc = jnp.where(mask[None, :, None, None, :], sc, jref.NEG_INF)
+            m_new = jnp.maximum(m, jnp.max(sc, axis=-1))
+            p = jnp.round(jnp.exp(sc - m_new[..., None]) * 128.0) / 128.0
+            l = l * jnp.exp(m - m_new) + jnp.sum(p, axis=-1)
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+    return (np.asarray(jnp.concatenate(ms, 1)).reshape(b, s, h),
+            np.asarray(jnp.concatenate(ls, 1)).reshape(b, s, h))
+
+
+@pytest.mark.parametrize("causal,b,s,t,h,kv,dh,qc,kc,pad,interp", [
+    (True, 1, 32, 32, 4, 2, 16, 16, 16, 0, True),
+    (False, 2, 32, 48, 4, 2, 16, 16, 16, 5, False),
+    (True, 1, 64, 64, 8, 2, 16, 32, 16, 3, False),
+    (True, 1, 48, 48, 4, 4, 32, 16, 16, 0, False)])
+def test_flash_attention_within_bounds(causal, b, s, t, h, kv, dh, qc, kc,
+                                       pad, interp, exact_pow2):
+    r = np.random.default_rng(s + t + dh)
+    q8, k8, v8 = _i8(r, (b, s, h, dh)), _i8(r, (b, t, kv, dh)), \
+        _i8(r, (b, t, kv, dh))
+    qp, kp = np.arange(s, dtype=np.int32), np.arange(t, dtype=np.int32)
+    kval = (kp < t - pad).astype(np.int32)
+    scales = (2.0 ** -6, 2.0 ** -7, 2.0 ** -5)
+    sm = 1.0 / float(np.sqrt(dh))
+    kw = dict(causal=causal, sm_scale=sm, q_chunk=qc, kv_chunk=kc)
+    from repro_torch.kernels import ref
+    parts = ref.flash_attention_parts(
+        *(_t(x) for x in (q8, k8, v8, qp, kp, kval)),
+        *(torch.tensor(x) for x in scales), **kw)
+    jargs = (jnp.asarray(q8), jnp.asarray(k8), jnp.asarray(v8),
+             jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(kval),
+             *(jnp.float32(x) for x in scales))
+    want = np.asarray(jax.jit(functools.partial(jref.flash_attention_ref,
+                                                **kw))(*jargs))
+    if interp:     # the Pallas kernel equals its oracle (slow: one case)
+        kern = np.asarray(pallas_flash(*jargs, interpret=True, **kw))
+        np.testing.assert_array_equal(want, kern)
+    m, l = _jax_flash_ml(*jargs[:2], *jargs[3:6], jargs[6:], causal=causal,
+                         sm=sm, qc=qc, kc=kc)
+    np.testing.assert_array_equal(parts["m"].numpy(), m)
+    assert (np.abs(parts["l"].numpy() - l) <= t * 2.0 ** -23 * l).all()
+    got = parts["out"].numpy()
+    step = 2.0 ** (np.ceil(np.log2(np.abs(want).max())) - 7)
+    d = np.abs(np.round(got / step) - np.round(want / step))
+    assert d.max() <= 1 and np.mean(d > 0) <= 0.01
+    np.testing.assert_array_equal(ops.flash_attention(
+        *(_t(x) for x in (q8, k8, v8, qp, kp, kval)),
+        *(torch.tensor(x) for x in scales), **kw).numpy(), got)
 
 
 # --------------------------------------------------------------------------
@@ -279,9 +423,19 @@ def test_cpu_tensors_take_the_plain_route():
     ops.ubn_norm(torch.ones(2, 8), torch.ones(8))
     ops.page_gather(torch.zeros(3, 2, 4, dtype=torch.int8),
                     torch.zeros(1, 2, dtype=torch.int32))
+    scal = torch.tensor([1.0, 1.0, 0.0])
+    ops.dgrad(torch.zeros(2, 4), torch.zeros(3, 4, dtype=torch.int8), scal,
+              mode="affine", k=8)
+    ops.wgrad(torch.zeros(2, 3, dtype=torch.int8), torch.zeros(2, 4), scal,
+              mode="flag", k=8)
+    z8 = torch.zeros(1, 4, 2, 8, dtype=torch.int8)
+    pos = torch.arange(4)
+    ops.flash_attention(z8, z8, z8, pos, pos, torch.ones(4), 1.0, 1.0, 1.0,
+                        causal=True, sm_scale=0.5, q_chunk=2, kv_chunk=2)
     assert ops.LAUNCHES == dict.fromkeys(ops.OPS, 0)
     assert set(ops.OPS) == {"qmatmul", "quantize", "ubn_norm",
-                            "page_gather", "paged_attention"}
+                            "page_gather", "paged_attention", "dgrad",
+                            "wgrad", "flash_attention"}
 
 
 def test_every_kernel_has_a_source():
