@@ -13,10 +13,12 @@ prints no result line:
   2. kernels each kernel against its plain PyTorch version on the card at
              the serving and training paths' shapes, bit for bit (K1
              qmatmul, K2 quantize, K3 dgrad/wgrad in the affine k=8,
-             affine k=16 and flag k=8 modes, K4 ubn_norm, K5
-             flash_attention, K7 page_gather, K6 paged_attention), with its
-             time, bound, plain time and the time of one PyTorch call for
-             the same function where one exists (used only as a
+             affine k=16 and flag k=8 modes, K4 ubn_norm by rows and by
+             columns ("batch", ResNet-50's largest and smallest BN and a
+             ragged M), K5 flash_attention, K7 page_gather, K6
+             paged_attention, K8 cq_stochastic, which no path calls), with
+             its time, bound, plain time and the time of one PyTorch call
+             for the same function where one exists (used only as a
              yardstick).
   3. serve   `make_engine("granite-3-8b", reduced=False, n_layers=4)`: the
              full-width model (4096 wide, 32 query / 8 KV heads of 128,
@@ -36,6 +38,17 @@ prints no result line:
              step 1 again from the same weights through the plain versions
              on the card, whose loss, parameters and momentum accumulator
              must equal the kernel run's bit for bit.
+  5. resnet  the paper's ResNet-50 at full size (bottleneck stages 3/4/6/3,
+             widths 64 -> 2048, 224 x 224 x 3 images, 1000 classes, 161
+             parameter leaves, 25.6 M parameters), seed 0, full8 native,
+             lr 0.05: 3 steps of make_train_step on ImageTask(224, 1000,
+             32, seed=0) batches (the reference's batch of 128 cut to 32)
+             with loss, accuracy, wall time, images/s and kernel launches
+             (ubn_norm, which is K4 "batch" here, and quantize > 0 in every
+             step), peak memory and a torch.profiler breakdown of one more
+             step; then step 1 again from the same weights through the
+             plain versions, whose loss, 161 parameter leaves and 161
+             accumulator leaves must equal the kernel run's bit for bit.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -61,6 +74,9 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 RESULTS: list[dict] = []
+# kernel row -> the phase whose main-path run gives its launch count
+# ("none": no path launches it)
+PHASE_OF: dict[str, str] = {}
 
 
 def log(msg: str) -> None:
@@ -91,13 +107,14 @@ def max_err(a, b) -> float:
 
 
 def record(name, source, replaces, ms, plain_ms, nbytes, ops, rate,
-           library_ms, max_abs_err):
+           library_ms, max_abs_err, phase="serve"):
     b, by = bound_ms(nbytes, ops, rate)
     RESULTS.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": float(max_abs_err), "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                     "library_ms": library_ms})
+    PHASE_OF[name] = phase
     log(f"  {name}: {ms:.4f} ms (bound {b:.4f} ms by {by}), plain "
         f"{plain_ms:.4f} ms, library "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
@@ -172,7 +189,7 @@ def phase_kernels() -> None:
     assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), \
         "qmatmul at M=4096 differs"
     record("qmatmul", "src/repro_torch/csrc/qmatmul.cu",
-           "src/repro/kernels/qmatmul.py:62",
+           "src/repro/kernels/qmatmul.py:107",
            time_ms(lambda: ops.qmatmul(a, b)),
            time_ms(lambda: ref.qmatmul(a, b), 3),
            m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS,
@@ -211,22 +228,22 @@ def phase_kernels() -> None:
     at = a8.t().contiguous()
     nbytes = 4 * m * n + kd * n + 4 * m * kd
     record("dgrad", "src/repro_torch/csrc/backward.cu",
-           "src/repro/kernels/backward.py:123",
+           "src/repro/kernels/backward.py:109",
            time_ms(lambda: ops.dgrad(e, b8, sc, mode="flag", k=8)),
            time_ms(lambda: ref.dgrad(e, b8, sc, mode="flag", k=8), 3),
            nbytes, 2 * 2 * m * n * kd, INT8_OPS,
            time_ms(lambda: [torch._int_mm(q, bt) for q in planes]),
            max_err(ops.dgrad(e, b8, sc, mode="flag", k=8),
-                   ref.dgrad(e, b8, sc, mode="flag", k=8)))
+                   ref.dgrad(e, b8, sc, mode="flag", k=8)), "train")
     record("wgrad", "src/repro_torch/csrc/backward.cu",
-           "src/repro/kernels/backward.py:153",
+           "src/repro/kernels/backward.py:109",
            time_ms(lambda: ops.wgrad(a8, e, sc, mode="flag", k=8)),
            time_ms(lambda: ref.wgrad(a8, e, sc, mode="flag", k=8), 3),
            4 * m * n + m * kd + 4 * kd * n, 2 * 2 * m * n * kd, INT8_OPS,
            time_ms(lambda: [torch._int_mm(at, q.contiguous())
                             for q in planes]),
            max_err(ops.wgrad(a8, e, sc, mode="flag", k=8),
-                   ref.wgrad(a8, e, sc, mode="flag", k=8)))
+                   ref.wgrad(a8, e, sc, mode="flag", k=8)), "train")
 
     # ---- K5 flash_attention: one layer's causal attention at train_4k
     log("[kernels] K5 flash_attention (bitwise)")
@@ -254,14 +271,14 @@ def phase_kernels() -> None:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = s_ * (s_ + 1) // 2          # causal: the scores this data needs
     record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-           "src/repro/kernels/paged_attention.py:275",
+           "src/repro/kernels/paged_attention.py:304",
            time_ms(lambda: ops.flash_attention(*fargs, **fkw), 5),
            time_ms(lambda: ref.flash_attention(*fargs, **fkw), 2),
            q8.numel() + 2 * k8.numel() + 4 * got.numel(),
            2 * 2 * pairs * h * dh, INT8_OPS,
            time_ms(lambda: sdpa(qb, kb_, vb, is_causal=True,
                                 enable_gqa=True), 5),
-           max_err(got, want))
+           max_err(got, want), "train")
 
     # ---- K2 quantize: the largest per-forward weight (Q_W of w_gate)
     log("[kernels] K2 quantize (bitwise)")
@@ -274,7 +291,7 @@ def phase_kernels() -> None:
     xo = f32(1, 4097)[:, 1:]          # unaligned view: scalar path
     assert torch.equal(ops.quantize(xo, inv2), ref.quantize(xo, inv2))
     record("quantize", "src/repro_torch/csrc/quantize.cu",
-           "src/repro/kernels/quantize.py:30",
+           "src/repro/kernels/quantize.py:40",
            time_ms(lambda: ops.quantize(w, inv)),
            time_ms(lambda: ref.quantize(w, inv), 5),
            5 * w.numel(), 3 * w.numel(), FP32_OPS, None, 0)
@@ -290,11 +307,65 @@ def phase_kernels() -> None:
             f"ubn_norm M={m} differs"
     x = f32(16, 4096) * 2
     record("ubn_norm", "src/repro_torch/csrc/ubn.cu",
-           "src/repro/kernels/ubn.py:66",
+           "src/repro/kernels/ubn.py:110",
            time_ms(lambda: ops.ubn_norm(x, gam)),
            time_ms(lambda: ref.ubn_norm(x, gam)),
            8 * x.numel() + 4 * 4096, 8 * x.numel(), FP32_OPS, None,
            float((ops.ubn_norm(x, gam) - ref.ubn_norm(x, gam)).abs().max()))
+
+    # ---- K4 ubn_norm (batch): ResNet-50's BNs at batch 32 flatten NHWC to
+    # (N*H*W, C), from M = 100352 x C = 256 down to M = 1568 x C = 2048.
+    # Bitwise: float64 partial sums per fixed 256-row chunk, added in chunk
+    # order, rounded once (csrc/ubn.cu)
+    log("[kernels] K4 ubn_norm batch (bitwise)")
+    times = {}
+    for m, c in ((100352, 256), (1568, 2048), (12345, 96), (100352, 64)):
+        x = f32(m, c) * 2 + 0.3
+        gam, bet = 1.0 + 0.1 * f32(c), 0.1 * f32(c)
+        got = ops.ubn_norm(x, gam, bet, kind="batch")
+        want = ref.ubn_norm(x, gam, bet, kind="batch")
+        assert torch.equal(got, want), f"ubn_norm batch {m}x{c} differs"
+        xg = torch.round(x * 64) / 64            # grid values, as on the path
+        assert torch.equal(ops.ubn_norm(xg, gam, bet, kind="batch"),
+                           ref.ubn_norm(xg, gam, bet, kind="batch")), \
+            f"ubn_norm batch {m}x{c} (grid) differs"
+        times[(m, c)] = time_ms(
+            lambda: ops.ubn_norm(x, gam, bet, kind="batch"))
+        log(f"  {m}x{c}: {times[(m, c)]:.4f} ms (bound "
+            f"{bound_ms(8 * m * c + 8 * c, 8 * m * c, FP32_OPS)[0]:.4f} ms)")
+    m, c = 100352, 256
+    x = f32(m, c) * 2 + 0.3
+    gam, bet = 1.0 + 0.1 * f32(c), 0.1 * f32(c)
+    record("ubn_norm_batch", "src/repro_torch/csrc/ubn.cu",
+           "src/repro/kernels/ubn.py:110",
+           time_ms(lambda: ops.ubn_norm(x, gam, bet, kind="batch")),
+           time_ms(lambda: ref.ubn_norm(x, gam, bet, kind="batch"), 5),
+           8 * m * c + 8 * c, 8 * m * c, FP32_OPS, None,
+           max_err(ops.ubn_norm(x, gam, bet, kind="batch"),
+                   ref.ubn_norm(x, gam, bet, kind="batch")), "resnet")
+
+    # ---- K8 cq_stochastic: no path calls it; a ResNet-50 weight leaf's
+    # shape (3x3x512 -> 512) and a ragged one, from int32 random bits
+    log("[kernels] K8 cq_stochastic (bitwise)")
+    inv = torch.tensor(2.0 ** 12, device=dev)
+    for shape in ((4608, 512), (37, 1001)):
+        x = f32(*shape) * 0.02
+        bits = torch.randint(-2 ** 31, 2 ** 31, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+        for dr in (128.0, 64.0):
+            assert torch.equal(ops.cq_stochastic(x, bits, inv, dr),
+                               ref.cq_stochastic(x, bits, inv, dr)), \
+                f"cq_stochastic {shape} dr={dr} differs"
+    x = f32(4608, 512) * 0.02
+    bits = torch.randint(-2 ** 31, 2 ** 31, x.shape, generator=g,
+                         device=dev, dtype=torch.int32)
+    record("cq_stochastic", "src/repro_torch/csrc/quantize.cu",
+           "src/repro/kernels/quantize.py:74",
+           time_ms(lambda: ops.cq_stochastic(x, bits, inv)),
+           time_ms(lambda: ref.cq_stochastic(x, bits, inv)),
+           10 * x.numel(), 6 * x.numel(), FP32_OPS, None,
+           max_err(ops.cq_stochastic(x, bits, inv),
+                   ref.cq_stochastic(x, bits, inv)), "none")
 
     # ---- K7 page_gather: one lane's 32 pages of (16, 8, 128) int8
     log("[kernels] K7 page_gather (bitwise)")
@@ -306,7 +377,7 @@ def phase_kernels() -> None:
     t1 = torch.randperm(128, generator=g, device=dev)[:32].reshape(1, 32)
     t1 = (t1 + 1).to(torch.int32)             # one lane's 32 valid pages
     record("page_gather", "src/repro_torch/csrc/page_gather.cu",
-           "src/repro/kernels/page_gather.py:29",
+           "src/repro/kernels/page_gather.py:48",
            time_ms(lambda: ops.page_gather(pages, t1)),
            time_ms(lambda: ref.page_gather(pages, t1)),
            2 * 32 * pages[0].numel() + 4 * 32, 0, FP32_OPS,
@@ -333,7 +404,7 @@ def phase_kernels() -> None:
             f"paged_attention {part} differs"
     valid = int((q_pos + 1).sum())
     record("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-           "src/repro/kernels/paged_attention.py:119",
+           "src/repro/kernels/paged_attention.py:154",
            time_ms(lambda: ops.paged_attention(*args, sm_scale=sm)),
            time_ms(lambda: ref.paged_attention(*args, sm_scale=sm)),
            2 * valid * 8 * 128 + q8.numel() + 4 * tbl.numel()
@@ -552,8 +623,12 @@ def phase_train() -> dict:
             after1 = (_host_copy(model.params()), _host_copy(opt.acc))
     log(f"[train] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    split_train(model, cfg, opt, task)
-    profile_train(step, opt, task)
+    split_train(model, cfg, opt, task.batch(TRAIN_STEPS), TRAIN_STEPS,
+                "train")
+    # where a training step's time goes: device time by kernel name and
+    # the busy share of the wall
+    with_profile(lambda: step(opt, task.batch(TRAIN_STEPS + 1),
+                              TRAIN_STEPS + 1), "train step")
 
     # step 1 again from the same weights through the plain versions
     with torch.no_grad():
@@ -580,20 +655,19 @@ def phase_train() -> dict:
     return total
 
 
-def split_train(model, cfg, opt, task) -> None:
-    """One more step by its parts, host clock around synchronised work:
-    forward (model.loss), backward (loss.backward()), optimizer (CQ noise,
+def split_train(model, cfg, opt, batch, i: int, tag: str) -> None:
+    """Step i by its parts, host clock around synchronised work: forward
+    (model.loss), backward (loss.backward()), optimizer (CQ noise,
     gradient quantization and the Momentum update) - the parts that
     make_train_step runs in this order."""
     import torch
     from repro_torch.core import prng
     from repro_torch.launch.train import SEED, _grad_tree
     from repro_torch.optim import fixed_point_lr, momentum_update
-    i = TRAIN_STEPS
     torch.cuda.synchronize()
     t0 = time.time()
     model.zero_grad(set_to_none=True)
-    loss = model.loss(task.batch(i))
+    loss, _ = model.loss(batch)
     torch.cuda.synchronize()
     t1 = time.time()
     loss.backward()
@@ -606,23 +680,113 @@ def split_train(model, cfg, opt, task) -> None:
     torch.cuda.synchronize()
     t3 = time.time()
     model.zero_grad(set_to_none=True)
-    log(f"[train] step {i + 1} by parts: forward {t1 - t0:.3f} s, backward "
+    log(f"[{tag}] step {i + 1} by parts: forward {t1 - t0:.3f} s, backward "
         f"{t2 - t1:.3f} s, optimizer {t3 - t2:.3f} s (loss "
         f"{float(loss.detach()):.6f})")
 
 
-def profile_train(step, opt, task) -> None:
-    """Where a training step's time goes: torch.profiler over one more
-    step; device time by kernel name and the busy share of the wall."""
+# ---------------------------------------------------------------------------
+# phase 5: train the paper's ResNet-50 at full size
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH = 32         # the reference's input_specs batch of 128, cut
+RESNET_STEPS = 3
+RESNET_KERNELS = ("ubn_norm", "quantize")
+
+
+def phase_resnet() -> dict:
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import ImageTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    t0 = time.time()
+    cfg = preset("full8")
+    model = build_model(get("resnet50"), cfg, device="cuda").init(0)
+    a = model.a
+    task = ImageTask(a.img_size, a.num_classes, RESNET_BATCH, seed=0)
+    batches = [task.batch(i) for i in range(RESNET_STEPS + 2)]
+    init_params = _host_copy(model.params())
+    opt = init_momentum(model.params())
+    step = make_train_step(model, cfg, lr=0.05)
+    n_leaves = len(flatten(model.params()))
+    log(f"[resnet] resnet50 at full size ({a.block} stages "
+        f"{a.stage_sizes}, {a.img_size}x{a.img_size}x3 images, "
+        f"{a.num_classes} classes), {n_leaves} parameter leaves, "
+        f"{model.n_params() / 1e6:.2f} M params, seed 0, full8 native, lr "
+        f"0.05; ImageTask batch {RESNET_BATCH} (the reference's input_specs "
+        f"batch of 128 cut to {RESNET_BATCH} to keep the phase short); "
+        f"built with its batches in {time.time() - t0:.1f} s")
+    assert n_leaves == 161, n_leaves
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, total = [], dict.fromkeys(ops.LAUNCHES, 0)
+    after1 = None
+    for i in range(RESNET_STEPS):
+        ops.reset_launches()
+        t0 = time.time()
+        met = step(opt, batches[i], i)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        loss, acc = float(met["loss"]), float(met["acc"])
+        losses.append(loss)
+        counts = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += counts[k]
+        log(f"[resnet] step {i + 1}: loss {loss:.6f}, acc {acc:.4f}, wall "
+            f"{wall:.3f} s, {RESNET_BATCH / wall:.1f} images/s; launches "
+            f"{counts}")
+        assert math.isfinite(loss), "non-finite loss"
+        for k in RESNET_KERNELS:
+            assert counts[k] > 0, f"kernel {k} not launched in resnet step"
+        if i == 0:
+            after1 = (_host_copy(model.params()), _host_copy(opt.acc))
+    log(f"[resnet] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    split_train(model, cfg, opt, batches[RESNET_STEPS], RESNET_STEPS,
+                "resnet")
+    with_profile(lambda: step(opt, batches[RESNET_STEPS + 1],
+                              RESNET_STEPS + 1), "resnet50 train step")
+
+    # step 1 again from the same weights through the plain versions
+    with torch.no_grad():
+        for p, h in zip(flatten(model.params()), init_params):
+            p.copy_(h)
+    opt = init_momentum(model.params())
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    with ops.plain_reference():
+        ploss = float(step(opt, batches[0], 0)["loss"])
+    torch.cuda.synchronize()
+    assert dict(ops.LAUNCHES) == before, "the plain run launched a kernel"
+    same_p = [torch.equal(p.detach().cpu(), h)
+              for p, h in zip(flatten(model.params()), after1[0])]
+    same_a = [torch.equal(x.cpu(), h)
+              for x, h in zip(flatten(opt.acc), after1[1])]
+    log(f"[resnet] step 1 through the plain versions: "
+        f"{time.time() - t0:.1f} s, loss {ploss:.6f} vs {losses[0]:.6f}; "
+        f"parameters equal {sum(same_p)}/{len(same_p)}, accumulator equal "
+        f"{sum(same_a)}/{len(same_a)}")
+    assert ploss == losses[0], "plain step-1 loss differs from the kernels'"
+    assert all(same_p), "plain step-1 parameters differ from the kernels'"
+    assert all(same_a), "plain step-1 accumulator differs from the kernels'"
+    return total
+
+
+def with_profile(fn, what: str) -> None:
+    """torch.profiler over one call of `fn` (a synchronised step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step(opt, task.batch(TRAIN_STEPS + 1), TRAIN_STEPS + 1)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
-    report_profile(prof, wall_us, 1, "train step")
+    report_profile(prof, wall_us, 1, what)
 
 
 def report_profile(prof, wall_us: float, steps: int, what: str) -> None:
@@ -676,12 +840,11 @@ def main() -> int:
     t0 = time.time()
     card = phase_build()
     phase_kernels()
-    launches = phase_serve()
-    train_launches = phase_train()
-    for r in RESULTS:
-        r["launches"] = (train_launches[r["name"]]
-                         if r["name"] in ("dgrad", "wgrad", "flash_attention")
-                         else launches[r["name"]])
+    runs = {"serve": phase_serve(), "train": phase_train(),
+            "resnet": phase_resnet(), "none": {}}
+    for r in RESULTS:       # ubn_norm_batch counts as ubn_norm (one op)
+        op = r["name"].removesuffix("_batch")
+        r["launches"] = runs[PHASE_OF[r["name"]]].get(op, 0)
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": RESULTS}))
     print(f"card: {card}")

@@ -1,8 +1,9 @@
-"""Architecture configs the port serves; `get(name)` resolves `--arch` ids."""
+"""Architecture configs the port runs; `get(name)` resolves `--arch` ids."""
 from .base import ArchConfig
 from .granite_3_8b import CFG as granite_3_8b
+from .resnets import RESNET18, RESNET34, RESNET50
 
-ARCHS = {c.name: c for c in [granite_3_8b]}
+ARCHS = {c.name: c for c in [granite_3_8b, RESNET18, RESNET34, RESNET50]}
 
 
 def get(name: str) -> ArchConfig:

@@ -1,9 +1,9 @@
-"""Architecture configuration schema (the fields the dense LM slice reads).
+"""Architecture configuration schema (the fields the ported families read).
 
-Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM: the same
-field names, `dh`, `vocab_padded` and `reduced()`, so a configuration reads
-the same in both packages.  Families that the port does not serve yet (MoE,
-SSM, hybrid, enc-dec, ResNet) keep no fields here.
+Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM and the
+ResNet: the same field names, `dh`, `vocab_padded` and `reduced()`, so a
+configuration reads the same in both packages.  Families that the port
+does not run yet (MoE, SSM, hybrid, enc-dec) keep no fields here.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm (the only family served so far)
+    family: str                  # lm | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -29,6 +29,11 @@ class ArchConfig:
     # of the flash kernel (each per-chunk decomposition's amax spans one)
     q_chunk: int = 1024
     kv_chunk: int = 512
+    # resnet
+    block: str = ""              # basic | bottleneck
+    stage_sizes: tuple = ()
+    num_classes: int = 1000
+    img_size: int = 224
     source: str = ""
 
     @property
@@ -47,7 +52,12 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
-        2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16)."""
+        2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16;
+        a ResNet keeps one block in each of its first two stages, 10
+        classes and 16 px images)."""
+        if self.family == "resnet":
+            return self.replace(name=self.name + "-smoke", stage_sizes=(1, 1),
+                                num_classes=10, img_size=16)
         return self.replace(
             name=self.name + "-smoke", n_layers=min(self.n_layers, 2),
             d_model=64, n_heads=4, n_kv=min(self.n_kv, 2) if self.n_kv else 0,

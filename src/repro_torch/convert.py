@@ -1,13 +1,15 @@
-"""Carry the reference package's LM weights into the port.
+"""Carry the reference package's weights and optimizer state into the port.
 
-`params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`
-with every leaf converted to numpy (the caller does that, so this module
-needs no JAX) and returns the same tree as torch tensors, ready for
-`repro_torch.models.LMTransformer.load_params`.  Both packages keep one
-layout (stacked (L, ...) layer weights), so the conversion is a copy.
+`params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`,
+and `resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
+leaf converted to numpy (the caller does that, so this module needs no
+JAX), and returns the same tree as torch tensors, ready for the port's
+`load_params`.  Both packages keep one layout (stacked (L, ...) layer
+weights for the LM; HWIO convolutions, (in, classes) fc and the list of
+stages of block dicts for the ResNet), so the conversion is a copy.
 
-On the card there is no JAX: `LMTransformer.init` draws weights there from
-a torch.Generator by the same formulas, which gives the same distribution
+On the card there is no JAX: the models' `init` draws weights there from a
+torch.Generator by the same formulas, which gives the same distribution
 but not the same bits.
 """
 from __future__ import annotations
@@ -16,22 +18,32 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import LAYER_KEYS
+from repro_torch.optim import MomentumState, tree_map
+
+
+def _tensors(tree, device):
+    return tree_map(lambda x: torch.tensor(np.asarray(x, np.float32),
+                                           device=device), tree)
 
 
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """{"embed", "layers": {ln1, wq, ...}, "final_norm", "lm_head"} of
     numpy arrays -> the same tree of fp32 torch tensors on `device`."""
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32), device=device)
+    return _tensors({"embed": tree["embed"],
+                     "layers": {k: tree["layers"][k] for k in LAYER_KEYS},
+                     "final_norm": tree["final_norm"],
+                     "lm_head": tree["lm_head"]}, device)
 
-    return {"embed": t(tree["embed"]),
-            "layers": {k: t(tree["layers"][k]) for k in LAYER_KEYS},
-            "final_norm": t(tree["final_norm"]),
-            "lm_head": t(tree["lm_head"])}
+
+def resnet_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The reference ResNet's tree ({"stem", "bn_stem", "stages": [[block
+    dict, ...], ...], "fc", "fc_b"}) of numpy arrays -> the same tree of
+    fp32 torch tensors on `device`."""
+    return _tensors(tree, device)
 
 
 def momentum_from_jax(acc: dict, step: int = 0, device="cpu"):
-    """The reference's MomentumState.acc tree (numpy leaves) -> the port's
-    MomentumState, so both packages can start from one optimizer state."""
-    from repro_torch.optim import MomentumState
-    return MomentumState(acc=params_from_jax(acc, device), step=int(step))
+    """The reference's MomentumState.acc tree (numpy leaves, the LM's or
+    the ResNet's) -> the port's MomentumState, so both packages can start
+    from one optimizer state."""
+    return MomentumState(acc=_tensors(acc, device), step=int(step))

@@ -21,10 +21,18 @@ Port of `repro.core.qdense`.  The paper's dataflow (Fig. 5 / Algorithms
             Otherwise quantizer.quantize(g) and integer contractions through
             the batched qmatmul kernel (K1).
   qdense    x @ Q_W(w)
+  qconv     the ResNet's convolution on the fp32 grid carriers (NHWC
+            activations, HWIO weights, JAX's "SAME" padding); backward:
+            Q_E2 on the incoming error (e3), then the convolution's input
+            and weight gradients.  As in the reference, whose convolution
+            is `lax.conv_general_dilated` outside any Pallas kernel, the
+            convolution itself is cuDNN's (`F.conv2d`), in full fp32: on
+            the card it raises if cuDNN's TF32 is on.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
@@ -283,3 +291,95 @@ def qdense(cfg: QConfig, x, w: Tensor, e_kind="default") -> Tensor:
     xm = x.reshape(-1, x.shape[-1])
     y = qeinsum(cfg, "mk,kn->mn", e_kind, True, xm, wq)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# quantized convolution (ResNet reproduction)
+# --------------------------------------------------------------------------
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """JAX's "SAME" padding of one spatial axis: out = ceil(size / stride),
+    total = max((out - 1) * stride + k - size, 0), split (total // 2,
+    total - total // 2): asymmetric, e.g. (0, 1) for a 3x3 stride-2 window
+    over an even size, which no symmetric `padding=` of PyTorch gives."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: Tensor, kh: int, kw: int, stride: int,
+             value: float = 0.0) -> Tensor:
+    """x (N, H, W, C) padded for a "SAME" (kh, kw) window at `stride`."""
+    (t, b), (lft, r) = (same_pads(x.shape[1], kh, stride),
+                        same_pads(x.shape[2], kw, stride))
+    if t == b == lft == r == 0:
+        return x
+    return F.pad(x, (0, 0, lft, r, t, b), value=value)
+
+
+def _nchw(x: Tensor) -> Tensor:
+    """NHWC -> an NCHW view (a channels_last tensor: cuDNN needs no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _oihw(w: Tensor) -> Tensor:
+    """HWIO weight -> the OIHW view conv2d takes."""
+    return w.permute(3, 2, 0, 1)
+
+
+def conv_valid(xp: Tensor, w: Tensor, stride: int) -> Tensor:
+    """Unpadded convolution of an NHWC input with an HWIO weight -> NHWC."""
+    return F.conv2d(_nchw(xp), _oihw(w), stride=stride).permute(0, 2, 3, 1)
+
+
+def _conv_error(cfg: QConfig, g: Tensor) -> Tensor:
+    """Q_E2 on the convolution's incoming error, as the reference's
+    `_qconv_bwd`: single-plane affine formats of k <= 8 decompose through
+    the quantize kernel (K2) and are consumed as their grid value; the flag
+    format (full8) and wide formats (sq16, e2_16) take the one-pass
+    formula.  Both give the same grid value (the registry's invariant)."""
+    quantizer = _error_quantizer(cfg, "default")
+    plan = quantizer.fused_plan(g)
+    if plan is not None and plan[0] == "affine" and plan[2] <= 8 \
+            and quantizer.name != "none":
+        return quantizer.quantize(g).dequantize()
+    return quantizer(g)                  # e3 = Q_E2(e2)
+
+
+class _QConv(torch.autograd.Function):
+    """Convolution of the padded carriers; backward Q_E2, then both
+    convolution gradients (cropping the padding is the F.pad outside)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, cfg, stride):
+        if xp.is_cuda and torch.backends.cudnn.allow_tf32:
+            raise RuntimeError(
+                "qconv: torch.backends.cudnn.allow_tf32 is on; the "
+                "convolution of grid values must run in full fp32")
+        ctx.cfg, ctx.stride = cfg, stride
+        ctx.save_for_backward(xp, w)
+        return conv_valid(xp, w, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        e3 = _conv_error(ctx.cfg, g.contiguous())
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            _nchw(e3), _nchw(xp), _oihw(w), None, [ctx.stride] * 2, [0, 0],
+            [1, 1], False, [0, 0], 1,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        gx = None if gx is None else gx.permute(0, 2, 3, 1)
+        gw = None if gw is None else gw.permute(2, 3, 1, 0)
+        return gx, gw, None, None
+
+
+def qconv(cfg: QConfig, x, wq, stride: int) -> Tensor:
+    """Quantized convolution with JAX's "SAME" padding: x (N, H, W, Cin) on
+    the activation grid (Tensor or QTensor), wq (kh, kw, Cin, Cout) the
+    Q_W weight (QTensor from qweight, or its carrier).  The arithmetic
+    runs on the exact grid values in fp32 (the reference's carrier);
+    backward errors go through Q_E2.  Returns (N, Ho, Wo, Cout) fp32."""
+    w = qt_carrier(wq)
+    xp = pad_same(qt_carrier(x), w.shape[0], w.shape[1], stride)
+    return _QConv.apply(xp, w, cfg, stride)

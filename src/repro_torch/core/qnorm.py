@@ -1,13 +1,15 @@
 """Quantized normalization (paper Eq. 11-13), fused forward through UBN.
 
-Port of `repro.core.qnorm`.  The forward of every norm is ONE pass of the
-ubn_norm kernel (K4): statistics, normalize, and the five direct
-quantizations Q(mu), Q(sigma), Q_BN, Q(gamma), Q(beta).  The backward, as
-in the reference, is autograd of the unfused body (`_qrmsnorm_unfused`,
-`_qlayernorm_unfused`) re-run at the saved inputs: every quantizer there
-is a straight-through direct quantizer, so autograd through the body IS the
-paper's quantized backward evaluated on grid values.  Q_E2 on the outgoing
-error is applied by the adjacent qeinsum.
+Port of `repro.core.qnorm`.  The forward of every norm is the ubn_norm
+kernel (K4): statistics, normalize, and the five direct quantizations
+Q(mu), Q(sigma), Q_BN, Q(gamma), Q(beta) (per row for RMSNorm and
+LayerNorm, per channel over the whole batch for BN).  The backward, as in
+the reference, is autograd of the unfused body (`_qbatchnorm_unfused`,
+`_qrmsnorm_unfused`, `_qlayernorm_unfused`) re-run at the saved inputs:
+every quantizer there is a straight-through direct quantizer, so autograd
+through the body IS the paper's quantized backward evaluated on grid
+values.  Q_E2 on the outgoing error is applied by the adjacent qeinsum or
+qconv.  `batchnorm` is the unquantized BN of the ResNet's exempt stem.
 """
 from __future__ import annotations
 
@@ -35,6 +37,22 @@ def _maybe_stop(cfg: QConfig, t: Tensor) -> Tensor:
     return t if cfg.norm_full_bwd else t.detach()
 
 
+def _qbatchnorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor,
+                        beta: Tensor) -> Tensor:
+    dims = tuple(range(x.dim() - 1))
+    mu = _maybe_stop(cfg, torch.mean(x, dim=dims))
+    var = _maybe_stop(cfg, torch.mean(torch.square(x), dim=dims)
+                      - torch.square(mu))
+    sigma = torch.sqrt(torch.clamp(var, min=0.0))
+    mu_q = _qs(cfg, mu, cfg.k_mu)
+    sigma_q = _qs(cfg, sigma, cfg.k_sigma)
+    xhat = (x - mu_q) / (sigma_q + EPS_Q)
+    xhat = _qs(cfg, xhat, cfg.k_bn)                        # Q_BN
+    gamma_q = _qs(cfg, gamma, cfg.k_gamma)
+    beta_q = _qs(cfg, beta, cfg.k_beta)
+    return gamma_q * xhat + beta_q
+
+
 def _qrmsnorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor) -> Tensor:
     ms = _maybe_stop(cfg, torch.mean(torch.square(x), dim=-1, keepdim=True))
     sigma = torch.sqrt(ms)
@@ -60,6 +78,14 @@ def _qlayernorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor,
     return gamma_q * xhat + beta_q
 
 
+_UNFUSED = {"batch": _qbatchnorm_unfused, "rms": _qrmsnorm_unfused,
+            "layer": _qlayernorm_unfused}
+
+# BN with every quantizer off and gradients through mean and variance: the
+# reference's qbatchnorm(FP32, ...) of the exempt stem
+_UNQUANTIZED = QConfig(quant_bn=False)
+
+
 def _ubn_widths(cfg: QConfig) -> dict:
     return dict(k_mu=cfg.k_mu, k_sigma=cfg.k_sigma, k_bn=cfg.k_bn,
                 k_gamma=cfg.k_gamma, k_beta=cfg.k_beta, eps=EPS_Q)
@@ -83,10 +109,7 @@ class _FusedNorm(torch.autograd.Function):
         if beta is not None:
             ins.append(beta.detach().requires_grad_())
         with torch.enable_grad():
-            if ctx.kind == "rms":
-                y = _qrmsnorm_unfused(ctx.cfg, *ins)
-            else:
-                y = _qlayernorm_unfused(ctx.cfg, *ins)
+            y = _UNFUSED[ctx.kind](ctx.cfg, *ins)
             grads = torch.autograd.grad(y, ins, g)
         beta_g = grads[2] if beta is not None else None
         return grads[0], grads[1], beta_g, None, None
@@ -95,10 +118,21 @@ class _FusedNorm(torch.autograd.Function):
 def _norm(cfg: QConfig, kind: str, x, gamma, beta):
     x = qt_carrier(x)
     if not cfg.quant_bn:
-        if kind == "rms":
-            return _qrmsnorm_unfused(cfg, x, gamma)
-        return _qlayernorm_unfused(cfg, x, gamma, beta)
+        args = (x, gamma) if kind == "rms" else (x, gamma, beta)
+        return _UNFUSED[kind](cfg, *args)
     return _FusedNorm.apply(x, gamma, beta, cfg, kind)
+
+
+def qbatchnorm(cfg: QConfig, x, gamma: Tensor, beta: Tensor) -> Tensor:
+    """Quantized BN over all axes but the last (channel), paper Eq. 12."""
+    return _norm(cfg, "batch", x, gamma, beta)
+
+
+def batchnorm(x, gamma: Tensor, beta: Tensor) -> Tensor:
+    """Plain fp32 BN (statistics over all axes but the last, eps_q added
+    to sigma), autograd through mean and variance: the exempt ResNet
+    stem's BN."""
+    return _qbatchnorm_unfused(_UNQUANTIZED, qt_carrier(x), gamma, beta)
 
 
 def qrmsnorm(cfg: QConfig, x, gamma: Tensor) -> Tensor:

@@ -1,8 +1,10 @@
 // K2: fused payload quantization, clip(rint(x * inv_step), +-lim) -> int8.
+// K8: stochastic CQ payload (at the end of this file).
 //
 // Replaces repro/kernels/quantize.py::quantize_fused (_quant_kernel), the
 // Pallas kernel behind every payload of 8 bits or fewer (qact and the
-// per-forward qweight of every weight).
+// per-forward qweight of every weight), and
+// repro/kernels/quantize.py::cq_stochastic (_cq_kernel).
 //
 // Bound: bytes.  5 bytes move per element (4 read, 1 written) and the
 // arithmetic is one multiply, one rint and one clamp, so the kernel can
@@ -55,5 +57,45 @@ extern "C" int quantize_launch(const void* x, const void* inv_step, float lim,
     int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
     quantize_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)inv_step, lim, (int8_t*)out, n, vec);
+    return (int)cudaGetLastError();
+}
+
+// K8: clip(floor(v) + [u < v - floor(v)], +-(dr - 1)) -> int16 with
+// v = x * inv_step (one fp32 multiply) and u = (bits & 0xFFFFFF) * 2^-24,
+// the paper's stochastic rounding (Eq. 7) from a plane of given random
+// bits.  The bits arrive as int32 holding the uint32 pattern; the mask
+// keeps the low 24, so the value is non-negative and exact in fp32, and
+// v - floor(v) is exact too.  No path of the port launches it: the
+// optimizer's CQ draws threefry noise, as the reference's does.
+//
+// Bound: bytes.  10 bytes move per element (x and bits read, the int16
+// payload written) for a few flops.  Design: a grid-stride loop, one
+// element per thread per trip, the scalar read once per thread.
+__global__ void cq_kernel(const float* __restrict__ x,
+                          const int32_t* __restrict__ bits,
+                          const float* __restrict__ inv_step, float dr,
+                          int16_t* __restrict__ out, long long n) {
+    const float inv = *inv_step;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += stride) {
+        const float v = __fmul_rn(x[i], inv);
+        const float f = floorf(v);
+        const float u = (float)(bits[i] & 0xFFFFFF) * 5.9604644775390625e-08f;
+        float y = f + ((u < v - f) ? 1.f : 0.f);
+        y = fminf(fmaxf(y, -dr + 1.f), dr - 1.f);
+        out[i] = (int16_t)y;
+    }
+}
+
+extern "C" int cq_launch(const void* x, const void* bits,
+                         const void* inv_step, float dr, void* out,
+                         long long n, void* stream) {
+    if (n <= 0) return 0;
+    long long want = (n + 255) / 256;
+    int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+    cq_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const int32_t*)bits, (const float*)inv_step, dr,
+        (int16_t*)out, n);
     return (int)cudaGetLastError();
 }

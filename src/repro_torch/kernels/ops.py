@@ -6,6 +6,8 @@ version (`kernels/ref.py`) for a CPU tensor.
   quantize         K2  payload emission clip(rint(x * inv_step), +-lim)
   dgrad, wgrad     K3  Alg. 2 backward dots with Q_E2 fused in the prologue
   ubn_norm         K4  fused UBN: statistics + normalize + quantizers
+                       (per row for "rms"/"layer", per column for "batch")
+  cq_stochastic    K8  stochastic CQ payload from given random bits
   flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
   paged_attention  K6  two-pass paged int8 decode attention
@@ -18,8 +20,8 @@ that way); the serving path never enters it.
 
 `LAUNCHES` counts kernel launches per op: an op adds one each time it
 launches its kernel (K6 counts one per call, which is two launches with
-the glue between; K3 and K5 count one per call likewise) and never on the
-plain route.
+the glue between; K3, K4 "batch" and K5 count one per call likewise) and
+never on the plain route.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
             "paged_attention": 0, "dgrad": 0, "wgrad": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "cq_stochastic": 0}
 
 _PLAIN = False
 
@@ -42,10 +44,14 @@ _PLAIN = False
 _P = c_void_p
 _SIGS = {
     ("quantize", "quantize_launch"): [_P, _P, c_float, _P, c_longlong, _P],
+    ("quantize", "cq_launch"): [_P, _P, _P, c_float, _P, c_longlong, _P],
     ("qmatmul", "qmatmul_launch"): [_P, _P, _P, _P, _P, c_float, c_int,
                                     c_int, c_int, c_int, c_int, c_int, _P],
     ("ubn", "ubn_launch"): [_P, _P, _P, _P, c_int, c_int, c_int, c_float,
                             c_float, c_float, c_float, c_float, c_float, _P],
+    ("ubn", "ubn_batch_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
+                                  c_int, c_float, c_float, c_float, c_float,
+                                  c_float, c_float, _P],
     ("page_gather", "page_gather_launch"): [_P, _P, _P, c_int, c_int, c_int,
                                             c_longlong, _P],
     ("paged_attention", "pa_stats_launch"): [_P, _P, _P, _P, _P, _P, c_float,
@@ -203,6 +209,36 @@ def quantize(x: Tensor, inv_step, lim: float = 127.0) -> Tensor:
 
 
 # --------------------------------------------------------------------------
+# K8 cq_stochastic
+# --------------------------------------------------------------------------
+
+
+def cq_stochastic(x: Tensor, bits: Tensor, inv_step,
+                  dr: float = 128.0) -> Tensor:
+    """Stochastic CQ payload (paper Eq. 7): x f32 and bits (the uint32
+    random bits, as int32 or uint32) of one shape, inv_step the scalar
+    rescale -> int16 clip(floor(v) + [u < v - floor(v)], +-(dr - 1)) with
+    v = x * inv_step and u the low 24 bits of `bits` times 2^-24.  No path
+    of the port calls it: the optimizer's CQ draws threefry noise
+    (core/qfuncs.py), as the reference's does."""
+    inv = _scalar(inv_step, x)
+    if bits.dtype == torch.uint32:
+        bits = bits.view(torch.int32)
+    if not _on_kernel(x):
+        return ref.cq_stochastic(x, bits, inv, dr)
+    _need(x.dtype == torch.float32 and bits.dtype == torch.int32,
+          "cq_stochastic takes fp32 x and 32-bit bits")
+    _need(bits.shape == x.shape and bits.device == x.device,
+          "cq_stochastic: x and bits differ in shape or device")
+    xc, bc = x.contiguous(), bits.contiguous()
+    out = torch.empty(x.shape, dtype=torch.int16, device=x.device)
+    _launch("quantize", "cq_launch", _ptr(xc), _ptr(bc), _ptr(inv),
+            float(dr), _ptr(out), xc.numel(), _stream(xc))
+    LAUNCHES["cq_stochastic"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # K3 dgrad / wgrad
 # --------------------------------------------------------------------------
 
@@ -282,23 +318,26 @@ def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
 # K4 ubn_norm
 # --------------------------------------------------------------------------
 
+# rows per partial sum of the "batch" kind (fixed, so the sums' order
+# depends on M alone, not on the card)
+UBN_CHUNK = 256
+
 
 def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
              kind: str = "rms", k_mu: int = 16, k_sigma: int = 16,
              k_bn: int = 16, k_gamma: int = 8, k_beta: int = 8,
              eps: float = 2.0 ** -8) -> Tensor:
     """Fused UBN over a 2-D view: x (M, N) f32, rows are tokens for "rms"
-    and "layer".  Returns (M, N) f32 on the k_BN/k_gamma grid."""
+    and "layer"; for "batch" the statistics run down each column over all
+    M rows (x is the NHWC activation flattened to (N*H*W, C)).  Returns
+    (M, N) f32 on the k_BN/k_gamma grid."""
     kw = dict(kind=kind, k_mu=k_mu, k_sigma=k_sigma, k_bn=k_bn,
               k_gamma=k_gamma, k_beta=k_beta, eps=eps)
     if not _on_kernel(x):
         return ref.ubn_norm(x, gamma, beta, **kw)
-    if kind == "batch":
-        raise NotImplementedError(
-            "ubn_norm kind='batch' needs a two-phase column reduction; it "
-            "comes with the ResNet training slice (ROADMAP Queue 1 item 1)")
-    _need(kind in ("rms", "layer"), f"unknown UBN kind {kind!r}")
+    _need(kind in ("rms", "layer", "batch"), f"unknown UBN kind {kind!r}")
     _need(x.dim() == 2 and x.dtype == torch.float32, "ubn_norm takes (M, N) f32")
+    _need(kind == "rms" or beta is not None, f"ubn_norm {kind} needs beta")
     xc = x.contiguous()
     m, n = xc.shape
     g = gamma.contiguous().float()
@@ -306,9 +345,21 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
     _need(g.numel() == n and b.numel() == n, "ubn_norm gamma/beta width")
     out = torch.empty_like(xc)
     s = lambda k: 2.0 ** (k - 1)  # noqa: E731
-    _launch("ubn", "ubn_launch", _ptr(xc), _ptr(g), _ptr(b), _ptr(out), m, n,
-            int(kind == "layer"), s(k_mu), s(k_sigma), s(k_bn), s(k_gamma),
-            s(k_beta), eps, _stream(xc))
+    widths = (s(k_mu), s(k_sigma), s(k_bn), s(k_gamma), s(k_beta), eps)
+    if kind == "batch":
+        # three launches: float64 partial sums per UBN_CHUNK rows, the
+        # per-column statistics, the normalize (csrc/ubn.cu)
+        chunks = -(-m // UBN_CHUNK)
+        _need(0 < chunks < 65536, f"ubn_norm batch: M = {m} out of range")
+        part = torch.empty((chunks, 2, n), dtype=torch.float64,
+                           device=x.device)
+        stats = torch.empty((4, n), dtype=torch.float32, device=x.device)
+        _launch("ubn", "ubn_batch_launch", _ptr(xc), _ptr(g), _ptr(b),
+                _ptr(out), _ptr(part), _ptr(stats), m, n, UBN_CHUNK,
+                *widths, _stream(xc))
+    else:
+        _launch("ubn", "ubn_launch", _ptr(xc), _ptr(g), _ptr(b), _ptr(out),
+                m, n, int(kind == "layer"), *widths, _stream(xc))
     LAUNCHES["ubn_norm"] += 1
     return out
 

@@ -66,6 +66,26 @@ def quantize(x: Tensor, inv_step: Tensor, lim: float = 127.0) -> Tensor:
 
 
 # --------------------------------------------------------------------------
+# K8 cq_stochastic (repro/kernels/quantize.py)
+# --------------------------------------------------------------------------
+
+
+def cq_stochastic(x: Tensor, bits: Tensor, inv_step: Tensor,
+                  dr: float = 128.0) -> Tensor:
+    """Stochastic CQ payload (Eq. 7): clip(floor(v) + [u < v - floor(v)],
+    +-(dr - 1)) -> int16, v = x * inv_step (one fp32 multiply).
+
+    `bits` holds the uint32 random bits as the int32 tensor of the same
+    pattern (PyTorch has few uint32 ops); u is their low 24 bits, which
+    masking leaves non-negative, times 2^-24 (exact), in [0, 1)."""
+    v = x * inv_step
+    f = torch.floor(v)
+    u = (bits & 0xFFFFFF).float() * 2.0 ** -24
+    y = f + (u < (v - f)).float()
+    return torch.clamp(y, -dr + 1.0, dr - 1.0).to(torch.int16)
+
+
+# --------------------------------------------------------------------------
 # K3 bwd_dgrad / bwd_wgrad (repro/kernels/backward.py)
 # --------------------------------------------------------------------------
 
@@ -149,9 +169,10 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
     """Fused UBN: stats + normalize + the five direct quantizers.
 
     x: (M, N) f32; stats over N per row ("rms"/"layer") or over M per
-    column ("batch").  Returns (M, N) f32 on the k_BN/k_gamma grid.  The
-    sums behind mean and mean square are float64 rounded once to fp32 (the
-    reference sums in fp32; the difference is within the tests' bound)."""
+    column ("batch": x is the NHWC activation flattened to (N*H*W, C)).
+    Returns (M, N) f32 on the k_BN/k_gamma grid.  The sums behind mean and
+    mean square are float64 rounded once to fp32 (the reference sums in
+    fp32; the difference is within the tests' bound)."""
     dim = 0 if kind == "batch" else -1
     n = torch.tensor(float(x.shape[dim]), device=x.device)
     mean_sq = _div32(_sum64(torch.square(x.double()), dim), n)

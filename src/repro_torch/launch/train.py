@@ -3,15 +3,22 @@
 Port of `repro.launch.train.make_train_step` and its CLI.  One step is the
 full WAGEUBN loop: the quantized forward (`model.loss`), the quantized
 backward (`loss.backward()` through the port's autograd Functions: Q_E1 in
-qact, Q_E2 fused into the dgrad/wgrad kernels, the flash kernel's forward
-with the plain chunked body's backward), then CQ/Q gradient quantization,
-quantized Momentum and the fixed-point update (`optim/momentum.py`).  The
-stochastic-rounding key is fold_in(PRNGKey(17), step), then fold_in(., 1)
-for the optimizer, as in the reference, so the bits are a pure function of
-the step index.
+qact, Q_E2 fused into the dgrad/wgrad kernels or before the ResNet's
+convolution gradients, the flash kernel's forward with the plain chunked
+body's backward, the UBN kernel's forward with the unfused body's
+backward), then CQ/Q gradient quantization, quantized Momentum and the
+fixed-point update (`optim/momentum.py`).  The stochastic-rounding key is
+fold_in(PRNGKey(17), step), then fold_in(., 1) for the optimizer, as in
+the reference, so the bits are a pure function of the step index.
 
     python -m repro_torch.launch.train --arch granite-3-8b --reduced \
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch resnet50 --reduced \
+        --mode native --steps 3 --batch 4 --device cpu
+
+The LM trains on TokenTask ("arith"); a ResNet on the synthetic ImageTask
+at its config's image size and classes, or on npz shards under
+`--data-dir` (data/imagenet.py).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 microbatching (n_micro > 1), the sharded step and the elastic runtime
@@ -26,11 +33,11 @@ import time
 from repro_torch.configs import get as get_arch
 from repro_torch.core import prng
 from repro_torch.core.qconfig import UNPORTED, preset
-from repro_torch.data import TokenTask
+from repro_torch.data import ImageTask, NpzImageTask, TokenTask
 from repro_torch.models import build_model
 from repro_torch.optim import (dr_bits_schedule, fixed_point_lr, flatten,
                                init_momentum, momentum_update,
-                               parse_boundaries)
+                               parse_boundaries, tree_map)
 
 SEED = 17
 
@@ -42,8 +49,10 @@ CKPT = "is not ported yet: checkpoints are ROADMAP Queue 1 item 1"
 def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
                     mom: float = 0.75, dr_bits: int | None = None,
                     n_micro: int = 1):
-    """The training step for `model` (an LMTransformer holding its
-    parameters): step(opt_state, batch, step_idx) -> {"loss": 0-d tensor},
+    """The training step for `model` (an LMTransformer or a ResNet: a
+    module holding its parameters, with `loss(batch) -> (loss, metrics)`,
+    `params()` and `labels()`): step(opt_state, batch, step_idx) -> the
+    loss's metrics ({"loss"}, and "acc" for the ResNet) as 0-d tensors,
     updating the model's parameters and opt_state.acc IN PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
@@ -56,22 +65,20 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
     def train_step(opt_state, batch: dict, step_idx: int) -> dict:
         key = prng.fold_in(prng.prng_key(SEED), step_idx)
         model.zero_grad(set_to_none=True)
-        loss = model.loss(batch)
+        loss, metrics = model.loss(batch)
         loss.backward()
         params = model.params()
         grads = _grad_tree(params)
         momentum_update(qcfg, params, grads, opt_state, labels,
                         prng.fold_in(key, 1), lrq, mom=mom, dr_bits=dr_bits)
         model.zero_grad(set_to_none=True)
-        return {"loss": loss.detach()}
+        return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 
 
 def _grad_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _grad_tree(v) for k, v in tree.items()}
-    return tree.grad
+    return tree_map(lambda p: p.grad, tree)
 
 
 def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
@@ -85,6 +92,24 @@ def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
             if getattr(args, name) != default:
                 raise NotImplementedError(
                     f"--{name.replace('_', '-')} {why}")
+
+
+def _task(acfg, args):
+    """The CLI's data by family: TokenTask for the LM; for a ResNet the
+    npz shards under --data-dir (the config takes the shards' image size
+    and classes, as the reference's benchmarks do), else the synthetic
+    ImageTask at the config's.  Returns (task, config, shape text)."""
+    if acfg.family != "resnet":
+        return (TokenTask(vocab=acfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch), acfg, f"seq {args.seq}")
+    if args.data_dir:
+        task = NpzImageTask(args.data_dir, global_batch=args.batch)
+        acfg = acfg.replace(img_size=task.img_size,
+                            num_classes=task.num_classes)
+    else:
+        task = ImageTask(acfg.img_size, acfg.num_classes, args.batch)
+    size = acfg.img_size
+    return task, acfg, f"{size}x{size}x3 images, {acfg.num_classes} classes"
 
 
 def main(argv=None):
@@ -105,6 +130,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu: the plain PyTorch versions "
                         "of the kernels")
+    p.add_argument("--data-dir", default="",
+                   help="ResNet: train on the npz shards under this "
+                        "directory (data/imagenet.py) instead of the "
+                        "synthetic ImageTask")
     # the reference CLI's other flags: accepted, and refused unless default
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--save-every", type=int, default=25)
@@ -125,14 +154,13 @@ def main(argv=None):
     if args.reduced:
         acfg = acfg.reduced()
     qcfg = preset(args.preset, args.mode)
+    task, acfg, shape = _task(acfg, args)
     model = build_model(acfg, qcfg, device=args.device).init(0)
-    task = TokenTask(vocab=acfg.vocab, seq_len=args.seq,
-                     global_batch=args.batch)
     opt = init_momentum(model.params())
     bounds = parse_boundaries(args.dr_boundaries)
     print(f"[train] {acfg.name} {args.preset}/{args.mode} on {model.device}: "
           f"{sum(t.numel() for t in flatten(model.params())) / 1e6:.2f} M "
-          f"params, batch {args.batch} x seq {args.seq}")
+          f"params, batch {args.batch} x {shape}")
     steps: dict[int, object] = {}
     cur = None
     t0 = time.time()
@@ -146,7 +174,8 @@ def main(argv=None):
             steps[bits] = make_train_step(model, qcfg, lr=args.lr,
                                           dr_bits=bits)
         metrics = steps[bits](opt, task.batch(step), step)
-        print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
+        acc = f"acc {float(metrics['acc']):.4f} " if "acc" in metrics else ""
+        print(f"step {step:5d} loss {float(metrics['loss']):.4f} {acc}"
               f"({time.time() - t0:.1f}s)")
 
 

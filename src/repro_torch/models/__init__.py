@@ -1,10 +1,18 @@
-"""Model families of the port (the dense LM so far)."""
+"""Model families of the port: the dense LM and the paper's ResNet."""
+from .resnet import ResNet
 from .transformer import LMTransformer
+
+_FAMILIES = {"lm": LMTransformer, "resnet": ResNet}
 
 
 def build_model(acfg, qcfg, device="cuda"):
-    """The model for `acfg` (family "lm"; other families raise)."""
-    return LMTransformer(acfg, qcfg, device=device)
+    """The model for `acfg` by its family ("lm" -> LMTransformer, "resnet"
+    -> ResNet; the reference's models/registry.py); other families raise."""
+    if acfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
+            "item 4)")
+    return _FAMILIES[acfg.family](acfg, qcfg, device=device)
 
 
-__all__ = ["LMTransformer", "build_model"]
+__all__ = ["LMTransformer", "ResNet", "build_model"]

@@ -174,9 +174,10 @@ class LMTransformer(nn.Module):
 
     # ---------------- training ----------------
 
-    def loss(self, batch: dict) -> Tensor:
+    def loss(self, batch: dict) -> tuple[Tensor, dict]:
         """Mean next-token cross entropy of {"tokens", "labels"} (B, S):
-        logsumexp minus the label's logit over fp32 logits."""
+        logsumexp minus the label's logit over fp32 logits.  Returns
+        (loss, {"loss"}), as the reference's loss does."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x = self.embed[tokens]                        # exempt first layer
@@ -186,7 +187,8 @@ class LMTransformer(nn.Module):
             x = self._ffn(p, x)
         logits = self._logits(x)
         lse = torch.logsumexp(logits, dim=-1)
-        return torch.mean(lse - L.target_logit(logits, labels))
+        loss = torch.mean(lse - L.target_logit(logits, labels))
+        return loss, {"loss": loss.detach()}
 
     def params(self) -> dict:
         """The parameter tree in the reference's layout (live tensors)."""

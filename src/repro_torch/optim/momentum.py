@@ -10,7 +10,7 @@ Port of `repro.optim.momentum`.  Per training step i and leaf:
 
 Leaves are classified by a labels tree of strings ("w", "gamma", "beta",
 "exempt"), and visited in `jax.tree.flatten`'s order (dict keys sorted,
-depth first), leaf i drawing its CQ noise from `fold_in(key, i)`: the
+list items in order, depth first), leaf i drawing its CQ noise from `fold_in(key, i)`: the
 reference's order and keys, so the stochastic-rounding bits are a pure
 function of (seed, step, leaf index) in both packages (core/prng.py).
 
@@ -40,20 +40,27 @@ class MomentumState:
 
 
 def flatten(tree) -> list:
-    """Leaves of a nested dict in jax.tree.flatten's order (sorted keys)."""
+    """Leaves of nested dicts and lists in jax.tree.flatten's order: dict
+    keys sorted, list items in order, depth first (the ResNet's "stages"
+    is a list of lists of block dicts)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in flatten(v)]
     return [tree]
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
+    """`fn` on every leaf of nested dicts and lists, keeping the structure."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def init_momentum(params: dict) -> MomentumState:
-    return MomentumState(acc=_map(lambda p: torch.zeros_like(
+    return MomentumState(acc=tree_map(lambda p: torch.zeros_like(
         p, requires_grad=False), params))
 
 

@@ -5,12 +5,12 @@ with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every kernel equals its plain version bit for bit: K1, K2, K3 and K7 by
-construction (integer work, or one rounding per element); K4, K5 and K6
-because both sides take their sums in float64 (K5's sums of quantized
-probabilities are exact in fp32) and every division, sqrt and exp in
-float64, each rounded once to fp32.  Without a card each test
-skips.
+Every kernel equals its plain version bit for bit: K1, K2, K3, K7 and K8
+by construction (integer work, or one rounding per element); K4 (rows and
+batch columns), K5 and K6 because both sides take their sums in float64
+(K5's sums of quantized probabilities are exact in fp32) and every
+division, sqrt and exp in float64, each rounded once to fp32.  Without a
+card each test skips.
 """
 import numpy as np
 import pytest
@@ -132,3 +132,53 @@ def test_cuda_flash_attention_bitwise(cuda, causal, dh, pad):
     want = ref.flash_attention(*args, **kw)
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,grid", [(100352, 256, False), (1568, 2048, False),
+                                      (25088, 512, True), (1000, 96, False),
+                                      (257, 33, True)])
+def test_cuda_ubn_batch_bitwise(cuda, m, n, grid):
+    """K4 "batch" at ResNet-50's largest and smallest BN shapes at batch
+    32, ragged M and C, and grid-valued inputs as the convolutions give."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, n), generator=g, device=cuda) * 2 + 0.3
+    if grid:
+        x = torch.round(x * 64) / 64
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(n, generator=g, device=cuda)
+    got = ops.ubn_norm(x, gamma, beta, kind="batch")
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref.ubn_norm(x, gamma, beta, kind="batch"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4608, 512), (37, 70), (1, 9)])
+def test_cuda_cq_stochastic_bitwise(cuda, shape):
+    """K8 on a ResNet-50 weight leaf's shape (3x3x512 -> 512) and ragged
+    ones, from the int32 pattern of uint32 bits."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=cuda) * 0.02
+    bits = torch.randint(-2 ** 31, 2 ** 31, shape, generator=g, device=cuda,
+                         dtype=torch.int32)
+    inv = torch.tensor(2.0 ** 12, device=cuda)
+    for dr in (128.0, 64.0):
+        got = ops.cq_stochastic(x, bits, inv, dr)
+        assert torch.equal(got, ref.cq_stochastic(x, bits, inv, dr))
+
+
+@pytest.mark.cuda
+def test_cuda_qconv_refuses_tf32(cuda):
+    """The convolution of grid values runs in full fp32 or not at all."""
+    from repro_torch.core import preset, qconv
+    x = torch.zeros((1, 8, 8, 4), device=cuda)
+    w = torch.zeros((3, 3, 4, 4), device=cuda)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            qconv(preset("full8"), x, w, 1)
+        torch.backends.cudnn.allow_tf32 = False
+        assert qconv(preset("full8"), x, w, 2).shape == (1, 4, 4, 4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -4,8 +4,9 @@ On the CPU each op runs its plain PyTorch version; it is held against
 `repro.kernels.ref` and against the Pallas kernel in interpret mode on the
 same numpy inputs.  Tolerances:
 
-  K1 qmatmul, K2 quantize, K3 dgrad/wgrad, K7 page_gather: bitwise (K3's
-     int16 planes included, whose int32 sums wrap as the reference's do).
+  K1 qmatmul, K2 quantize, K3 dgrad/wgrad, K7 page_gather, K8
+     cq_stochastic: bitwise (K3's int16 planes included, whose int32 sums
+     wrap as the reference's do).
   K4 ubn_norm: a row's statistic is a sum taken in another order (float64
      here, fp32 in the reference) and an sqrt that XLA and PyTorch round
      differently on the CPU, so its k_sigma-grid value may land one grid
@@ -46,6 +47,7 @@ from repro.kernels.paged_attention import flash_attention as pallas_flash
 from repro.kernels.page_gather import page_gather as pallas_page_gather
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro.kernels.qmatmul import qmatmul as pallas_qmatmul
+from repro.kernels.quantize import cq_stochastic as pallas_cq
 from repro.kernels.quantize import quantize_fused as pallas_quantize
 from repro.kernels.ubn import ubn_norm as pallas_ubn
 from repro_torch.kernels import ops
@@ -130,6 +132,30 @@ def test_quantize_bitwise(shape, inv):
 def test_quantize_half_to_even():
     x = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 200.0, -200.0])
     assert ops.quantize(x, 1.0).tolist() == [0, 2, 2, 0, -2, 127, -127]
+
+
+# --------------------------------------------------------------------------
+# K8 cq_stochastic
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (37, 70), (1, 9), (300, 257)])
+@pytest.mark.parametrize("inv,dr", [(2.0 ** 12, 128.0), (2.0 ** 9, 64.0)])
+def test_cq_stochastic_bitwise(shape, inv, dr):
+    """The port takes the uint32 bits as the int32 of the same pattern (and
+    as torch.uint32 too); ragged shapes pad the Pallas kernel's blocks."""
+    r = np.random.default_rng(shape[0] + int(dr))
+    x = (r.standard_normal(shape) * 0.02).astype(np.float32)
+    bits = r.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    got = ops.cq_stochastic(_t(x), _t(bits.view(np.int32)), inv, dr)
+    assert got.dtype == torch.int16
+    jargs = (jnp.asarray(x), jnp.asarray(bits), jnp.float32(inv))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jref.cq_stochastic_ref(*jargs, dr)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        pallas_cq(*jargs, dr=dr, bm=64, bn=64, interpret=True)))
+    np.testing.assert_array_equal(got.numpy(), ops.cq_stochastic(
+        _t(x), torch.from_numpy(bits), inv, dr).numpy())
 
 
 # --------------------------------------------------------------------------
@@ -432,10 +458,14 @@ def test_cpu_tensors_take_the_plain_route():
     pos = torch.arange(4)
     ops.flash_attention(z8, z8, z8, pos, pos, torch.ones(4), 1.0, 1.0, 1.0,
                         causal=True, sm_scale=0.5, q_chunk=2, kv_chunk=2)
+    ops.ubn_norm(torch.ones(6, 4), torch.ones(4), torch.zeros(4),
+                 kind="batch")
+    ops.cq_stochastic(torch.zeros(3), torch.zeros(3, dtype=torch.int32),
+                      1.0)
     assert ops.LAUNCHES == dict.fromkeys(ops.OPS, 0)
     assert set(ops.OPS) == {"qmatmul", "quantize", "ubn_norm",
                             "page_gather", "paged_attention", "dgrad",
-                            "wgrad", "flash_attention"}
+                            "wgrad", "flash_attention", "cq_stochastic"}
 
 
 def test_every_kernel_has_a_source():
