@@ -16,7 +16,9 @@ prints no result line:
              affine k=16 and flag k=8 modes, K4 ubn_norm by rows and by
              columns ("batch", ResNet-50's largest and smallest BN and a
              ragged M), K5 flash_attention, K7 page_gather, K6
-             paged_attention, K8 cq_stochastic, which no path calls), with
+             paged_attention, K8 cq_stochastic, which no path calls, K9
+             selective_scan at a prefill page, a decode step, the
+             train_4k length from zero state and a ragged shape), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
              yardstick).
@@ -49,6 +51,16 @@ prints no result line:
              step; then step 1 again from the same weights through the
              plain versions, whose loss, 161 parameter leaves and 161
              accumulator leaves must equal the kernel run's bit for bit.
+  6. ssm     `make_engine("falcon-mamba-7b", reduced=False, n_layers=4)`:
+             Mamba1 at every published width (d_model 4096, d_inner 8192,
+             ssm_state 16, d_conv 4, dt rank 256, vocab 65024), depth cut
+             to 4 of 64 layers, random weights from seed 0; the serve
+             phase's 4 greedy requests through chunked prefill and
+             dense-slot decode (selective_scan, qmatmul, quantize and
+             ubn_norm launches > 0); the same requests through the plain
+             versions on the card, which must give the same tokens and
+             first-step logits; a torch.profiler breakdown of the decode
+             step.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -167,7 +179,10 @@ def phase_kernels() -> None:
     # ---- K1 qmatmul: every qdense shape of the path, both attention dots
     log("[kernels] K1 qmatmul (bitwise)")
     shapes = [(m, k, n) for m in (4, 16) for (k, n) in
-              ((4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096))]
+              ((4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096),
+               # falcon-mamba-7b: in_proj, x_proj (ragged N), dt_proj,
+               # out_proj
+               (4096, 16384), (8192, 288), (256, 8192), (8192, 4096))]
     for m, k, n in shapes:
         a, b = i8(m, k), i8(k, n)
         got, want = ops.qmatmul(a, b), ref.qmatmul(a, b)
@@ -411,14 +426,54 @@ def phase_kernels() -> None:
            + 4 * 4 * 32 * 128, 2 * 2 * valid * 32 * 128, INT8_OPS, None,
            float((pk["out"] - pp["out"]).abs().max()))
 
+    # ---- K9 selective_scan: falcon-mamba-7b's d_inner 8192 x N 16 at a
+    # prefill page and a decode step (carried state, the ssm phase's
+    # shapes), the train_4k length from zero state (exactly the TPU
+    # kernel's function) and a ragged shape.  Bitwise: h rounds twice per
+    # step and y is the n-ordered float64 sum rounded once on both sides
+    log("[kernels] K9 selective_scan (bitwise: y and h_last)")
+
+    def scan_inputs(b, s_, d, n):
+        dt = torch.empty((b, s_, d), device=dev).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=g).exp()
+        a_ = torch.exp(dt[..., None] * -torch.arange(
+            1, n + 1, device=dev, dtype=torch.float32))
+        return (a_, f32(b, s_, d, n) * 0.1, f32(b, s_, n), f32(b, d, n))
+
+    for name, shape, with_h0, phase in (
+            ("selective_scan", (1, 16, 8192, 16), True, "ssm"),
+            ("selective_scan_decode", (4, 1, 8192, 16), True, "ssm"),
+            ("selective_scan_train_4k", (1, 4096, 8192, 16), False, "none"),
+            (None, (2, 37, 1000, 4), True, None)):
+        a_, b_, c_, h0 = scan_inputs(*shape)
+        h0 = h0 if with_h0 else None
+        y, hl = ops.selective_scan(a_, b_, c_, h0)
+        yp, hp = ref.selective_scan(a_, b_, c_, h0)
+        assert torch.equal(y, yp) and torch.equal(hl, hp), \
+            f"selective_scan {shape} differs"
+        if name is None:
+            continue
+        nbytes = 4 * (2 * a_.numel() + c_.numel() + y.numel()
+                      + (2 if with_h0 else 1) * hl.numel())
+        record(name, "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan.py:60",
+               time_ms(lambda: ops.selective_scan(a_, b_, c_, h0)),
+               time_ms(lambda: ref.selective_scan(a_, b_, c_, h0),
+                       2 if shape[1] > 16 else 5),
+               nbytes, 4 * a_.numel(), FP32_OPS, None,
+               max(max_err(y, yp), max_err(hl, hp)), phase)
+        del a_, b_, c_, h0, y, hl, yp, hp
+
 
 # ---------------------------------------------------------------------------
-# phase 3: serve granite-3-8b at full width, 4 layers
+# phases 3 and 6: serve granite-3-8b and falcon-mamba-7b at full width,
+# 4 layers
 # ---------------------------------------------------------------------------
 
 PROMPT_LENS = (100, 37, 256, 64)
 SERVE_KERNELS = ("qmatmul", "quantize", "ubn_norm", "page_gather",
                  "paged_attention")
+SSM_KERNELS = ("qmatmul", "quantize", "ubn_norm", "selective_scan")
 NEW_TOKENS = 16
 ENGINE_KW = dict(max_lanes=4, page_size=16, max_ctx=512)
 
@@ -430,20 +485,52 @@ def _serve(engine, prompts):
     return [out[i] for i in range(len(prompts))]
 
 
-def phase_serve() -> dict:
+def describe(model, depth: int) -> str:
+    a = model.a
+    if a.family == "ssm":
+        widths = (f"d_model {a.d_model}, d_inner {a.d_inner}, ssm_state "
+                  f"{a.ssm_state}, d_conv {a.d_conv}, dt rank "
+                  f"{max(a.d_model // 16, 1)}")
+    else:
+        widths = (f"d={a.d_model}, heads {a.n_heads}/{a.n_kv} x {a.dh}, "
+                  f"ffn {a.d_ff}")
+    return (f"{a.name} at full width ({widths}, vocab {a.vocab} -> "
+            f"{a.vocab_padded}), depth cut to {a.n_layers} of {depth} "
+            f"layers, {model.n_params() / 1e9:.3f} G fp32 params, random "
+            f"weights (seed 0)")
+
+
+def first_logits(model, prompt):
+    """The last-token logits of one prefill page of `prompt` from an empty
+    cache (a fresh pool, or the zero dense slot)."""
+    import torch
+    from repro_torch.serving.pool import PagePool
+    a = model.a
+    tok = torch.as_tensor(prompt[:16], device="cuda")
+    if model.decode_state_spec()["kv_layers"]:
+        pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
+        tab = torch.arange(1, 33, device="cuda", dtype=torch.int32)[None]
+        return model.prefill_page(pool.view(tab), tok, 0)[0, :a.vocab]
+    return model.prefill_page(model.init_slots(1), tok)[0][0, :a.vocab]
+
+
+def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
+    """Serve PROMPT_LENS through `make_engine(arch, reduced=False,
+    n_layers=4)`, check the kernels' launches, then the same requests and
+    the first-step logits through the plain versions; profile the decode
+    step.  Returns the run's launches per op ("<op>_decode" for the
+    launches inside decode steps)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine, make_engine
     t0 = time.time()
-    eng = make_engine("granite-3-8b", reduced=False, n_layers=4,
-                      device="cuda", seed=0, **ENGINE_KW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine(arch, reduced=False, n_layers=4, device="cuda", seed=0,
+                      **ENGINE_KW)
     model = eng.model
     a = model.a
-    log(f"[serve] granite-3-8b at full width (d={a.d_model}, heads "
-        f"{a.n_heads}/{a.n_kv} x {a.dh}, ffn {a.d_ff}, vocab {a.vocab} -> "
-        f"{a.vocab_padded}), depth cut to {a.n_layers} of 40 layers, "
-        f"{model.n_params() / 1e9:.2f} G fp32 params, random weights "
-        f"(seed 0); engine {ENGINE_KW}; built in {time.time() - t0:.1f} s")
+    log(f"[{tag}] {describe(model, depth)}; engine {ENGINE_KW}; built in "
+        f"{time.time() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
                for n in PROMPT_LENS]
@@ -468,7 +555,7 @@ def phase_serve() -> dict:
     wall = time.time() - t0
     launches = dict(ops.LAUNCHES)
     met = eng.metrics()
-    log(f"[serve] {len(prompts)} requests, prompts {PROMPT_LENS}, "
+    log(f"[{tag}] {len(prompts)} requests, prompts {PROMPT_LENS}, "
         f"{NEW_TOKENS} new tokens each: wall {wall:.3f} s, prefill "
         f"{met['prefill_wall_s']:.3f} s ({met['prefill_tokens']} tokens), "
         f"decode {met['decode_wall_s']:.3f} s over {met['decode_steps']} "
@@ -477,23 +564,25 @@ def phase_serve() -> dict:
         f"{1e3 * met['ttft_mean_s']:.1f} ms, TPOT mean "
         f"{1e3 * met['tpot_mean_s']:.2f} ms, preemptions "
         f"{met['preemptions']}")
-    log(f"[serve] kernel launches in the run: {launches}")
+    log(f"[{tag}] kernel launches in the run: {launches}")
     per_step = {k: v / max(met["decode_steps"], 1)
                 for k, v in decode_counts.items()}
-    log(f"[serve] kernel launches per decode step: {per_step}")
+    log(f"[{tag}] kernel launches per decode step: {per_step}")
     # the decode step's weight traffic as ported: every hidden weight is
     # re-quantized each forward (fp32 master read, int8 payload written by
-    # K2 and read by K1: 6 bytes); the exempt lm_head is an fp32 product
-    hidden = sum(p.numel() for k, p in model.layers.items()
-                 if k not in ("ln1", "ln2"))
-    step_bytes = 6 * hidden + 4 * model.lm_head.numel()
-    log(f"[serve] decode-step weight traffic {step_bytes / 1e9:.3f} GB -> "
+    # K2 and read by K1: 6 bytes); the norm gains and the SSM's per-channel
+    # vectors are read in fp32, and so is the exempt lm_head
+    labels = model.labels()["layers"]
+    step_bytes = 4 * model.lm_head.numel() + sum(
+        (6 if labels[k] == "w" else 4) * p.numel()
+        for k, p in model.layers.items())
+    log(f"[{tag}] decode-step weight traffic {step_bytes / 1e9:.3f} GB -> "
         f"bound {1e3 * step_bytes / HBM_BPS:.3f} ms/step at 3.35 TB/s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB")
-    for k in SERVE_KERNELS:
+    for k in kernels:
         assert launches[k] > 0, f"kernel {k} was never launched on the " \
-            "serving path"
+            f"{tag} path"
     for t in toks:
         assert len(t) == NEW_TOKENS and all(0 <= x < a.vocab for x in t)
 
@@ -507,26 +596,17 @@ def phase_serve() -> dict:
         "the plain run launched a kernel"
     eq = np.mean([x == y for t, u in zip(toks, ptoks) for x, y in zip(t, u)])
     first = np.mean([t[0] == u[0] for t, u in zip(toks, ptoks)])
-    log(f"[serve] plain versions on the card: {time.time() - t0:.1f} s; "
+    log(f"[{tag}] plain versions on the card: {time.time() - t0:.1f} s; "
         f"equal tokens {eq:.3f}, equal first tokens {first:.2f}")
     for t, u in zip(toks, ptoks):
         log(f"  kernels {t}\n  plain   {u}")
 
-    # first-step logits: one prefill page of prompt 0 on a fresh pool
-    from repro_torch.serving.pool import PagePool
-
-    def first_logits():
-        pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
-        tab = torch.arange(1, 33, device="cuda", dtype=torch.int32)[None]
-        tok = torch.as_tensor(prompts[0][:16], device="cuda")
-        return model.prefill_page(pool.view(tab), tok, 0)[0, :a.vocab]
-
-    lk = first_logits()
+    lk = first_logits(model, prompts[0])
     with ops.plain_reference():
-        lp = first_logits()
+        lp = first_logits(model, prompts[0])
     dist = float((lk - lp).abs().max())
     rel = dist / float(lp.abs().max())
-    log(f"[serve] first-step logits: max |kernel - plain| {dist:.3e} "
+    log(f"[{tag}] first-step logits: max |kernel - plain| {dist:.3e} "
         f"({rel:.3e} of max |logit|), argmax {int(lk.argmax())} vs "
         f"{int(lp.argmax())}")
     assert bool(torch.isfinite(lk).all()), "non-finite logits"
@@ -536,27 +616,52 @@ def phase_serve() -> dict:
     assert eq == 1.0, "the kernels' tokens differ from the plain versions'"
     assert dist == 0.0, "the kernels' logits differ from the plain versions'"
     profile_decode(eng)
+    for k, v in decode_counts.items():
+        launches[f"{k}_decode"] = v
+    return launches
+
+
+def phase_serve() -> dict:
+    return phase_engine("serve", "granite-3-8b", 40, SERVE_KERNELS)
+
+
+def phase_ssm() -> dict:
+    """The SSM run's selective_scan row counts the launches outside decode
+    steps (prefill pages and prompt-tail tokens), the _decode row those
+    inside them."""
+    launches = phase_engine("ssm", "falcon-mamba-7b", 64, SSM_KERNELS)
+    launches["selective_scan"] -= launches["selective_scan_decode"]
     return launches
 
 
 def profile_decode(eng, steps: int = 3) -> None:
     """Where a decode step's time goes: torch.profiler over `steps` decode
-    steps of all lanes (dead: their tables point at the trash page, so the
-    attention is short and the weight traffic is the full step's).  Prints
-    device time by kernel name and the device's busy share of the wall."""
+    steps of all lanes (dead: a paged family's tables point at the trash
+    page, so the attention is short and the weight traffic is the full
+    step's; a dense family's slots are zero).  Prints device time by
+    kernel name and the device's busy share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     lanes = eng.max_lanes
     z = torch.zeros((lanes,), dtype=torch.int32, device="cuda")
-    view = eng.pool.view(torch.zeros((lanes, eng.n_blocks), dtype=torch.int32,
-                                     device="cuda"))
-    eng.model.paged_decode_step(view, z, z)
+    if eng.paged:
+        view = eng.pool.view(torch.zeros((lanes, eng.n_blocks),
+                                         dtype=torch.int32, device="cuda"))
+
+        def step():
+            eng.model.paged_decode_step(view, z, z)
+    else:
+        slots = dict(eng.model.init_slots(lanes), pos=z)
+
+        def step():
+            eng.model.paged_decode_step(slots, z)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(steps):
-            eng.model.paged_decode_step(view, z, z)
+            step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     report_profile(prof, wall_us, steps, "decode step")
@@ -841,7 +946,7 @@ def main() -> int:
     card = phase_build()
     phase_kernels()
     runs = {"serve": phase_serve(), "train": phase_train(),
-            "resnet": phase_resnet(), "none": {}}
+            "resnet": phase_resnet(), "ssm": phase_ssm(), "none": {}}
     for r in RESULTS:       # ubn_norm_batch counts as ubn_norm (one op)
         op = r["name"].removesuffix("_batch")
         r["launches"] = runs[PHASE_OF[r["name"]]].get(op, 0)

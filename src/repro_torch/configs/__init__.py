@@ -1,9 +1,11 @@
 """Architecture configs the port runs; `get(name)` resolves `--arch` ids."""
 from .base import ArchConfig
+from .falcon_mamba_7b import CFG as falcon_mamba_7b
 from .granite_3_8b import CFG as granite_3_8b
 from .resnets import RESNET18, RESNET34, RESNET50
 
-ARCHS = {c.name: c for c in [granite_3_8b, RESNET18, RESNET34, RESNET50]}
+ARCHS = {c.name: c for c in [granite_3_8b, falcon_mamba_7b, RESNET18,
+                              RESNET34, RESNET50]}
 
 
 def get(name: str) -> ArchConfig:

@@ -1,9 +1,10 @@
 """Architecture configuration schema (the fields the ported families read).
 
-Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM and the
-ResNet: the same field names, `dh`, `vocab_padded` and `reduced()`, so a
-configuration reads the same in both packages.  Families that the port
-does not run yet (MoE, SSM, hybrid, enc-dec) keep no fields here.
+Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM, the
+Mamba1 SSM and the ResNet: the same field names and defaults, `dh`,
+`d_inner`, `vocab_padded` and `reduced()`, so a configuration reads the
+same in both packages.  Families that the port does not run yet (MoE,
+hybrid, enc-dec) keep no fields here.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm | resnet
+    family: str                  # lm | ssm | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -29,6 +30,16 @@ class ArchConfig:
     # of the flash kernel (each per-chunk decomposition's amax spans one)
     q_chunk: int = 1024
     kv_chunk: int = 512
+    # SSM (mamba1; mamba2's headdim is kept for the reference's reduced())
+    ssm_state: int = 0
+    ssm_kind: str = ""           # mamba1 | mamba2
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    # SSM sequence-chunk size of the reference's chunked associative scan
+    # (the port's scan is sequential: ops.selective_scan; kept for parity)
+    scan_chunk: int = 256
+    unroll_scan_chunks: bool = False
     # resnet
     block: str = ""              # basic | bottleneck
     stage_sizes: tuple = ()
@@ -47,19 +58,26 @@ class ArchConfig:
         """vocab padded to a multiple of 512 (the reference's TP padding)."""
         return ((self.vocab + 511) // 512) * 512
 
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
         2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16;
-        a ResNet keeps one block in each of its first two stages, 10
-        classes and 16 px images)."""
+        an SSM state of 4; a ResNet keeps one block in each of its first
+        two stages, 10 classes and 16 px images)."""
         if self.family == "resnet":
             return self.replace(name=self.name + "-smoke", stage_sizes=(1, 1),
                                 num_classes=10, img_size=16)
-        return self.replace(
-            name=self.name + "-smoke", n_layers=min(self.n_layers, 2),
-            d_model=64, n_heads=4, n_kv=min(self.n_kv, 2) if self.n_kv else 0,
+        kw = dict(
+            n_layers=min(self.n_layers, 2), d_model=64, n_heads=4,
+            n_kv=min(self.n_kv, 2) if self.n_kv else 0,
             d_ff=96 if self.d_ff else 0, vocab=min(self.vocab, 128),
             head_dim=16, q_chunk=16, kv_chunk=16)
+        if self.ssm_state:
+            kw.update(ssm_state=4, headdim=8)
+        return self.replace(name=self.name + "-smoke", **kw)

@@ -1,11 +1,12 @@
 """Carry the reference package's weights and optimizer state into the port.
 
 `params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`,
-and `resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
+`ssm_params_from_jax(tree)` that of its `SSMLM.init` and
+`resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
 leaf converted to numpy (the caller does that, so this module needs no
 JAX), and returns the same tree as torch tensors, ready for the port's
 `load_params`.  Both packages keep one layout (stacked (L, ...) layer
-weights for the LM; HWIO convolutions, (in, classes) fc and the list of
+weights for the LM and the SSM; HWIO convolutions, (in, classes) fc and the list of
 stages of block dicts for the ResNet), so the conversion is a copy.
 
 On the card there is no JAX: the models' `init` draws weights there from a
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import ssm
 from repro_torch.models.transformer import LAYER_KEYS
 from repro_torch.optim import MomentumState, tree_map
 
@@ -31,6 +33,17 @@ def params_from_jax(tree: dict, device="cpu") -> dict:
     numpy arrays -> the same tree of fp32 torch tensors on `device`."""
     return _tensors({"embed": tree["embed"],
                      "layers": {k: tree["layers"][k] for k in LAYER_KEYS},
+                     "final_norm": tree["final_norm"],
+                     "lm_head": tree["lm_head"]}, device)
+
+
+def ssm_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The reference SSMLM's tree ({"embed", "layers": {ln, in_proj, ...,
+    out_proj} stacked (L, ...), "final_norm", "lm_head"}) of numpy arrays
+    -> the same tree of fp32 torch tensors on `device`."""
+    return _tensors({"embed": tree["embed"],
+                     "layers": {k: tree["layers"][k]
+                                for k in ssm.LAYER_KEYS},
                      "final_norm": tree["final_norm"],
                      "lm_head": tree["lm_head"]}, device)
 

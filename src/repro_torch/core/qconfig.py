@@ -90,6 +90,10 @@ class QConfig:
     quant_e2: bool = True
     quant_u: bool = True
 
+    # carrier dtype of the SSM scan's inputs and state: "f32" only
+    # ("bf16" raises in validate())
+    scan_dtype: str = "f32"
+
     def __post_init__(self):
         set_ = lambda n, v: object.__setattr__(self, n, v)  # noqa: E731
         # a string alias wins only when it differs from its spec's own
@@ -139,6 +143,10 @@ class QConfig:
     def validate(self) -> None:
         if self.mode != "native":
             raise NotImplementedError(f"mode={self.mode!r} {UNPORTED}")
+        if self.scan_dtype != "f32":
+            raise NotImplementedError(
+                f"scan_dtype={self.scan_dtype!r} is not ported yet (the scan "
+                "kernel K9 runs in fp32): ROADMAP Queue 1 item 4")
         # Paper Eq. 22: k_Ggamma = k_Gbeta = k_GC = k_Mom + k_Acc - 1
         if not (self.k_ggamma == self.k_gbeta == self.k_gc
                 == self.k_mom + self.k_acc - 1):

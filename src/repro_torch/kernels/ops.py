@@ -11,6 +11,7 @@ version (`kernels/ref.py`) for a CPU tensor.
   flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
   paged_attention  K6  two-pass paged int8 decode attention
+  selective_scan   K9  the Mamba1 recurrence with a carried state
 
 Routing is by the tensor's device alone.  On a CUDA tensor an op launches
 its kernel or raises: no shape guard sends it elsewhere and nothing falls
@@ -36,7 +37,7 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
             "paged_attention": 0, "dgrad": 0, "wgrad": 0,
-            "flash_attention": 0, "cq_stochastic": 0}
+            "flash_attention": 0, "cq_stochastic": 0, "selective_scan": 0}
 
 _PLAIN = False
 
@@ -68,6 +69,7 @@ _SIGS = {
     ("flash_attention", "fa_launch"): [c_int] + [_P] * 13 + [
         c_float, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
         c_int, _P],
+    ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 4 + [_P],
 }
 _FNS: dict = {}
 
@@ -559,6 +561,58 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
             _ptr(out), *dims)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# K9 selective_scan
+# --------------------------------------------------------------------------
+
+SCAN_STATES = (4, 16)   # the N the kernel is instantiated for
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """t contiguous with a 16-byte aligned start (the kernel's float4
+    loads); a view that starts off the alignment is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def selective_scan(a: Tensor, b: Tensor, c: Tensor,
+                   h0: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Mamba1 selective scan h_t = a_t * h_{t-1} + b_t, y_t = c_t . h_t.
+
+    a, b: (B, S, D, N) f32; c: (B, S, N) f32; h0: (B, D, N) f32 carried
+    state, or None for zeros (the TPU kernel's function).  Returns
+    (y (B, S, D) f32, h_last (B, D, N) f32).  The kernel takes N in
+    SCAN_STATES and B < 65536; other shapes raise ValueError."""
+    if not _on_kernel(a):
+        return ref.selective_scan(a, b, c, h0)
+    _need(a.dim() == 4 and a.dtype == torch.float32 and b.dtype == a.dtype
+          and c.dtype == a.dtype, "selective_scan takes (B, S, D, N) f32 a "
+          "and b and (B, S, N) f32 c")
+    bsz, s, d, n = a.shape
+    _need(tuple(b.shape) == (bsz, s, d, n) and tuple(c.shape) == (bsz, s, n),
+          f"selective_scan shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
+          f"c {tuple(c.shape)}")
+    _need(n in SCAN_STATES, f"selective_scan kernel is built for N in "
+          f"{SCAN_STATES} (the state stays in registers), got N = {n}")
+    _need(0 < bsz < 65536 and d > 0, f"selective_scan: B = {bsz}, D = {d} "
+          "out of the kernel's grid")
+    _need(b.device == a.device and c.device == a.device,
+          "selective_scan operands on different devices")
+    if h0 is not None:
+        _need(tuple(h0.shape) == (bsz, d, n) and h0.dtype == torch.float32
+              and h0.device == a.device,
+              f"selective_scan h0 {tuple(h0.shape)} is not ({bsz}, {d}, {n})"
+              " f32")
+        h0 = _aligned(h0)
+    ac, bc, cc = _aligned(a), _aligned(b), _aligned(c)
+    y = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=a.device)
+    _launch("selective_scan", "sscan_launch", _ptr(ac), _ptr(bc), _ptr(cc),
+            _ptr(h0), _ptr(y), _ptr(h_last), bsz, s, d, n, _stream(ac))
+    LAUNCHES["selective_scan"] += 1
+    return y, h_last
 
 
 OPS = tuple(LAUNCHES)

@@ -366,3 +366,37 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
         q8, k8, v8, q_pos, k_pos, k_valid, q_scale, k_scale, v_scale,
         causal=causal, sm_scale=sm_scale, q_chunk=q_chunk,
         kv_chunk=kv_chunk, k_a=k_a)["out"]
+
+
+# --------------------------------------------------------------------------
+# K9 selective_scan (repro/kernels/selective_scan.py)
+# --------------------------------------------------------------------------
+
+
+def selective_scan(a: Tensor, b: Tensor, c: Tensor,
+                   h0: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Mamba1 recurrence h_t = a_t * h_{t-1} + b_t, y_t = sum_n c_t[n] h_t[n].
+
+    a, b: (B, S, D, N) f32; c: (B, S, N) f32; h0: (B, D, N) f32 or None
+    (zeros).  Returns (y (B, S, D), h_last (B, D, N)).
+
+    The numerics the kernel matches bit for bit: h in fp32 with two
+    roundings per step (a multiply, then an add: no fused multiply-add),
+    and y_t as the sum in n order of the float64 products h*c (each exact),
+    rounded once to fp32.  The loop over t computes h only, into a
+    (B, S, D, N) buffer; y then comes from one n-ordered float64 pass."""
+    bsz, s, d, n = a.shape
+    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    hs = torch.empty_like(a)
+    for t in range(s):
+        h = a[:, t] * h
+        h = h + b[:, t]
+        hs[:, t] = h
+    acc = None
+    for j in range(n):
+        p = hs[..., j].double() * c[:, :, None, j].double()
+        acc = p if acc is None else acc + p
+    y = (acc.float() if acc is not None
+         else torch.zeros((bsz, s, d), dtype=torch.float32, device=a.device))
+    return y, h

@@ -35,6 +35,7 @@ from repro_torch.core import prng
 from repro_torch.core.qconfig import UNPORTED, preset
 from repro_torch.data import ImageTask, NpzImageTask, TokenTask
 from repro_torch.models import build_model
+from repro_torch.models.ssm_lm import TRAINING
 from repro_torch.optim import (dr_bits_schedule, fixed_point_lr, flatten,
                                init_momentum, momentum_update,
                                parse_boundaries, tree_map)
@@ -56,9 +57,12 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
     updating the model's parameters and opt_state.acc IN PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
-    base)."""
+    base).  An SSMLM raises NotImplementedError: its scan has no backward
+    yet."""
     if n_micro != 1:
         raise NotImplementedError(f"n_micro={n_micro} {UNPORTED}")
+    if model.a.family == "ssm":
+        raise NotImplementedError(TRAINING)
     lrq = fixed_point_lr(lr, qcfg)
     labels = model.labels() if labels_tree is None else labels_tree
 

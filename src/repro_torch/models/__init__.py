@@ -1,13 +1,16 @@
-"""Model families of the port: the dense LM and the paper's ResNet."""
+"""Model families of the port: the dense LM, the Mamba1 SSM LM and the
+paper's ResNet."""
 from .resnet import ResNet
+from .ssm_lm import SSMLM
 from .transformer import LMTransformer
 
-_FAMILIES = {"lm": LMTransformer, "resnet": ResNet}
+_FAMILIES = {"lm": LMTransformer, "ssm": SSMLM, "resnet": ResNet}
 
 
 def build_model(acfg, qcfg, device="cuda"):
-    """The model for `acfg` by its family ("lm" -> LMTransformer, "resnet"
-    -> ResNet; the reference's models/registry.py); other families raise."""
+    """The model for `acfg` by its family ("lm" -> LMTransformer, "ssm" ->
+    SSMLM, "resnet" -> ResNet; the reference's models/registry.py); other
+    families raise."""
     if acfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
@@ -15,4 +18,4 @@ def build_model(acfg, qcfg, device="cuda"):
     return _FAMILIES[acfg.family](acfg, qcfg, device=device)
 
 
-__all__ = ["LMTransformer", "ResNet", "build_model"]
+__all__ = ["LMTransformer", "ResNet", "SSMLM", "build_model"]

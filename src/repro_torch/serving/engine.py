@@ -1,9 +1,13 @@
 """Continuous-batching int8 serving engine with chunked prefill.
 
 Port of `repro.serving.engine.Engine` for the chunked-prefill, greedy
-path.  Attention KV lives as int8 pages in a `PagePool`; one decode step
-runs all `max_lanes` lanes (dead lanes ride along masked: their table rows
-point at the trash page and their positions stay 0).
+path.  Attention KV lives as int8 pages in a `PagePool`; recurrent SSM
+state lives in dense per-lane slots (no pool), as in the reference, which
+branches on `decode_state_spec()["kv_layers"] > 0` alone.  One decode
+step runs all `max_lanes` lanes (dead lanes ride along: their table rows
+point at the trash page and their positions stay 0; a dense family's dead
+and mid-prefill lanes advance their slots' stale state, which release
+never resets, exactly as the reference's do).
 
 Control plane (host, numpy): `Scheduler` admission/preemption, per-lane
 page tables, request bookkeeping.  Data plane (device): the model's paged
@@ -11,21 +15,26 @@ steps, whose ops are the hand-written kernels on a CUDA device.
 
 Per-step flow (Engine.step):
   1. admit queued requests into free lanes (pages for the prompt plus the
-     first decode page are allocated now; prefill streams later)
+     first decode page are allocated now; prefill streams later, for a
+     dense family from a zero mid-prefill state of its own)
   2. run up to `prefill_budget` prompt tokens of prefill work: full pages
      `prefill_chunk` at a time through `prefill_page`, then the ragged tail
-     token by token through the B=1 decode step
-  3. allocate decode pages at page boundaries; preempt the longest-context
-     request when the pool is exhausted (recompute preemption)
+     token by token through the B=1 decode step; a finished dense prefill
+     moves its state into the lane's slot
+  3. paged only: allocate decode pages at page boundaries; preempt the
+     longest-context request when the pool is exhausted (recompute
+     preemption)
   4. one decode step over all DECODE lanes; append the greedy tokens
   5. retire finished requests, unref their pages
 
 The reference compiles its chunk step for a fixed `prefill_chunk` pages and
-masks the pages past the prompt onto the trash page; the port runs those
-masked pages too, because their trash-page writes are what dead lanes read
-in decode, and dead lanes' outputs enter the batch-global activation
-scales (the same tokens as the reference depend on it).  Likewise the
-engine's warm-up steps run as the reference's do.
+masks the pages past the prompt onto the trash page; for a paged family
+the port runs those masked pages too, because their trash-page writes are
+what dead lanes read in decode, and dead lanes' outputs enter the
+batch-global activation scales (the same tokens as the reference depend on
+it).  For a dense family the reference discards a masked page's state and
+logits, and the port skips it.  Likewise the engine's warm-up steps run as
+the reference's do.
 
 Not ported yet: monolithic prefill (ROADMAP Queue 1 item 2); temperature
 and top-k sampling and the radix prefix cache (item 3); tensor-parallel
@@ -56,8 +65,10 @@ class Engine:
     """Continuous-batching serving engine over the paged int8 KV pool.
 
     Args:
-      model: an `LMTransformer` (decode-state slot API: `decode_state_spec`,
-        `prefill_page`, `paged_decode_step`).
+      model: an `LMTransformer` (paged: `decode_state_spec`,
+        `prefill_page` and `paged_decode_step` against the pool) or an
+        `SSMLM` (dense: the same methods on state dicts, plus
+        `init_slots`).
       max_lanes: decode batch width (padded; dead lanes ride along masked).
       page_size: tokens per KV page; n_pages: pool size (default
         1 + max_lanes * ceil(max_ctx / page_size)); max_ctx: per-request
@@ -96,17 +107,25 @@ class Engine:
         self.device = model.device
         self.clock = clock
         spec = model.decode_state_spec()
+        self.paged = spec["kv_layers"] > 0
         self.page_size = page_size
         self.max_ctx = max_ctx
         self.n_blocks = -(-max_ctx // page_size)
-        if n_pages is None:
-            n_pages = 1 + max_lanes * self.n_blocks
-        self.pool = PagePool(n_pages, page_size, spec["kv_layers"],
-                             spec["n_kv"], spec["dh"], device=self.device)
-        if self.pool.usable < self.n_blocks:
-            raise ValueError(
-                f"pool of {n_pages} pages cannot hold one max_ctx="
-                f"{max_ctx} request ({self.n_blocks} pages needed)")
+        self.pool = None
+        if self.paged:
+            if n_pages is None:
+                n_pages = 1 + max_lanes * self.n_blocks
+            self.pool = PagePool(n_pages, page_size, spec["kv_layers"],
+                                 spec["n_kv"], spec["dh"], device=self.device)
+            if self.pool.usable < self.n_blocks:
+                raise ValueError(
+                    f"pool of {n_pages} pages cannot hold one max_ctx="
+                    f"{max_ctx} request ({self.n_blocks} pages needed)")
+        else:
+            self._dense_axes = spec["dense_axes"]
+            self.slots = model.init_slots(max_lanes)
+            self._dense0 = model.init_slots(1)   # zero mid-prefill state
+            self._pf_dense: dict[int, dict] = {}  # rid -> mid-prefill state
         self.scheduler = Scheduler(self.pool, max_skip=max_skip,
                                    starvation_limit=starvation_limit)
         self.watchdog = watchdog or StepWatchdog()
@@ -158,7 +177,8 @@ class Engine:
             self._sync()
             self.prefill_wall_s += time.monotonic() - t0
 
-        self._ensure_pages()
+        if self.paged:
+            self._ensure_pages()
         live = [ln for ln, r in enumerate(self.lane_req)
                 if r is not None and r.state is RequestState.DECODE]
         if live:
@@ -204,19 +224,27 @@ class Engine:
         if req.queue_s is None:
             req.queue_s = self.clock() - req.arrival
         req.pf_pos = 0
-        nb_total = len(req.prompt) // self.page_size + 1   # + 1 decode block
-        pids = self._alloc_pages(nb_total, req)
-        assert pids is not None     # not in lane_req yet: no self-preemption
-        req.page_ids = pids
-        self.table[lane] = 0
-        self.table[lane, :nb_total] = pids
-        self._table_dev = None
+        if self.paged:
+            nb_total = len(req.prompt) // self.page_size + 1  # + decode block
+            pids = self._alloc_pages(nb_total, req)
+            assert pids is not None  # not in lane_req yet: no self-preemption
+            req.page_ids = pids
+            self.table[lane] = 0
+            self.table[lane, :nb_total] = pids
+            self._table_dev = None
+        else:
+            self._pf_dense[req.rid] = self._dense0
         req.lane = lane
         self.lane_req[lane] = req       # PREFILL state: masked in decode
 
     def _release(self, req: Request) -> None:
+        """Free the lane and its pages.  A dense family's slot keeps its
+        state: the lane rides along in decode with it, as in the
+        reference."""
         for pid in req.page_ids:
             self.pool.unref(pid)
+        if not self.paged:
+            self._pf_dense.pop(req.rid, None)
         if req.lane >= 0:
             self.table[req.lane] = 0
             self.lane_req[req.lane] = None
@@ -287,11 +315,43 @@ class Engine:
         p = torch.full((1,), pos, dtype=torch.int32, device=self.device)
         return self.model.paged_decode_step(self.pool.view(tab), t, p)
 
+    def _chunk_dense(self, req: Request, tokens: np.ndarray):
+        """Full pages of one lane's prompt advance its mid-prefill state;
+        returns the last page's last-token logits.  The reference's chunk
+        step also runs `prefill_chunk` pages past the prompt and discards
+        their state and logits: with no trash page to write, the port skips
+        them."""
+        page = self.page_size
+        tok = torch.as_tensor(tokens, device=self.device)
+        dense, lg = self._pf_dense[req.rid], None
+        for j in range(len(tokens) // page):
+            lg, dense = self.model.prefill_page(
+                dense, tok[j * page:(j + 1) * page])
+        self._pf_dense[req.rid] = dense
+        return lg
+
+    def _tail_dense(self, req: Request, token: int):
+        """One prompt-tail token through the B=1 decode step."""
+        t = torch.full((1,), token, dtype=torch.int32, device=self.device)
+        lg, self._pf_dense[req.rid] = self.model.paged_decode_step(
+            self._pf_dense[req.rid], t)
+        return lg
+
     def _warmup(self) -> None:
         """The reference engine's warm-up calls, run the same way: a chunk
         with every page masked, a tail token and a decode step, all on the
         trash page.  They compile the reference's traces; here they leave
-        the trash page in the state the reference's does."""
+        the trash page in the state the reference's does.  A dense family
+        runs the tail token from the zero state and the decode step over
+        the zero slots and keeps neither result, so the slots stay zero
+        (the reference re-initialises them after its warm-up)."""
+        if not self.paged:
+            z = torch.zeros((self.max_lanes,), dtype=torch.int32,
+                            device=self.device)
+            self.model.paged_decode_step(self._dense0, z[:1])
+            self.model.paged_decode_step(dict(self.slots, pos=z), z)
+            self._sync()
+            return
         zrow = np.zeros((self.n_blocks,), np.int32)
         self._chunk(zrow, np.zeros((self.prefill_chunk * self.page_size,),
                                    np.int32), 0, 0)
@@ -325,17 +385,21 @@ class Engine:
                 start = req.pf_pos // page
                 allowed = min(self.prefill_chunk, nb_full - start,
                               budget // page)
-                toks = np.zeros((self.prefill_chunk * page,), np.int32)
                 chunk = req.prompt[start * page:(start + allowed) * page]
-                toks[:len(chunk)] = chunk
-                lg = self._chunk(self.table[lane], toks, start,
-                                 start + allowed)
+                if self.paged:
+                    toks = np.zeros((self.prefill_chunk * page,), np.int32)
+                    toks[:len(chunk)] = chunk
+                    lg = self._chunk(self.table[lane], toks, start,
+                                     start + allowed)
+                else:
+                    lg = self._chunk_dense(req, chunk)
                 req.pf_pos = (start + allowed) * page
                 budget -= allowed * page
                 worked = True
             while budget >= 1 and nb_full * page <= req.pf_pos < s:
-                lg = self._tail(self.table[lane], int(req.prompt[req.pf_pos]),
-                                req.pf_pos)
+                tok = int(req.prompt[req.pf_pos])
+                lg = (self._tail(self.table[lane], tok, req.pf_pos)
+                      if self.paged else self._tail_dense(req, tok))
                 req.pf_pos += 1
                 budget -= 1
                 worked = True
@@ -347,13 +411,21 @@ class Engine:
         return finished, worked
 
     def _finish_prefill(self, req: Request, lane: int, logits) -> None:
-        """Prefill done: sample the first token and flip to DECODE."""
+        """Prefill done: sample the first token, move a dense family's
+        mid-prefill state into the lane's slot, and flip to DECODE."""
         tok0 = int(greedy_token(logits, self.model.a.vocab)[0])
         self.prefill_tokens += len(req.prompt)
         req.generated.append(tok0)
         if req.ttft is None:
             req.ttft = self.clock() - req.arrival
             req.prefill_s = req.ttft - req.queue_s
+        if not self.paged:
+            dense = self._pf_dense.pop(req.rid)
+            for name, ax in self._dense_axes.items():   # in place
+                if ax == 0:
+                    self.slots[name][lane] = dense[name][0]
+                else:
+                    self.slots[name][:, lane] = dense[name][:, 0]
         req.state = RequestState.DECODE
         self.h_tokens[lane] = tok0
         self._table_dev = None          # lane unmasks in the decode table
@@ -365,6 +437,13 @@ class Engine:
         for ln, req in enumerate(self.lane_req):
             if req is not None and req.state is RequestState.DECODE:
                 pos[ln] = req.pos
+        tokens = torch.as_tensor(self.h_tokens, device=self.device)
+        if not self.paged:
+            # every lane advances its slot: dead and mid-prefill lanes too
+            logits, self.slots = self.model.paged_decode_step(
+                dict(self.slots, pos=torch.as_tensor(pos, device=self.device)),
+                tokens)
+            return greedy_token(logits, self.model.a.vocab).cpu().numpy()
         if self._table_dev is None:     # re-upload only when tables changed
             # mid-prefill lanes decode masked: their rows point at the
             # trash page so the ride-along writes never touch real pages
@@ -374,8 +453,7 @@ class Engine:
                     eff[ln] = 0
             self._table_dev = torch.as_tensor(eff, device=self.device)
         logits = self.model.paged_decode_step(
-            self.pool.view(self._table_dev),
-            torch.as_tensor(self.h_tokens, device=self.device),
+            self.pool.view(self._table_dev), tokens,
             torch.as_tensor(pos, device=self.device))
         # the one host-device sync of the decode step: the token readback
         return greedy_token(logits, self.model.a.vocab).cpu().numpy()
@@ -391,7 +469,8 @@ class Engine:
         counts, decode_wall_s / prefill_wall_s (host clock, synchronized),
         completed, generated_tokens, prefill_tokens, queue_depth,
         live_lanes, preemptions, skips, straggler_steps, TTFT and TPOT mean
-        / p50 / p99, decode_tok_s and the pool report."""
+        / p50 / p99, decode_tok_s and, for a paged family, the pool
+        report."""
         done = [r for r in self.scheduler.requests.values()
                 if r.state is RequestState.DONE]
         ttfts = [r.ttft for r in done if r.ttft is not None]
@@ -404,7 +483,7 @@ class Engine:
             return float(np.percentile(vals, q)) if vals else 0.0
 
         gen = sum(len(r.generated) for r in done)
-        return {
+        out = {
             "engine_steps": self.engine_steps,
             "decode_steps": self.decode_steps,
             "decode_wall_s": self.decode_wall_s,
@@ -425,5 +504,7 @@ class Engine:
             "tpot_p99_s": pct(tpots, 99),
             "decode_tok_s": (gen / self.decode_wall_s
                              if self.decode_wall_s > 0 else 0.0),
-            "pool": self.pool.report(),
         }
+        if self.paged:
+            out["pool"] = self.pool.report()
+        return out

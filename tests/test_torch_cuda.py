@@ -9,8 +9,9 @@ Every kernel equals its plain version bit for bit: K1, K2, K3, K7 and K8
 by construction (integer work, or one rounding per element); K4 (rows and
 batch columns), K5 and K6 because both sides take their sums in float64
 (K5's sums of quantized probabilities are exact in fp32) and every
-division, sqrt and exp in float64, each rounded once to fp32.  Without a
-card each test skips.
+division, sqrt and exp in float64, each rounded once to fp32; K9 because
+both sides round h twice per step and sum y in float64 in n order.
+Without a card each test skips.
 """
 import numpy as np
 import pytest
@@ -182,3 +183,71 @@ def test_cuda_qconv_refuses_tf32(cuda):
         assert qconv(preset("full8"), x, w, 2).shape == (1, 4, 4, 4)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 16])
+def test_cuda_qmatmul_ssm_shapes(cuda, m):
+    """K1 at falcon-mamba-7b's projections: in_proj (4096 -> 16384),
+    x_proj (8192 -> 288, ragged against the 64-wide tile), dt_proj
+    (256 -> 8192) and out_proj (8192 -> 4096), plain and requantized."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    inv = torch.tensor(2.0 ** -14, device=cuda)
+    for k, n in ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096)):
+        a, b = _i8(g, (m, k), cuda), _i8(g, (k, n), cuda)
+        assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), (m, k, n)
+        assert torch.equal(ops.qmatmul(a, b, inv), ref.qmatmul(a, b, inv)), \
+            (m, k, n)
+
+
+def _scan_inputs(g, shape, dev):
+    """The model's scan inputs: a = exp(dt A), dt log-uniform in
+    [1e-3, 1e-1], A = -(1..N); b ~ 0.1 N(0, 1); c, h0 ~ N(0, 1)."""
+    b, s, d, n = shape
+    dt = torch.empty((b, s, d), device=dev).uniform_(
+        np.log(1e-3), np.log(1e-1), generator=g).exp()
+    a = torch.exp(dt[..., None] * -torch.arange(1, n + 1, device=dev,
+                                                 dtype=torch.float32))
+    bb = torch.randn(shape, generator=g, device=dev) * 0.1
+    c = torch.randn((b, s, n), generator=g, device=dev)
+    h0 = torch.randn((b, d, n), generator=g, device=dev)
+    return a, bb, c, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_h0", [
+    ((1, 16, 8192, 16), True),      # a prefill page of falcon-mamba-7b
+    ((4, 1, 8192, 16), True),       # a decode step of 4 lanes
+    ((1, 4096, 8192, 16), False),   # train_4k from zero: the TPU kernel's
+    ((2, 37, 1000, 4), True),       # ragged S and D, the reduced N
+    ((2, 37, 1000, 4), False),
+    ((3, 5, 65, 16), True)])
+def test_cuda_selective_scan_bitwise(cuda, shape, with_h0):
+    """K9 equals its plain version bit for bit: h with two roundings per
+    step, y the n-ordered float64 sum rounded once, on both sides."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a, b, c, h0 = _scan_inputs(g, shape, cuda)
+    h0 = h0 if with_h0 else None
+    y, h = ops.selective_scan(a, b, c, h0)
+    yp, hp = ref.selective_scan(a, b, c, h0)
+    assert torch.isfinite(y).all()
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_continues_and_checks(cuda):
+    """A scan continued from its h_last equals one scan on the card; an
+    unaligned view runs; an N the kernel is not built for raises."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a, b, c, h0 = _scan_inputs(g, (2, 40, 300, 16), cuda)
+    y, h = ops.selective_scan(a, b, c, h0)
+    y1, h1 = ops.selective_scan(a[:, :13], b[:, :13], c[:, :13], h0)
+    y2, h2 = ops.selective_scan(a[:, 13:], b[:, 13:], c[:, 13:], h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, h)
+    cv = torch.randn(2 * 40 * 16 + 1, generator=g, device=cuda)[1:].reshape(
+        2, 40, 16)                                  # starts 4 bytes in
+    assert torch.equal(ops.selective_scan(a, b, cv, h0)[0],
+                       ref.selective_scan(a, b, cv, h0)[0])
+    a8, b8, c8, h8 = _scan_inputs(g, (1, 4, 32, 8), cuda)
+    with pytest.raises(ValueError, match="N = 8"):
+        ops.selective_scan(a8, b8, c8, h8)

@@ -462,10 +462,13 @@ def test_cpu_tensors_take_the_plain_route():
                  kind="batch")
     ops.cq_stochastic(torch.zeros(3), torch.zeros(3, dtype=torch.int32),
                       1.0)
+    ops.selective_scan(torch.ones(1, 2, 3, 4), torch.ones(1, 2, 3, 4),
+                       torch.ones(1, 2, 4))
     assert ops.LAUNCHES == dict.fromkeys(ops.OPS, 0)
     assert set(ops.OPS) == {"qmatmul", "quantize", "ubn_norm",
                             "page_gather", "paged_attention", "dgrad",
-                            "wgrad", "flash_attention", "cq_stochastic"}
+                            "wgrad", "flash_attention", "cq_stochastic",
+                            "selective_scan"}
 
 
 def test_every_kernel_has_a_source():
