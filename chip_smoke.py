@@ -13,9 +13,14 @@ prints no result line:
   2. kernels each kernel against its plain PyTorch version on the card at
              the serving and training paths' shapes, bit for bit (K1
              qmatmul, K2 quantize, K3 dgrad/wgrad in the affine k=8,
-             affine k=16 and flag k=8 modes, K4 ubn_norm by rows and by
+             affine k=16 and flag k=8 modes at the four qdense shapes, a
+             ragged and a split shape, K4 ubn_norm by rows and by
              columns ("batch", ResNet-50's largest and smallest BN and a
-             ragged M), K5 flash_attention, K7 page_gather, K6
+             ragged M), K5 flash_attention at train_4k and its tile-skip
+             edge cases (offset positions, leading padding, rows without
+             keys, k_a = 4, dh = 64, 3 heads per KV head) with the share
+             of tiles it skipped and the exhaustive check of its p codes,
+             K7 page_gather, K6
              paged_attention, K8 cq_stochastic, which no path calls, K9
              selective_scan at a prefill page, a decode step, the
              train_4k length from zero state and a ragged shape), with
@@ -36,7 +41,9 @@ prints no result line:
              TokenTask ("arith") sequence of the train_4k length (batch 1 x
              4096 tokens): 3 steps with their loss, wall time, peak memory
              and kernel launches (dgrad, wgrad and flash_attention > 0 in
-             every step); a torch.profiler breakdown of one more step; then
+             every step); the step's forward / backward / optimizer split;
+             a torch.profiler breakdown of one more step (with K3's and
+             K5's device time per step); then
              step 1 again from the same weights through the plain versions
              on the card, whose loss, parameters and momentum accumulator
              must equal the kernel run's bit for bit.
@@ -227,6 +234,21 @@ def phase_kernels() -> None:
             assert torch.equal(ops.wgrad(a8, e, sc, mode=mode, k=kb),
                                ref.wgrad(a8, e, sc, mode=mode, k=kb)), \
                 f"wgrad {mode} k={kb} {m}x{n}x{kd} differs"
+    # ragged M, N and K (not multiples of the 128-wide tiles) and a small
+    # output whose contraction splits across blocks
+    for mr, nr, kdr in ((4100, 1000, 4160), (4096, 256, 256)):
+        e = f32(mr, nr) * 1e-3
+        b8, a8 = i8(kdr, nr), i8(mr, kdr)
+        for mode, kb, inv in modes:
+            sc = torch.tensor([inv, 2.0 ** -20, 2.0 ** -27], device=dev)
+            assert torch.equal(ops.dgrad(e, b8, sc, mode=mode, k=kb),
+                               ref.dgrad(e, b8, sc, mode=mode, k=kb)), \
+                f"dgrad {mode} k={kb} {mr}x{nr}x{kdr} differs"
+            assert torch.equal(ops.wgrad(a8, e, sc, mode=mode, k=kb),
+                               ref.wgrad(a8, e, sc, mode=mode, k=kb)), \
+                f"wgrad {mode} k={kb} {mr}x{nr}x{kdr} differs"
+    log("  bitwise at the four qdense shapes, 4100x1000x4160 and "
+        "4096x256x256 (split), three modes each")
     kd, n = 4096, 12800               # the backward of w_gate / w_up
     e = f32(m, n) * 1e-3
     b8, a8 = i8(kd, n), i8(m, kd)
@@ -280,6 +302,46 @@ def phase_kernels() -> None:
                        ref.flash_attention(q8, k8, v8, pos, pos, kval2,
                                            *scs, **nc)), \
         "flash_attention (padded, not causal) differs"
+    # the edge cases of the tile skip and the widened k_a, at train_4k's
+    # widths: queries at the end of a longer context (q_pos = T - S + i),
+    # the whole first kv chunk masked (leading padding), causal rows that
+    # see no valid key at all (keys from position 1000 on), k_a = 4 (the
+    # a4 preset), heads of 64, and 3 query heads per KV head (128-row
+    # blocks that span q chunks, the last one partial)
+    def fa_case(what, sq, t, qpos, kpos, kvalid, causal, hh=32, kh=8, d=128,
+                k_a=8, qch=1024):
+        qx, kx, vx = i8(1, sq, hh, d), i8(1, t, kh, d), i8(1, t, kh, d)
+        kw = dict(causal=causal, sm_scale=d ** -0.5, q_chunk=qch,
+                  kv_chunk=512, k_a=k_a)
+        ax = (qx, kx, vx, qpos, kpos, kvalid, *scs)
+        assert torch.equal(ops.flash_attention(*ax, **kw),
+                           ref.flash_attention(*ax, **kw)), \
+            f"flash_attention ({what}) differs"
+    ones = torch.ones_like(pos)
+    fa_case("offset positions", 1024, s_, pos[:1024] + s_ - 1024, pos, ones,
+            True)
+    for causal in (True, False):
+        fa_case(f"leading padding, causal={causal}", s_, s_, pos, pos,
+                (pos >= 512).to(torch.int32), causal)
+    fa_case("rows without keys", s_, s_, pos, pos + 1000, ones, True)
+    fa_case("k_a = 4", s_, s_, pos, pos, kval2, True, k_a=4)
+    fa_case("dh = 64", s_, s_, pos, pos, kval2, True, d=64)
+    fa_case("3 heads per KV head", 960, s_, pos[:960] + 3000, pos, ones,
+            True, hh=24, qch=320)
+    log("  bitwise at train_4k causal and padded, offset positions, leading "
+        "padding (causal and not), rows without keys, k_a = 4, dh = 64, "
+        "3 heads per KV head")
+    visits = torch.zeros(2, dtype=torch.int64, device=dev)
+    ops.flash_attention(*fargs, **fkw, visits=visits)
+    tiles = kvh * (s_ * (h // kvh) // 128) * (s_ // 64)
+    st_v, mn_v = visits.tolist()
+    log(f"  train_4k causal: tiles visited {st_v} / {tiles} (stats launch), "
+        f"{mn_v} / {tiles} (main launch): {1 - st_v / tiles:.4f} and "
+        f"{1 - mn_v / tiles:.4f} skipped")
+    miss = ops.flash_pcode_mismatches(dev)
+    log(f"  p codes from thresholds against float(exp(double(x))) over every "
+        f"fp32 x <= 0, k_a 2..8: mismatches {miss}")
+    assert miss == [0] * 7, "flash_attention p codes differ"
     qb = (q8.float() * scs[0]).to(torch.bfloat16).transpose(1, 2)
     kb_ = (k8.float() * scs[1]).to(torch.bfloat16).transpose(1, 2)
     vb = (v8.float() * scs[2]).to(torch.bfloat16).transpose(1, 2)
@@ -733,7 +795,8 @@ def phase_train() -> dict:
     # where a training step's time goes: device time by kernel name and
     # the busy share of the wall
     with_profile(lambda: step(opt, task.batch(TRAIN_STEPS + 1),
-                              TRAIN_STEPS + 1), "train step")
+                              TRAIN_STEPS + 1), "train step",
+                 {"K3 (bwd_*)": "bwd_", "K5 (fa_*)": "fa_"})
 
     # step 1 again from the same weights through the plain versions
     with torch.no_grad():
@@ -881,8 +944,9 @@ def phase_resnet() -> dict:
     return total
 
 
-def with_profile(fn, what: str) -> None:
-    """torch.profiler over one call of `fn` (a synchronised step)."""
+def with_profile(fn, what: str, groups: dict | None = None) -> None:
+    """torch.profiler over one call of `fn` (a synchronised step); `groups`
+    maps a label to a kernel-name prefix whose device time is summed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -891,10 +955,11 @@ def with_profile(fn, what: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
-    report_profile(prof, wall_us, 1, what)
+    report_profile(prof, wall_us, 1, what, groups)
 
 
-def report_profile(prof, wall_us: float, steps: int, what: str) -> None:
+def report_profile(prof, wall_us: float, steps: int, what: str,
+                   groups: dict | None = None) -> None:
     import torch
 
     def dev_us(e):
@@ -917,6 +982,12 @@ def report_profile(prof, wall_us: float, steps: int, what: str) -> None:
     for e in rows[:14]:
         log(f"  {dev_us(e) / 1e3 / steps:9.3f} ms  "
             f"{e.count // steps:5d} calls  {e.key[:70]}")
+    for label, prefix in (groups or {}).items():
+        sel = [e for e in rows
+               if e.key.removeprefix("void ").startswith(prefix)]
+        ms = sum(map(dev_us, sel)) / 1e3 / steps
+        log(f"[profile] {what}: {label} {ms:.3f} ms in "
+            f"{sum(e.count for e in sel) // steps} launches each")
 
 
 def main() -> int:

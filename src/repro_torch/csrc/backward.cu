@@ -1,12 +1,10 @@
-// K3: the two Alg. 2 backward dots with Q_E2 fused into the prologue.
+// K3: the two Alg. 2 backward dots with Q_E2 fused into their operand pass.
 //
 // Replaces repro/kernels/backward.py::bwd_dgrad and ::bwd_wgrad
 // (_quantize_block and _bwd_kernel).  On this slice they are the backward
 // of every qdense of the training step (wq, wk, wv, wo, w_gate, w_up,
 // w_down): dgrad is the input error e4 = e3 . W^T, wgrad the weight
-// gradient g_W = x0^T . e3, where e3 = Q_E2(g) is never stored: each block
-// loads fp32 error tiles and quantizes them in registers into the payload
-// plane(s), as the TPU kernel does in VMEM.
+// gradient g_W = x0^T . e3, where e3 = Q_E2(g).
 //
 //   dgrad  g (M, N) f32, b8 (K, N) int8 -> (M, K) f32, contraction over N
 //   wgrad  a8 (M, K) int8, g (M, N) f32 -> (K, N) f32, contraction over M
@@ -16,7 +14,7 @@
 //   affine k = 16   one int16 plane; Hopper has no int16 tensor-core path,
 //                   so each payload q splits into q = 256 * hi + lo with
 //                   hi = q >> 8 (s8) and lo = q & 255 (u8), the two halves
-//                   run as s8.s8 and u8.s8 (or s8.u8) mma.sync products, and
+//                   run as s8.s8 and u8.s8 (or s8.u8) wgmma products, and
 //                   256 * acc_hi + acc_lo is combined in wrapping 32-bit
 //                   arithmetic: exactly the int32 sum, wrap included, that
 //                   the reference's int16 x int8 -> int32 einsum gives
@@ -25,49 +23,42 @@
 // Epilogue: out = acc1 * s1 (+ acc2 * s2), fp32, built with -fmad=false.
 //
 // Bound: operations at the training shapes (M = 4096 tokens: each error
-// element feeds K multiply-adds).  Design (right first, not yet fast): 64x64
-// output tiles, 4 warps of 32x32 each on int8 mma.sync m16n8k32, 64-deep
-// contraction steps staged in shared memory with 80-byte rows.  dgrad's
-// operands are both contiguous along the contraction; wgrad contracts over
-// the slow axis of a8 and g, so both tiles are transposed 4x4 bytes at a
-// time with __byte_perm (as K1 stages its column operand).  When the tiles
-// cannot fill the card the contraction splits across blocks and the int32
-// partials meet by atomicAdd (exact, order-free modulo 2^32) in a workspace
-// that a second launch scales.  wgmma and TMA come later.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// element feeds K multiply-adds).  Design, in two launches (three with a
+// split contraction):
+//   1. operand pass (bwd_prep_rows / bwd_prep_cols): every operand is
+//      written once as 128 x 128-byte tiles, K-major, 128B-swizzled and
+//      zero padded to whole tiles, in the byte image the tensor cores read:
+//      dgrad's A = the Q_E2 plane(s) of g (quantized here, rows of g are
+//      already K-major) and B = b8; wgrad's A = a8^T and B = the Q_E2
+//      planes of g^T, transposed through shared memory.  int8 wgmma takes
+//      no transposed operand, so wgrad's contraction over the slow axis of
+//      both operands needs this transpose somewhere; doing it once here
+//      rather than in every block's staging keeps the mainloop one plain
+//      K-major product for all six (mode, dot) cases, and ragged M, N and
+//      K become zero tiles that add nothing.  dgrad
+//      takes the same pass: its planes cost 1 byte per error element of
+//      traffic against the 4 of the fp32 error every block would
+//      otherwise load again (the TPU kernel quantizes in VMEM; here the
+//      int8 planes are the cheaper thing to re-read).  At 4096 x 12800 the
+//      pass moves about 0.3 GB, some 0.1 ms against the 0.43 ms bound.
+//   2. bwd_gemm: 128 x 128 output tiles (blocks ordered in groups of 8
+//      row tiles for L2 reuse), one producer warpgroup and two consumer
+//      warpgroups of 64 rows.  The producer's one thread streams
+//      each 128-deep k step (all planes of it) into a 4-stage ring with one
+//      cp.async.bulk per 16 KB tile, completing on the stage's mbarrier;
+//      the consumers run wgmma m64n128k32 from shared memory (s8.s8, u8.s8
+//      or s8.u8) into one int32 accumulator per plane and release the stage
+//      on a second mbarrier.  When the tiles cannot fill the card the
+//      contraction splits across blocks and the int32 partials meet by
+//      atomicAdd (exact, order-free modulo 2^32) in a workspace that
+//      bwd_epilogue scales.
+#include "hopper.cuh"
 
-#define BM 64
-#define BN 64
-#define BK 64
-#define LDS 80
+#define TILE 16384          // 128 rows x 128 bytes
+#define STAGES 4
+#define GROUP 8             // row tiles a run of consecutive blocks shares
 
-enum { AFF8 = 0, AFF16 = 1, FLAG = 2 };
-
-template <bool AU, bool BU>
-__device__ __forceinline__ void mma8(int* c, const int* a, const int* b) {
-    if (!AU && !BU)
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-              "r"(b[1]));
-    else if (AU)
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-              "r"(b[1]));
-    else
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-              "r"(b[1]));
-}
+enum { AFF8 = 0, AFF16 = 1, FLAG = 2, COPY8 = 3 };
 
 // One error element -> its payload bytes: plane 0 (s8: the affine payload,
 // its high half at k = 16, or the flag hi plane) and plane 1 (the u8 low
@@ -95,235 +86,292 @@ __device__ __forceinline__ void quant_e(float g, float inv, float lim,
     }
 }
 
-// transpose a 4x4 block of bytes: r[i] holds row i's 4 bytes; w[j] gets
-// column j's 4 bytes (row 0 in the low byte)
-__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* w) {
-    const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140);
-    const uint32_t hi01 = __byte_perm(r[0], r[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t hi23 = __byte_perm(r[2], r[3], 0x7362);
-    w[0] = __byte_perm(lo01, lo23, 0x5410);
-    w[1] = __byte_perm(lo01, lo23, 0x7632);
-    w[2] = __byte_perm(hi01, hi23, 0x5410);
-    w[3] = __byte_perm(hi01, hi23, 0x7632);
+// the operand bytes of source element (r, k) (0 outside [R) x [K)):
+// SRC = COPY8 copies an int8 matrix, otherwise quantizes an fp32 one
+template <int SRC>
+__device__ __forceinline__ void elem(const void* src, long long off, bool in,
+                                     float inv, float lim, uint32_t& p0,
+                                     uint32_t& p1) {
+    p0 = p1 = 0u;
+    if (!in) return;
+    if (SRC == COPY8)
+        p0 = (uint32_t)((const uint8_t*)src)[off];
+    else
+        quant_e<SRC>(((const float*)src)[off], inv, lim, p0, p1);
 }
 
-__device__ __forceinline__ float4 load_g4(const float* g, long long ld,
-                                          int row, int col, int rows,
-                                          int cols, int kend_col, int gvec) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row >= rows) return v;
-    const float* src = g + (long long)row * ld + col;
-    if (gvec && col + 4 <= kend_col) return *reinterpret_cast<const float4*>(src);
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < 4; ++j)
-        if (col + j < kend_col && col + j < cols) t[j] = src[j];
-    return make_float4(t[0], t[1], t[2], t[3]);
-}
+#define PLANES(SRC) (((SRC) == AFF16 || (SRC) == FLAG) ? 2 : 1)
 
-// DGRAD: C (M x Kout) = Qe(G (M x N)) . B8 (Kout x N)^T, contraction N.
-// WGRAD: C (Kout x N) = A8 (M x Kout)^T . Qe(G (M x N)), contraction M.
-// Rows of C index the mma's A operand, columns its B operand.
-template <int MODE, bool DGRAD>
-__global__ void __launch_bounds__(128)
-bwd_kernel(const float* __restrict__ G, const int8_t* __restrict__ X8,
-           const float* __restrict__ scal, float* __restrict__ out,
-           int32_t* __restrict__ ws1, int32_t* __restrict__ ws2, float lim,
-           int M, int N, int Kd, int splits, int kchunk, int gvec, int xvec) {
-    constexpr int NP = MODE == AFF8 ? 1 : 2;
-    __shared__ __align__(16) uint8_t As[NP][BM * LDS];   // As[row][c]
-    __shared__ __align__(16) uint8_t Bs[NP][BN * LDS];   // Bs[col][c]
-    const int rows = DGRAD ? M : Kd, cols = DGRAD ? Kd : N;
-    const int depth = DGRAD ? N : M;
-    const int split = blockIdx.z;
-    const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-    const int kbeg = split * kchunk, kend = min(depth, kbeg + kchunk);
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const int g = lane >> 2, tg = lane & 3;
-    const float inv = scal[0];
-
-    int acc[NP][2][4][4];
+// Rows of the source are the tile rows (contiguous along the contraction):
+// tile (rt, kt) of plane p at dst + p * pstride + (rt * ktiles + kt) * TILE.
+// One block per tile, 256 threads, each a 16-byte chunk at a time.
+template <int SRC>
+__global__ void __launch_bounds__(256)
+bwd_prep_rows(const void* __restrict__ src, uint8_t* __restrict__ dst,
+              const float* __restrict__ scal, float lim, int R, int K,
+              int ktiles, long long pstride, int vec) {
+    constexpr int NP = PLANES(SRC);
+    const int kt = blockIdx.x, rt = blockIdx.y;
+    const float inv = SRC == COPY8 ? 0.f : scal[0];
+    uint8_t* tile = dst + ((long long)rt * ktiles + kt) * TILE;
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
+    for (int it = 0; it < 4; ++it) {
+        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
+        const int gr = rt * 128 + r, k0 = kt * 128 + c * 16;
+        const long long base = (long long)gr * K + k0;
+        uint32_t w[NP][4];
+        const bool full = vec && gr < R && k0 + 16 <= K;
+        if (SRC == COPY8 && full) {
+            const int4 v = *reinterpret_cast<const int4*>(
+                (const uint8_t*)src + base);
+            w[0][0] = v.x; w[0][1] = v.y; w[0][2] = v.z; w[0][3] = v.w;
+        } else {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+            for (int q = 0; q < 4; ++q) {
+                float f[4];
+                if (SRC != COPY8 && full) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        (const float*)src + base + 4 * q);
+                    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+                }
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[p][i][j][e] = 0;
-
-    for (int k0 = kbeg; k0 < kend; k0 += BK) {
-        if (DGRAD) {
-            // A: Qe(G) rows r0.., contraction cols k0..; 8 float4 per thread
-#pragma unroll
-            for (int it = 0; it < 8; ++it) {
-                const int u = tid + it * 128, r = u >> 4, c = (u & 15) * 4;
-                const float4 v = load_g4(G, N, r0 + r, k0 + c, M, N, kend, gvec);
-                uint32_t w0 = 0u, w1 = 0u;
-                const float e4[4] = {v.x, v.y, v.z, v.w};
+                for (int p = 0; p < NP; ++p) w[p][q] = 0u;
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                     uint32_t p0, p1;
-                    quant_e<MODE>(e4[j], inv, lim, p0, p1);
-                    if (r0 + r >= M || k0 + c + j >= kend) p0 = p1 = 0u;
-                    w0 |= p0 << (8 * j);
-                    w1 |= p1 << (8 * j);
-                }
-                *reinterpret_cast<uint32_t*>(&As[0][r * LDS + c]) = w0;
-                if (NP == 2) *reinterpret_cast<uint32_t*>(&As[NP - 1][r * LDS + c]) = w1;
-            }
-            // B: b8 rows c0.. (Kout), contraction cols k0..; 16-byte chunks
-#pragma unroll
-            for (int it = 0; it < 2; ++it) {
-                const int u = tid + it * 128, r = u >> 2, kc = (u & 3) * 16;
-                const int gr = c0 + r, gk = k0 + kc;
-                int4 v = make_int4(0, 0, 0, 0);
-                if (gr < Kd) {
-                    const int8_t* src = X8 + (long long)gr * N + gk;
-                    if (xvec && gk + 16 <= kend) {
-                        v = *reinterpret_cast<const int4*>(src);
+                    const int k = k0 + 4 * q + j;
+                    if (SRC != COPY8 && full) {
+                        quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim,
+                                                           p0, p1);
                     } else {
-                        uint32_t w[4] = {0u, 0u, 0u, 0u};
-                        for (int i = 0; i < 16; ++i)
-                            if (gk + i < kend)
-                                w[i >> 2] |= (uint32_t)(uint8_t)src[i] << (8 * (i & 3));
-                        v = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+                        elem<SRC>(src, base + 4 * q + j, gr < R && k < K,
+                                  inv, lim, p0, p1);
                     }
-                }
-                *reinterpret_cast<int4*>(&Bs[0][r * LDS + kc]) = v;
-            }
-        } else {
-            // A: a8 (M x Kout) tile, m = k0.. (contraction), kout = r0..;
-            // 4x4-byte units transposed into As[kout][m]
-#pragma unroll
-            for (int it = 0; it < 2; ++it) {
-                const int u = tid + it * 128, mq = u >> 4, kq = u & 15;
-                const int gm = k0 + mq * 4, gk = r0 + kq * 4;
-                uint32_t r[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    r[i] = 0u;
-                    if (gm + i < kend) {
-                        const int8_t* src = X8 + (long long)(gm + i) * Kd + gk;
-                        if (xvec && gk + 4 <= Kd) {
-                            r[i] = *reinterpret_cast<const uint32_t*>(src);
-                        } else {
-                            for (int j = 0; j < 4; ++j)
-                                if (gk + j < Kd)
-                                    r[i] |= (uint32_t)(uint8_t)src[j] << (8 * j);
-                        }
-                    }
-                }
-                uint32_t w[4];
-                transpose4(r, w);
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    *reinterpret_cast<uint32_t*>(&As[0][(kq * 4 + j) * LDS + mq * 4]) = w[j];
-            }
-            // B: Qe(G) tile, m = k0.. (contraction), n = c0..; quantized,
-            // then transposed into Bs[plane][n][m]
-#pragma unroll
-            for (int it = 0; it < 2; ++it) {
-                const int u = tid + it * 128, mq = u >> 4, nq = u & 15;
-                const int gm = k0 + mq * 4, gn = c0 + nq * 4;
-                uint32_t r0w[4], r1w[4];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    r0w[i] = 0u;
-                    r1w[i] = 0u;
-                    if (gm + i >= kend) continue;
-                    const float4 v = load_g4(G, N, gm + i, gn, M, N, N, gvec);
-                    const float e4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        uint32_t p0, p1;
-                        quant_e<MODE>(e4[j], inv, lim, p0, p1);
-                        if (gn + j >= N) p0 = p1 = 0u;
-                        r0w[i] |= p0 << (8 * j);
-                        r1w[i] |= p1 << (8 * j);
-                    }
-                }
-                uint32_t w[4];
-                transpose4(r0w, w);
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    *reinterpret_cast<uint32_t*>(&Bs[0][(nq * 4 + j) * LDS + mq * 4]) = w[j];
-                if (NP == 2) {
-                    transpose4(r1w, w);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        *reinterpret_cast<uint32_t*>(&Bs[NP - 1][(nq * 4 + j) * LDS + mq * 4]) = w[j];
+                    w[0][q] |= p0 << (8 * j);
+                    if (NP == 2) w[NP - 1][q] |= p1 << (8 * j);
                 }
             }
         }
-        __syncthreads();
+        const int o = r * 128 + ((c ^ (r & 7)) << 4);
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-            int af[NP][2][4], bf[NP][4][2];
+        for (int p = 0; p < NP; ++p)
+            *reinterpret_cast<int4*>(tile + p * pstride + o) =
+                make_int4((int)w[p][0], (int)w[p][1], (int)w[p][2],
+                          (int)w[p][3]);
+    }
+}
+
+#define TP 132              // shared pitch of the transpose (33 words)
+
+// Columns of the source are the tile rows: the source is (K, R) row-major
+// and tile row r holds source column r.  The block stages its 128 x 128
+// source tile (quantized to bytes) in shared memory, then writes each
+// 16-byte chunk from a column of it; the odd word pitch keeps both steps
+// free of bank conflicts.
+template <int SRC>
+__global__ void __launch_bounds__(256)
+bwd_prep_cols(const void* __restrict__ src, uint8_t* __restrict__ dst,
+              const float* __restrict__ scal, float lim, int R, int K,
+              int ktiles, long long pstride, int vec) {
+    constexpr int NP = PLANES(SRC);
+    __shared__ __align__(16) uint8_t S[NP][128 * TP];
+    const int kt = blockIdx.x, rt = blockIdx.y;
+    const float inv = SRC == COPY8 ? 0.f : scal[0];
+    if (SRC == COPY8) {
+        // 128 source rows x 8 chunks of 16 bytes
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+            const int u = threadIdx.x + it * 256, kk = u >> 3, rc = (u & 7) * 16;
+            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
+            const long long base = (long long)gk * R + gr;
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+            if (gk < K && vec && gr + 16 <= R) {
+                const int4 v = *reinterpret_cast<const int4*>(
+                    (const uint8_t*)src + base);
+                w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+            } else if (gk < K) {
+                for (int j = 0; j < 16; ++j)
+                    if (gr + j < R)
+                        w[j >> 2] |= (uint32_t)((const uint8_t*)src)[base + j]
+                                     << (8 * (j & 3));
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                *reinterpret_cast<uint32_t*>(&S[0][kk * TP + rc + 4 * q]) = w[q];
+        }
+    } else {
+        // 128 source rows x 32 float4
+#pragma unroll 4
+        for (int it = 0; it < 16; ++it) {
+            const int u = threadIdx.x + it * 256, kk = u >> 5, rc = (u & 31) * 4;
+            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
+            const long long base = (long long)gk * R + gr;
+            uint32_t w0 = 0u, w1 = 0u;
+            float f[4] = {0.f, 0.f, 0.f, 0.f};
+            const bool full = gk < K && vec && gr + 4 <= R;
+            if (full) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    (const float*)src + base);
+                f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                uint32_t p0, p1;
+                if (full)
+                    quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim, p0, p1);
+                else
+                    elem<SRC>(src, base + j, gk < K && gr + j < R, inv, lim,
+                              p0, p1);
+                w0 |= p0 << (8 * j);
+                w1 |= p1 << (8 * j);
+            }
+            *reinterpret_cast<uint32_t*>(&S[0][kk * TP + rc]) = w0;
+            if (NP == 2) *reinterpret_cast<uint32_t*>(&S[NP - 1][kk * TP + rc]) = w1;
+        }
+    }
+    __syncthreads();
+    uint8_t* tile = dst + ((long long)rt * ktiles + kt) * TILE;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
+        const int o = r * 128 + ((c ^ (r & 7)) << 4);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+                w[j >> 2] |= (uint32_t)S[p][(c * 16 + j) * TP + r] << (8 * (j & 3));
+            *reinterpret_cast<int4*>(tile + p * pstride + o) =
+                make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+        }
+    }
+}
+
+// C (rows x cols) = sum over planes of A_p . B_p^T from the tiled operands:
+// dgrad's planes are in A (B = b8 shared), wgrad's in B (A = a8^T shared).
+template <int MODE, bool DGRAD>
+__global__ void __launch_bounds__(384, 1)
+bwd_gemm(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
+         const float* __restrict__ scal, float* __restrict__ out,
+         int32_t* __restrict__ ws1, int32_t* __restrict__ ws2, int rows,
+         int cols, int ktiles, int kper, long long aps, long long bps,
+         int splits) {
+    constexpr int NP = MODE == AFF8 ? 1 : 2;
+    constexpr int NA = DGRAD ? NP : 1, NB = DGRAD ? 1 : NP;
+    constexpr int STAGE = (NA + NB) * TILE;
+    extern __shared__ uint8_t raw[];
+    uint8_t* sm = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~(uintptr_t)1023);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * STAGE);
+    uint64_t* empty = full + STAGES;
+    // blocks in flight cover GROUP row tiles x a run of column tiles, so
+    // both operands' panels stay in L2 (a plain row-major order streams
+    // every column panel from device memory once per wave)
+    const int rtn = (rows + 127) / 128, ctn = (cols + 127) / 128;
+    const int first = (blockIdx.x / (GROUP * ctn)) * GROUP;
+    const int gsz = min(rtn - first, GROUP);
+    const int local = blockIdx.x % (GROUP * ctn);
+    const int rt = first + local % gsz, ct = local / gsz;
+    const int kt0 = blockIdx.y * kper;
+    const int nkt = min(ktiles, kt0 + kper) - kt0;
+    const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);        // one arrival per consumer warp
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (wg == 0) {                          // producer
+        regs_dec<40>();
+        if (threadIdx.x == 0) {
+            for (int i = 0; i < nkt; ++i) {
+                const int s = i % STAGES;
+                mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[s], STAGE);
+                uint8_t* st = sm + s * STAGE;
+                const long long kt = kt0 + i;
+#pragma unroll
+                for (int a = 0; a < NA; ++a)
+                    bulk_g2s(st + a * TILE,
+                             A + a * aps + ((long long)rt * ktiles + kt) * TILE,
+                             TILE, &full[s]);
+#pragma unroll
+                for (int b = 0; b < NB; ++b)
+                    bulk_g2s(st + (NA + b) * TILE,
+                             B + b * bps + ((long long)ct * ktiles + kt) * TILE,
+                             TILE, &full[s]);
+            }
+        }
+        return;
+    }
+
+    regs_inc<232>();
+    const int cw = wg - 1;                  // consumer: rows 64 cw ..
+    int acc[NP][64];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[p][e] = 0;
+    for (int i = 0; i < nkt; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        const uint8_t* st = sm + s * STAGE;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_regs<64>(acc[p]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
             for (int p = 0; p < NP; ++p) {
-                // dgrad's second plane lives in A, wgrad's in B
-                const int pa = DGRAD ? p : 0, pb = DGRAD ? 0 : p;
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
-                    const uint8_t* base = &As[pa][(wm + mi * 16 + g) * LDS + kk + tg * 4];
-                    af[p][mi][0] = *reinterpret_cast<const int*>(base);
-                    af[p][mi][1] = *reinterpret_cast<const int*>(base + 8 * LDS);
-                    af[p][mi][2] = *reinterpret_cast<const int*>(base + 16);
-                    af[p][mi][3] = *reinterpret_cast<const int*>(base + 8 * LDS + 16);
-                }
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) {
-                    const uint8_t* base = &Bs[pb][(wn + ni * 8 + g) * LDS + kk + tg * 4];
-                    bf[p][ni][0] = *reinterpret_cast<const int*>(base);
-                    bf[p][ni][1] = *reinterpret_cast<const int*>(base + 16);
-                }
+                const uint8_t* at = st + (DGRAD ? p : 0) * TILE + cw * 8192
+                                    + kk * 32;
+                const uint8_t* bt = st + (NA + (DGRAD ? 0 : p)) * TILE
+                                    + kk * 32;
+                const uint64_t da = wg_desc(at, 1024, 1);
+                const uint64_t db = wg_desc(bt, 1024, 1);
+                if (p == 1 && MODE == AFF16 && DGRAD)
+                    wgmma_ss_n128_u8s8(acc[p], da, db);
+                else if (p == 1 && MODE == AFF16)
+                    wgmma_ss_n128_s8u8(acc[p], da, db);
+                else
+                    wgmma_ss_n128_s8s8(acc[p], da, db);
             }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) {
-                    mma8<false, false>(acc[0][mi][ni], af[0][mi], bf[0][ni]);
-                    if (NP == 2) {
-                        if (MODE == AFF16 && DGRAD)
-                            mma8<true, false>(acc[NP - 1][mi][ni], af[NP - 1][mi], bf[NP - 1][ni]);
-                        else if (MODE == AFF16)
-                            mma8<false, true>(acc[NP - 1][mi][ni], af[NP - 1][mi], bf[NP - 1][ni]);
-                        else
-                            mma8<false, false>(acc[NP - 1][mi][ni], af[NP - 1][mi], bf[NP - 1][ni]);
-                    }
-                }
         }
-        __syncthreads();
+        wg_commit();
+        wg_wait0();
+#pragma unroll
+        for (int p = 0; p < NP; ++p) fence_regs<64>(acc[p]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
     }
 
     const float s1 = scal[1], s2 = scal[2];
+    const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, tg = lane & 3;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < 16; ++i)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = r0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
-                const int col = c0 + wn + ni * 8 + tg * 2 + (e & 1);
-                if (row >= rows || col >= cols) continue;
-                const long long o = (long long)row * cols + col;
-                int v1 = acc[0][mi][ni][e], v2 = 0;
-                if (MODE == AFF16) {
-                    v1 = (int)((uint32_t)v1 * 256u + (uint32_t)acc[NP - 1][mi][ni][e]);
-                } else if (MODE == FLAG) {
-                    v2 = acc[NP - 1][mi][ni][e];
-                }
-                if (splits > 1) {
-                    atomicAdd(ws1 + o, v1);
-                    if (MODE == FLAG) atomicAdd(ws2 + o, v2);
-                } else {
-                    float y = __fmul_rn((float)v1, s1);
-                    if (MODE == FLAG) y = __fadd_rn(y, __fmul_rn((float)v2, s2));
-                    out[o] = y;
-                }
+        for (int e = 0; e < 4; ++e) {
+            const int row = rt * 128 + cw * 64 + warp * 16 + g + 8 * (e >> 1);
+            const int col = ct * 128 + i * 8 + tg * 2 + (e & 1);
+            if (row >= rows || col >= cols) continue;
+            const long long o = (long long)row * cols + col;
+            int v1 = acc[0][4 * i + e], v2 = 0;
+            if (MODE == AFF16)
+                v1 = (int)((uint32_t)v1 * 256u + (uint32_t)acc[NP - 1][4 * i + e]);
+            else if (MODE == FLAG)
+                v2 = acc[NP - 1][4 * i + e];
+            if (splits > 1) {
+                atomicAdd(ws1 + o, v1);
+                if (MODE == FLAG) atomicAdd(ws2 + o, v2);
+            } else {
+                float y = __fmul_rn((float)v1, s1);
+                if (MODE == FLAG) y = __fadd_rn(y, __fmul_rn((float)v2, s2));
+                out[o] = y;
             }
+        }
 }
 
 __global__ void bwd_epilogue(const int32_t* __restrict__ ws1,
@@ -340,51 +388,95 @@ __global__ void bwd_epilogue(const int32_t* __restrict__ ws1,
     }
 }
 
+template <int SRC>
+static void prep(bool by_rows, const void* src, uint8_t* dst,
+                 const float* scal, float lim, int R, int K, int ktiles,
+                 long long pstride, int vec, cudaStream_t st) {
+    dim3 grid(ktiles, (R + 127) / 128);
+    if (by_rows)
+        bwd_prep_rows<SRC><<<grid, 256, 0, st>>>(src, dst, scal, lim, R, K,
+                                                 ktiles, pstride, vec);
+    else
+        bwd_prep_cols<SRC><<<grid, 256, 0, st>>>(src, dst, scal, lim, R, K,
+                                                 ktiles, pstride, vec);
+}
+
 template <int MODE, bool DGRAD>
-static void launch_mode(dim3 grid, cudaStream_t st, const float* g,
-                        const int8_t* x8, const float* scal, float* out,
-                        int32_t* ws1, int32_t* ws2, float lim, int M, int N,
-                        int Kd, int splits, int kchunk, int gvec, int xvec) {
-    bwd_kernel<MODE, DGRAD><<<grid, 128, 0, st>>>(
-        g, x8, scal, out, ws1, ws2, lim, M, N, Kd, splits, kchunk, gvec,
-        xvec);
+static int gemm(dim3 grid, cudaStream_t st, const uint8_t* A,
+                const uint8_t* B, const float* scal, float* out,
+                int32_t* ws1, int32_t* ws2, int rows, int cols, int ktiles,
+                int kper, long long aps, long long bps, int splits) {
+    constexpr int NP = MODE == AFF8 ? 1 : 2;
+    const int smem = STAGES * (NP + 1) * TILE + 1024 + 2 * STAGES * 8;
+    auto kern = bwd_gemm<MODE, DGRAD>;
+    int rc = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+    kern<<<grid, 384, smem, st>>>(A, B, scal, out, ws1, ws2, rows, cols,
+                                  ktiles, kper, aps, bps, splits);
+    return (int)cudaGetLastError();
 }
 
 // dgrad = 1: out (M, Kd) from g (M, N) and x8 = b8 (Kd, N);
 // dgrad = 0: out (Kd, N) from x8 = a8 (M, Kd) and g (M, N).
-// mode: 0 affine k <= 8, 1 affine k = 16, 2 flag.  With splits > 1 the
-// caller passes zeroed int32 workspaces of the output's size (two for
-// flag) and this launches the scaling pass after the products.
+// mode: 0 affine k <= 8, 1 affine k = 16, 2 flag.  abuf and bbuf hold the
+// tiled operands: (planes of A) x ceil(rows/128) x ktiles tiles and (planes
+// of B) x ceil(cols/128) x ktiles tiles of 16 KB, ktiles = ceil(depth/128).
+// With splits > 1 the caller passes zeroed int32 workspaces of the
+// output's size (two for flag), each split takes kper k tiles, and this
+// launches the scaling pass after the products.
 extern "C" int bwd_launch(const void* g, const void* x8, const void* scal,
-                          void* out, void* ws1, void* ws2, int mode,
-                          int dgrad, float lim, int M, int N, int Kd,
-                          int splits, int kchunk, void* stream) {
+                          void* out, void* ws1, void* ws2, void* abuf,
+                          void* bbuf, int mode, int dgrad, float lim, int M,
+                          int N, int Kd, int splits, int kper, void* stream) {
     if (M <= 0 || N <= 0 || Kd <= 0) return 0;
     const int rows = dgrad ? M : Kd, cols = dgrad ? Kd : N;
-    const int gvec = (N % 4 == 0) && ((uintptr_t)g % 16 == 0);
-    const int xvec = dgrad ? ((N % 16 == 0) && ((uintptr_t)x8 % 16 == 0))
-                           : ((Kd % 4 == 0) && ((uintptr_t)x8 % 4 == 0));
-    dim3 grid((cols + BN - 1) / BN, (rows + BM - 1) / BM, splits);
+    const int depth = dgrad ? N : M;
+    const int ktiles = (depth + 127) / 128;
+    const long long aps = (long long)((rows + 127) / 128) * ktiles * TILE;
+    const long long bps = (long long)((cols + 127) / 128) * ktiles * TILE;
     cudaStream_t st = (cudaStream_t)stream;
-    const float* G = (const float*)g;
-    const int8_t* X = (const int8_t*)x8;
     const float* S = (const float*)scal;
+    uint8_t* Ab = (uint8_t*)abuf;
+    uint8_t* Bb = (uint8_t*)bbuf;
+    const bool gal = (uintptr_t)g % 16 == 0, xal = (uintptr_t)x8 % 16 == 0;
+    const int gvec = gal && N % 4 == 0;
+    // operand pass: the error's plane(s) and the int8 operand
+    const bool grows = dgrad != 0;
+    uint8_t* gdst = dgrad ? Ab : Bb;
+    const long long gps = dgrad ? aps : bps;
+    const int gR = dgrad ? M : N;
+    if (mode == AFF8)
+        prep<AFF8>(grows, g, gdst, S, lim, gR, dgrad ? N : M, ktiles, gps,
+                   gvec, st);
+    else if (mode == AFF16)
+        prep<AFF16>(grows, g, gdst, S, lim, gR, dgrad ? N : M, ktiles, gps,
+                    gvec, st);
+    else
+        prep<FLAG>(grows, g, gdst, S, lim, gR, dgrad ? N : M, ktiles, gps,
+                   gvec, st);
+    if (dgrad)      // b8 (Kd, N): rows are B's tile rows
+        prep<COPY8>(true, x8, Bb, S, lim, Kd, N, ktiles, bps,
+                    xal && N % 16 == 0, st);
+    else            // a8 (M, Kd): columns are A's tile rows
+        prep<COPY8>(false, x8, Ab, S, lim, Kd, M, ktiles, aps,
+                    xal && Kd % 16 == 0, st);
+    int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+
+    dim3 grid(((cols + 127) / 128) * ((rows + 127) / 128), splits);
     float* O = (float*)out;
     int32_t* W1 = (int32_t*)ws1;
     int32_t* W2 = (int32_t*)ws2;
-#define LAUNCH(MD, DG) launch_mode<MD, DG>(grid, st, G, X, S, O, W1, W2, lim, \
-                                           M, N, Kd, splits, kchunk, gvec, xvec)
-    if (dgrad) {
-        if (mode == AFF8) LAUNCH(AFF8, true);
-        else if (mode == AFF16) LAUNCH(AFF16, true);
-        else LAUNCH(FLAG, true);
-    } else {
-        if (mode == AFF8) LAUNCH(AFF8, false);
-        else if (mode == AFF16) LAUNCH(AFF16, false);
-        else LAUNCH(FLAG, false);
-    }
-#undef LAUNCH
-    int rc = (int)cudaGetLastError();
+#define GEMM(MD, DG) gemm<MD, DG>(grid, st, Ab, Bb, S, O, W1, W2, rows, cols, \
+                                  ktiles, kper, aps, bps, splits)
+    if (dgrad)
+        rc = mode == AFF8 ? GEMM(AFF8, true)
+           : mode == AFF16 ? GEMM(AFF16, true) : GEMM(FLAG, true);
+    else
+        rc = mode == AFF8 ? GEMM(AFF8, false)
+           : mode == AFF16 ? GEMM(AFF16, false) : GEMM(FLAG, false);
+#undef GEMM
     if (rc != 0 || splits <= 1) return rc;
     const long long n = (long long)rows * cols;
     long long want = n / 256 + 1;

@@ -4,9 +4,10 @@ Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), under
 `build/kernels/` at the repository root (`REPRO_TORCH_BUILD_DIR` moves it).
 All missing libraries build in parallel, one `nvcc` process per source,
-and a library's file name carries a hash of its source and flags, so an
-edited kernel rebuilds and an unchanged one is reused.  The libraries load
-with `ctypes`; `kernels/ops.py` declares each entry point's argument types.
+and a library's file name carries a hash of its source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited kernel or header
+rebuilds and an unchanged one is reused.  The libraries load with
+`ctypes`; `kernels/ops.py` declares each entry point's argument types.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without `nvcc`.
@@ -45,8 +46,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path of `name`: its hash covers the source, every shared
+    header under csrc/ (which any source may include) and the flags."""
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 

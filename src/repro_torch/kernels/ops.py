@@ -63,12 +63,12 @@ _SIGS = {
                                            c_int, c_int, c_int, c_int, _P,
                                            _P, _P, _P, c_float, c_float, _P,
                                            _P, _P],
-    ("backward", "bwd_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
-                                 c_float, c_int, c_int, c_int, c_int, c_int,
-                                 _P],
-    ("flash_attention", "fa_launch"): [c_int] + [_P] * 13 + [
-        c_float, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
-        c_int, _P],
+    ("backward", "bwd_launch"): [_P] * 8 + [c_int, c_int, c_float, c_int,
+                                            c_int, c_int, c_int, c_int, _P],
+    ("flash_attention", "fa_launch"): [c_int] + [_P] * 16 + [
+        c_float, c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
+        c_int, c_int, c_int, _P],
+    ("flash_attention", "fa_pcode_check"): [_P, _P, _P],
     ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 4 + [_P],
 }
 _FNS: dict = {}
@@ -255,6 +255,14 @@ def _bwd_mode(mode: str, k: int) -> int:
     return _BWD_MODES[key]
 
 
+def _bwd_splits(tiles: int, ktiles: int, sms: int) -> tuple[int, int]:
+    """Split the contraction when the output tiles cannot fill the card
+    (one wave); returns (splits, k tiles per split)."""
+    want = max(1, min(ktiles, sms // max(tiles, 1)))
+    per = -(-ktiles // want)
+    return -(-ktiles // per), per
+
+
 def _bwd_kernel(g, x8, scal, mode, k, dgrad_: bool) -> Tensor:
     md = _bwd_mode(mode, k)
     _need(g.dtype == torch.float32 and x8.dtype == torch.int8
@@ -274,9 +282,19 @@ def _bwd_kernel(g, x8, scal, mode, k, dgrad_: bool) -> Tensor:
         _need(xc.shape[0] == m, f"wgrad shapes {tuple(x8.shape)} x "
               f"{tuple(g.shape)}")
         rows, cols, depth = kd, n, m
+    # the operand pass writes 128 x 128-byte tiles: the error's planes (two
+    # for affine k = 16 and flag) and the int8 operand, on A's or B's side
+    rt, ct, kt = -(-rows // 128), -(-cols // 128), -(-depth // 128)
+    np_ = 1 if md == 0 else 2
+    na, nb = (np_, 1) if dgrad_ else (1, np_)
+    abuf = torch.empty(na * rt * kt * 16384, dtype=torch.uint8,
+                       device=g.device)
+    bbuf = torch.empty(nb * ct * kt * 16384, dtype=torch.uint8,
+                       device=g.device)
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    splits, kchunk = _splits(-(-rows // 64) * -(-cols // 64), depth, sms)
-    _need(splits < 65536, "backward kernel: too many splits")
+    splits, kper = _bwd_splits(rt * ct, kt, sms)
+    _need(rt < 65536 and ct < 65536 and splits < 65536, "backward kernel: "
+          "output too large or too many splits for one launch")
     out = torch.empty((rows, cols), dtype=torch.float32, device=g.device)
     ws1 = ws2 = None
     if splits > 1:
@@ -285,8 +303,8 @@ def _bwd_kernel(g, x8, scal, mode, k, dgrad_: bool) -> Tensor:
             ws2 = torch.zeros_like(ws1)
     lim = 2.0 ** (k - 1) - 1.0
     _launch("backward", "bwd_launch", _ptr(gc), _ptr(xc), _ptr(sc),
-            _ptr(out), _ptr(ws1), _ptr(ws2), md, int(dgrad_), lim, m, n, kd,
-            splits, kchunk, _stream(gc))
+            _ptr(out), _ptr(ws1), _ptr(ws2), _ptr(abuf), _ptr(bbuf), md,
+            int(dgrad_), lim, m, n, kd, splits, kper, _stream(gc))
     return out
 
 
@@ -486,25 +504,11 @@ def paged_attention(q8: Tensor, k_pages: Tensor, v_pages: Tensor,
 # --------------------------------------------------------------------------
 
 
-def _grid_steps(maxabs: Tensor, scale: Tensor, k: int) -> Tensor:
-    """(n, 2) [inv, step] of the grid decomposition of each chunk whose
-    payload max |n| is `maxabs` (n,): amax = maxabs * scale exactly."""
-    step = torch.clamp(ref._pow2_ceil(maxabs.float() * scale),
-                       min=2.0 ** -24) * 2.0 ** (1 - k)
-    return torch.stack([1.0 / step, step], -1).contiguous()
-
-
-def _chunk_maxabs(x8: Tensor, chunk: int) -> Tensor:
-    """max |payload| of each chunk of x8 (B, L, ...) along L -> (L/chunk,)."""
-    b, n = x8.shape[:2]
-    v = x8.reshape(b, n // chunk, -1).transpose(0, 1).reshape(n // chunk, -1)
-    return torch.maximum(v.amax(1).int(), -(v.amin(1).int()))
-
-
 def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
                     k_pos: Tensor, k_valid: Tensor, q_scale, k_scale,
                     v_scale, *, causal: bool, sm_scale: float, q_chunk: int,
-                    kv_chunk: int, k_a: int = 8) -> Tensor:
+                    kv_chunk: int, k_a: int = 8,
+                    visits: Tensor | None = None) -> Tensor:
     """Tiled online-softmax attention on int8 payloads (training forward).
 
     q8: (B, S, H, dh) int8; k8/v8: (B, T, KV, dh) int8, pre-padded to chunk
@@ -512,10 +516,15 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
     slots; q/k/v_scale: pow2 payload scales; q_chunk/kv_chunk: the
     quantization chunks.  Returns (B, S, H, dh) f32, the pre-Q_A output.
 
-    On the card: (a) per-chunk payload amaxes and grid steps, (b) the
-    statistics launch (each row's masked score max per kv chunk), (c) the
-    running max and the per-(q chunk, kv step) probability step, (d) the
-    main launch (csrc/flash_attention.cu)."""
+    On the card, six launches (csrc/flash_attention.cu): the chunk
+    statistics' init and each q, k and v chunk's payload amax (its grid
+    step), the operand pass (q, k and v regridded once into the kernel's
+    tiles), the statistics launch (each row's running max of masked scores
+    per kv chunk, and the probability amax of each (q chunk, kv chunk)
+    block) and the main launch.  k_a from 2 to 8.  `visits`, an int64 (2,)
+    tensor on the card, gathers how many 64-position kv tiles the
+    statistics and main launches visited out of B * KV * ceil(S * H / KV /
+    128) * T / 64 each (the rest are skipped as wholly masked)."""
     scales = [_scalar(v, q8) for v in (q_scale, k_scale, v_scale)]
     if not _on_kernel(q8):
         return ref.flash_attention(
@@ -523,7 +532,8 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
             sm_scale=sm_scale, q_chunk=q_chunk, kv_chunk=kv_chunk, k_a=k_a)
     _need(q8.dtype == torch.int8 and k8.dtype == torch.int8
           and v8.dtype == torch.int8, "flash_attention takes int8 payloads")
-    _need(k_a == 8, "flash_attention kernel takes k_a = 8")
+    _need(2 <= k_a <= 8, f"flash_attention kernel takes k_a from 2 to 8 "
+          f"(got {k_a})")
     b, s, h, dh = q8.shape
     t, kv = k8.shape[1], k8.shape[2]
     _need(v8.shape == k8.shape and k8.shape[0] == b and k8.shape[3] == dh
@@ -535,32 +545,51 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
           f"(32, 64, 96, 128) (got kv_chunk={kv_chunk}, dh={dh})")
     dev = q8.device
     nq, nk = s // q_chunk, t // kv_chunk
-    qc8, kc8, vc8 = q8.contiguous(), k8.contiguous(), v8.contiguous()
+    nrb, nt = -(-s * (h // kv) // 128), t // 64
+    _need(nrb < 65536 and kv < 65536 and b * max(nq, nk) < 65536,
+          "flash_attention: too many query rows or chunks for one launch")
+    _need(visits is None or (visits.dtype == torch.int64
+                             and visits.numel() == 2
+                             and visits.device == dev),
+          "flash_attention visits is an int64 (2,) tensor on the card")
+    qc8, kc8, vc8 = _aligned(q8), _aligned(k8), _aligned(v8)
     i32 = lambda x: x.to(device=dev, dtype=torch.int32).contiguous()  # noqa
-    qp, kp, kvl = i32(q_pos), i32(k_pos), i32(k_valid)
-    sc = torch.stack(scales).contiguous()
-    qst = _grid_steps(_chunk_maxabs(qc8, q_chunk), scales[0], k_a)
-    kst = _grid_steps(_chunk_maxabs(kc8, kv_chunk), scales[1], k_a)
-    vst = _grid_steps(_chunk_maxabs(vc8, kv_chunk), scales[2], k_a)
-    rowmax = torch.empty((b, s, h, nk), dtype=torch.float32, device=dev)
+    # scratch: the operand tiles (Q 128 rows x 128 bytes per row block, K
+    # and V^T 8 KB per 64 positions), the tiles' mask summary, the p-code
+    # thresholds and the chunk statistics
+    u8 = dict(dtype=torch.uint8, device=dev)
+    qr = torch.empty(b * kv * nrb * 16384, **u8)
+    kr = torch.empty(b * kv * nt * 8192, **u8)
+    vt = torch.empty(b * kv * nt * 8192, **u8)
+    tinfo = torch.empty((nt, 4), dtype=torch.int32, device=dev)
+    pthr = torch.empty(130, dtype=torch.float32, device=dev)
+    stat = torch.empty(nq + 2 * nk + nq * nk, dtype=torch.int32, device=dev)
+    m = torch.empty((b, s, h, nk), dtype=torch.float32, device=dev)
     out = torch.empty((b, s, h, dh), dtype=torch.float32, device=dev)
-    dims = (float(sm_scale), int(causal), b, s, t, h, kv, dh, q_chunk,
-            kv_chunk, _stream(qc8))
-    args = [_ptr(x) for x in (qc8, kc8, vc8, qp, kp, kvl, sc, qst, kst, vst)]
-    _launch("flash_attention", "fa_launch", 0, *args, None, _ptr(rowmax),
-            None, *dims)
-    # glue: running max over kv steps; the probability amax of each
-    # (q chunk, kv step) block is its rows' largest quantized exp(rowmax - m)
-    m = torch.cummax(rowmax, dim=-1).values.contiguous()
     s_ = 2.0 ** (k_a - 1)
-    pmax = torch.round(ref._exp32(rowmax - m) * s_) / s_
-    pmax = pmax.reshape(b, nq, q_chunk * h, nk).amax(dim=(0, 2))
-    pst = torch.clamp(ref._pow2_ceil(pmax), min=2.0 ** -24) * 2.0 ** (1 - k_a)
-    pst = torch.stack([1.0 / pst, pst], -1).contiguous()
-    _launch("flash_attention", "fa_launch", 1, *args, _ptr(pst), _ptr(m),
-            _ptr(out), *dims)
+    qp, kp, kvl = i32(q_pos), i32(k_pos), i32(k_valid)
+    sc = torch.stack(scales)
+    args = [_ptr(x) for x in (qc8, kc8, vc8, qp, kp, kvl, sc, m, out, qr, kr,
+                              vt, tinfo, pthr, stat, visits)]
+    dims = (float(sm_scale), s_, s_ - 1.0, int(causal), b, s, t, h, kv, dh,
+            q_chunk, kv_chunk, _stream(qc8))
+    for phase in (2, 0, 1):
+        _launch("flash_attention", "fa_launch", phase, *args, *dims)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_pcode_mismatches(device) -> list[int]:
+    """K5's p code (a fast exp2 guess corrected by exact thresholds) against
+    rint(float(exp(double(x))) * 2^(k_a-1)) for every fp32 x <= 0, on the
+    card: the number of x that differ, for k_a = 2 .. 8 (all must be 0)."""
+    _need(torch.device(device).type == "cuda", "the p code check runs on "
+          "the card")
+    thr = torch.empty(7 * 130, dtype=torch.float32, device=device)
+    miss = torch.zeros(7, dtype=torch.int64, device=device)
+    _launch("flash_attention", "fa_pcode_check", _ptr(thr), _ptr(miss),
+            _stream(thr))
+    return [int(v) for v in miss.cpu()]
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,10 @@ Every kernel equals its plain version bit for bit: K1, K2, K3, K7 and K8
 by construction (integer work, or one rounding per element); K4 (rows and
 batch columns), K5 and K6 because both sides take their sums in float64
 (K5's sums of quantized probabilities are exact in fp32) and every
-division, sqrt and exp in float64, each rounded once to fp32; K9 because
-both sides round h twice per step and sum y in float64 in n order.
+division, sqrt and exp in float64, each rounded once to fp32 (K5's
+per-score probability codes come from exact thresholds of that exp,
+checked over every fp32 input); K9 because both sides round h twice per
+step and sum y in float64 in n order.
 Without a card each test skips.
 """
 import numpy as np
@@ -103,6 +105,28 @@ def test_cuda_dgrad_wgrad_bitwise(cuda, mode, k, inv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode,k,inv", [("affine", 8, 2.0 ** 9),
+                                        ("affine", 16, 2.0 ** 17),
+                                        ("flag", 8, 2.0 ** 8)])
+@pytest.mark.parametrize("m,n,kd", [(4100, 1000, 4160), (4096, 1024, 4096),
+                                    (4096, 256, 256)])
+def test_cuda_dgrad_wgrad_large_ragged_and_split(cuda, mode, k, inv, m, n,
+                                                  kd):
+    """K3 at M, N and K that are not multiples of the 128-wide tiles
+    (the operand pass pads them with zero tiles), at the wk/wv shape of
+    the training step (4096 -> 1024), and at a shape whose small output
+    splits the contraction across blocks."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    scal = _scal(inv, 2.0 ** -16, 2.0 ** -23, cuda)
+    e = torch.randn((m, n), generator=g, device=cuda) * 0.01
+    b8, a8 = _i8(g, (kd, n), cuda), _i8(g, (m, kd), cuda)
+    assert torch.equal(ops.dgrad(e, b8, scal, mode=mode, k=k),
+                       ref.dgrad(e, b8, scal, mode=mode, k=k))
+    assert torch.equal(ops.wgrad(a8, e, scal, mode=mode, k=k),
+                       ref.wgrad(a8, e, scal, mode=mode, k=k))
+
+
+@pytest.mark.cuda
 def test_cuda_dgrad_int16_wraps_like_the_plain_version(cuda):
     n = 20000                   # 20000 * 32767 * 127 > 2^31: the sum wraps
     e = torch.ones((2, n), device=cuda)
@@ -133,6 +157,98 @@ def test_cuda_flash_attention_bitwise(cuda, causal, dh, pad):
     want = ref.flash_attention(*args, **kw)
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+def _flash_case(dev, *, s, t, q_pos, k_pos, k_valid, causal, dh=128,
+                k_a=8, q_chunk=128, kv_chunk=64, h=8, kv=2, seed=5):
+    """K5 against its plain version on the card, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q8, k8, v8 = (_i8(g, (1, s, h, dh), dev), _i8(g, (1, t, kv, dh), dev),
+                  _i8(g, (1, t, kv, dh), dev))
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=dev)  # noqa
+    sc = [torch.tensor(v, device=dev) for v in (2.0 ** -6, 2.0 ** -7,
+                                                2.0 ** -5)]
+    kw = dict(causal=causal, sm_scale=dh ** -0.5, q_chunk=q_chunk,
+              kv_chunk=kv_chunk, k_a=k_a)
+    args = (q8, k8, v8, i32(q_pos), i32(k_pos), i32(k_valid), *sc)
+    got = ops.flash_attention(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref.flash_attention(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_offset_positions(cuda):
+    """Queries at the end of a longer key range (q_pos = T - S + i, as a
+    chunked prefill continues a context): the tile skip reads positions,
+    not indices."""
+    s, t = 128, 384
+    _flash_case(cuda, s=s, t=t, q_pos=np.arange(s) + t - s,
+                k_pos=np.arange(t), k_valid=np.ones(t), causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_leading_padding(cuda, causal):
+    """k_valid masks the whole first kv chunk: every row's running max is
+    NEG_INF there, so the masked keys' p = exp(0) = 1 terms enter l and o
+    until a valid key wipes them (alpha = 0)."""
+    t = 256
+    _flash_case(cuda, s=256, t=t, q_pos=np.arange(256), k_pos=np.arange(t),
+                k_valid=np.arange(t) >= 64, causal=causal)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rows_without_keys(cuda):
+    """Causal queries before the first key position see no valid key at
+    all: their output is the plain version's average over masked keys."""
+    t = 256
+    _flash_case(cuda, s=256, t=t, q_pos=np.arange(256),
+                k_pos=np.arange(t) + 100, k_valid=np.ones(t), causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_a,dh,causal", [(4, 128, True), (4, 64, False),
+                                           (2, 96, True), (8, 64, True)])
+def test_cuda_flash_attention_k_a_and_dh(cuda, k_a, dh, causal):
+    """k_a below 8 (the a4 preset's 4, and the smallest, 2) and the head
+    widths below 128."""
+    _flash_case(cuda, s=256, t=256, q_pos=np.arange(256),
+                k_pos=np.arange(256), k_valid=np.arange(256) < 230,
+                causal=causal, dh=dh, k_a=k_a, seed=k_a * dh)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_ragged_rows_and_skip_count(cuda):
+    """Three query heads per KV head: 128-row blocks span q chunks (of 40
+    positions) and the last block is partial.  The visited-tile count of a
+    causal run is what the skip rule gives from the positions."""
+    s, t, g_ = 120, 192, 3
+    _flash_case(cuda, s=s, t=t, q_pos=np.arange(s) + 50, k_pos=np.arange(t),
+                k_valid=np.ones(t), causal=True, h=6, kv=2, q_chunk=40)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q8 = _i8(gen, (1, s, 6, 64), cuda)
+    k8, v8 = _i8(gen, (1, t, 2, 64), cuda), _i8(gen, (1, t, 2, 64), cuda)
+    visits = torch.zeros(2, dtype=torch.int64, device=cuda)
+    pos = torch.arange(t, device=cuda, dtype=torch.int32)
+    ops.flash_attention(q8, k8, v8, pos[:s] + 50, pos, torch.ones_like(pos),
+                        1.0, 1.0, 1.0, causal=True, sm_scale=0.125,
+                        q_chunk=40, kv_chunk=64, visits=visits)
+    # per KV head, blocks of 128 rows = positions 50 + R // 3: the tiles of
+    # 64 keys starting past the block's last position are skipped
+    want = 0
+    for r0 in range(0, s * g_, 128):
+        qmax = 50 + (min(r0 + 128, s * g_) - 1) // g_
+        want += sum(64 * tt <= qmax for tt in range(t // 64))
+    assert visits.tolist() == [2 * want, 2 * want]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_pcode_exhaustive(cuda):
+    """K5 takes each probability's code rint(exp(x) * 2^(k_a-1)) from a
+    fast exp2 guess corrected by exact thresholds instead of a float64 exp
+    per score; over every fp32 x <= 0 and every k_a from 2 to 8 it equals
+    the plain version's rint(float(exp(double(x))) * 2^(k_a-1))."""
+    assert ops.flash_pcode_mismatches(cuda) == [0] * 7
 
 
 @pytest.mark.cuda

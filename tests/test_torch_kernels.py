@@ -514,3 +514,28 @@ def test_port_imports_neither_jax_nor_reference():
 def test_every_port_module_imports_on_cpu():
     for m in _port_modules():
         importlib.import_module(m)
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A library's file name hashes the shared headers under csrc/ as well
+    as its source: one changed byte of hopper.cuh (which backward.cu and
+    flash_attention.cu include) renames, and so rebuilds, both; the header
+    is not a kernel of its own."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = {n: _build._target(n) for n in _build.NAMES}
+    assert before == {n: _build._target(n) for n in _build.NAMES}
+    hdr = csrc / "hopper.cuh"
+    for name in ("backward", "flash_attention"):
+        assert '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
+    data = bytearray(hdr.read_bytes())
+    data[-2] ^= 1
+    hdr.write_bytes(bytes(data))
+    after = {n: _build._target(n) for n in _build.NAMES}
+    assert after["backward"] != before["backward"]
+    assert after["flash_attention"] != before["flash_attention"]
+    assert "hopper" not in _build.NAMES
