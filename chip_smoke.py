@@ -12,7 +12,11 @@ prints no result line:
              card's name and power limit (nvidia-smi).
   2. kernels each kernel against its plain PyTorch version on the card at
              the serving and training paths' shapes, bit for bit (K1
-             qmatmul, K2 quantize, K3 dgrad/wgrad in the affine k=8,
+             qmatmul on both routes - M <= 16 narrow, M > 16 wide - with
+             transposed operands, batched chunks and the attention views
+             _int_contract passes, timed at the decode, prefill-page,
+             training and attention-chunk shapes with its device time
+             beside; K2 quantize, K3 dgrad/wgrad in the affine k=8,
              affine k=16 and flag k=8 modes at the four qdense shapes, a
              ragged and a split shape, K4 ubn_norm by rows and by
              columns ("batch", ResNet-50's largest and smallest BN and a
@@ -20,13 +24,15 @@ prints no result line:
              edge cases (offset positions, leading padding, rows without
              keys, k_a = 4, dh = 64, 3 heads per KV head) with the share
              of tiles it skipped and the exhaustive check of its p codes,
-             K7 page_gather, K6
+             K7 page_gather with one pool and with K and V in one
+             launch, head-major (wall time beside device time), K6
              paged_attention, K8 cq_stochastic, which no path calls, K9
              selective_scan at a prefill page, a decode step, the
              train_4k length from zero state and a ragged shape), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
-             yardstick).
+             yardstick); this phase runs without deterministic mode's
+             fill of fresh tensors (no_fill).
   3. serve   `make_engine("granite-3-8b", reduced=False, n_layers=4)`: the
              full-width model (4096 wide, 32 query / 8 KV heads of 128,
              FFN 12800, vocab 49155) with depth cut to 4 of 40 layers and
@@ -35,15 +41,18 @@ prints no result line:
              prefill and decode, every kernel's launch count > 0; then the
              same requests through the plain versions on the card, which
              must give the same tokens and logits; then a torch.profiler
-             breakdown of the decode step.
+             breakdown of the decode step, and of one prefill page (one
+             K7 launch a layer, no aten::copy_ inside its contractions).
   4. train   `repro_torch.launch.train.make_train_step` on granite-3-8b at
              full width, 4 of 40 layers, seed 0, full8 native, one
              TokenTask ("arith") sequence of the train_4k length (batch 1 x
              4096 tokens): 3 steps with their loss, wall time, peak memory
              and kernel launches (dgrad, wgrad and flash_attention > 0 in
              every step); the step's forward / backward / optimizer split;
-             a torch.profiler breakdown of one more step (with K3's and
-             K5's device time per step); then
+             K1's launches by contraction (qdense forwards, attention
+             chunks); a torch.profiler breakdown of one more step (with
+             K1's, K3's and K5's device time per step, K1's split into
+             qdense and attention chunks); then
              step 1 again from the same weights through the plain versions
              on the card, whose loss, parameters and momentum accumulator
              must equal the kernel run's bit for bit.
@@ -74,6 +83,7 @@ It ends with a line `{"kernels": [...]}`, then the card line, then
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -93,9 +103,9 @@ INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 RESULTS: list[dict] = []
-# kernel row -> the phase whose main-path run gives its launch count
-# ("none": no path launches it)
-PHASE_OF: dict[str, str] = {}
+# kernel row -> (phase, key): the run whose main-path launch count the row
+# takes, and its key there ("none": no path launches it)
+PHASE_OF: dict[str, tuple] = {}
 
 
 def log(msg: str) -> None:
@@ -125,19 +135,119 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def device_ms(fn, iters: int = 100) -> float:
+    """Device time per call of `fn`: the profiler's kernel time over
+    `iters` calls (beside time_ms, whose CUDA events also see the host's
+    issue rate when the device finishes first).  100 calls, so one slow
+    first kernel under a new profiler moves a few-microsecond mean little."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def record(name, source, replaces, ms, plain_ms, nbytes, ops, rate,
-           library_ms, max_abs_err, phase="serve"):
+           library_ms, max_abs_err, phase="serve", device_ms=None,
+           note=None):
+    """One row of the kernels line.  `phase` names the run whose launch
+    count the row takes: a phase (the op's own count there) or (phase,
+    key) for a count the phase keeps under another key."""
     b, by = bound_ms(nbytes, ops, rate)
-    RESULTS.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": 0,
-                    "max_abs_err": float(max_abs_err), "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                    "library_ms": library_ms})
-    PHASE_OF[name] = phase
-    log(f"  {name}: {ms:.4f} ms (bound {b:.4f} ms by {by}), plain "
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": 0,
+           "max_abs_err": float(max_abs_err), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+           "library_ms": library_ms}
+    if device_ms is not None:
+        row["device_ms"] = device_ms
+    RESULTS.append(row)
+    PHASE_OF[name] = phase if isinstance(phase, tuple) else (
+        phase, name.removesuffix("_batch"))
+    dev = "" if device_ms is None else f", device {device_ms:.4f} ms"
+    log(f"  {name}: {ms:.4f} ms{dev} (bound {b:.4f} ms by {by}), plain "
         f"{plain_ms:.4f} ms, library "
         f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
-        f"max_abs_err {max_abs_err}")
+        f"max_abs_err {max_abs_err}" + (f" [{note}]" if note else ""))
+
+
+# K1's launches by the contraction that makes them (core/qdense.py
+# _int_contract's spec): the qdense forwards, and the attention chunks'
+# scores (q . k^T, and dp = go . v^T), out (p . v, and dq = gs . k), dk and
+# dv, which also serve the chunked prefill's two contractions
+K1_BY_SPEC = {"mk,kn->mn": "qmatmul_qdense",
+              "bskgd,btkd->bskgt": "qmatmul_attn_scores",
+              "bskgt,btkd->bskgd": "qmatmul_attn_out",
+              "bskgd,bskgt->btkd": "qmatmul_attn_dk",
+              "bskgt,bskgd->btkd": "qmatmul_attn_dv"}
+
+
+@contextlib.contextmanager
+def k1_by_contraction(counts: dict, ranges: bool = False):
+    """Count K1 launches by contraction into `counts` while inside; with
+    `ranges`, each contraction also runs in a profiler range "K1 <key>"."""
+    import importlib
+    from torch.profiler import record_function
+    from repro_torch.kernels import ops
+    qd = importlib.import_module("repro_torch.core.qdense")
+    real = qd._int_contract
+
+    def spy(spec, a, b):
+        key = K1_BY_SPEC.get(spec, "qmatmul_other")
+        before = ops.LAUNCHES["qmatmul"]
+        if ranges:
+            with record_function(f"K1 {key}"):
+                y = real(spec, a, b)
+        else:
+            y = real(spec, a, b)
+        counts[key] = counts.get(key, 0) + ops.LAUNCHES["qmatmul"] - before
+        return y
+
+    qd._int_contract = spy
+    try:
+        yield counts
+    finally:
+        qd._int_contract = real
+
+
+def attention_operands(i8) -> dict:
+    """The operands _int_contract hands K1 for a training step's attention
+    chunk (q chunk 1024 of 8 KV x 4 query heads of 128, kv chunk 512) and
+    for a prefill page (16 tokens over 32 gathered pages, head-major),
+    captured from its calls: name -> (a, b)."""
+    import importlib
+    from repro_torch.kernels import ops
+    qd = importlib.import_module("repro_torch.core.qdense")
+    q, k, sc = i8(1, 1024, 8, 4, 128), i8(1, 512, 8, 128), \
+        i8(1, 1024, 8, 4, 512)
+    kh = i8(1, 8, 512, 128).permute(0, 2, 1, 3)     # K7's head-major pages
+    specs = {"scores": ("bskgd,btkd->bskgt", q, k),
+             "out": ("bskgt,btkd->bskgd", sc, k),
+             "dk": ("bskgd,bskgt->btkd", q, sc),
+             "dv": ("bskgt,bskgd->btkd", sc, q),
+             "prefill_scores": ("bskgd,btkd->bskgt", i8(1, 16, 8, 4, 128),
+                                kh),
+             "prefill_out": ("bskgt,btkd->bskgd", i8(1, 16, 8, 4, 512), kh)}
+    seen, real = [], ops.qmatmul
+    ops.qmatmul = lambda x, y, *a, **kw: seen.append((x, y)) or real(
+        x, y, *a, **kw)
+    try:
+        for spec, x, y in specs.values():
+            qd._int_contract(spec, x, y)
+    finally:
+        ops.qmatmul = real
+    return dict(zip(specs, seen))
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +280,27 @@ def phase_build() -> str:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def no_fill():
+    """Deterministic mode (main) fills every torch.empty with NaN or the
+    type's largest value: one more kernel per output of a wrapper, which no
+    kernel needs (each writes its whole output) and which the library
+    calls timed beside it do not pay (they allocate inside ATen).  The
+    kernels phase runs without that fill; the phases after it keep it."""
+    import torch.utils.deterministic as det
+    with contextlib.ExitStack() as restore:
+        restore.callback(setattr, det, "fill_uninitialized_memory",
+                         det.fill_uninitialized_memory)
+        det.fill_uninitialized_memory = False
+        yield
+
+
 def phase_kernels() -> None:
+    with no_fill():
+        kernel_rows()
+
+
+def kernel_rows() -> None:
     import torch
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
@@ -183,9 +313,12 @@ def phase_kernels() -> None:
     def f32(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    # ---- K1 qmatmul: every qdense shape of the path, both attention dots
+    # ---- K1 qmatmul: every qdense shape of the path, both routes (M <= 16
+    # narrow, M > 16 wide), transposed operands, the attention contractions
+    # on the views _int_contract passes, a split requantize epilogue
     log("[kernels] K1 qmatmul (bitwise)")
-    shapes = [(m, k, n) for m in (4, 16) for (k, n) in
+    inv = torch.tensor(2.0 ** -14, device=dev)
+    shapes = [(m, k, n) for m in (4, 16, 17, 4096) for (k, n) in
               ((4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096),
                # falcon-mamba-7b: in_proj, x_proj (ragged N), dt_proj,
                # out_proj
@@ -194,28 +327,70 @@ def phase_kernels() -> None:
         a, b = i8(m, k), i8(k, n)
         got, want = ops.qmatmul(a, b), ref.qmatmul(a, b)
         assert torch.equal(got, want), f"qmatmul {m}x{k}x{n} differs"
-        inv = torch.tensor(2.0 ** -14, device=dev)
         assert torch.equal(ops.qmatmul(a, b, inv), ref.qmatmul(a, b, inv)), \
             f"qmatmul requant {m}x{k}x{n} differs"
-    for a, b in ((i8(8, 64, 128), i8(8, 128, 512)),
-                 (i8(8, 64, 512), i8(8, 512, 128))):
+        if m in (4, 4096) and k == 4096 and n == 4096:
+            at, bt = i8(k, m).t(), i8(n, k).t()     # transposed views
+            for x, y in ((at, b), (a, bt), (at, bt)):
+                assert torch.equal(ops.qmatmul(x, y), ref.qmatmul(x, y)), \
+                    f"qmatmul {m}x{k}x{n} on transposed operands differs"
+    for bt_, m, k, n in ((8, 64, 128, 512), (8, 64, 512, 128),
+                         (8, 4096, 128, 512), (8, 4096, 512, 128),
+                         (8, 512, 4096, 128), (8, 128, 4096, 512)):
+        a, b = i8(bt_, m, k), i8(bt_, k, n)
         assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), \
-            "batched qmatmul differs"
-    m, k, n = 4, 4096, 12800          # decode w_gate / w_up: the largest
-    a, b = i8(m, k), i8(k, n)
-    log(f"  decode shape {m}x{k}x{n}: "
-        f"{time_ms(lambda: ops.qmatmul(a, b)):.4f} ms (library: none, "
-        f"torch._int_mm takes M > 16 only)")
+            f"batched qmatmul {bt_}x{m}x{k}x{n} differs"
+    attn = attention_operands(i8)
+    for name, (x, y) in attn.items():
+        assert torch.equal(ops.qmatmul(x, y), ref.qmatmul(x, y)), \
+            f"qmatmul on the {name} views differs"
+    log(f"  bitwise at {len(shapes)} qdense / SSM shapes (M 4, 16, 17, 4096; "
+        f"plain and requantized), transposed A and B, six batched chunk "
+        f"shapes and the path's attention views ({', '.join(attn)})")
+    k, n = 4096, 12800               # w_gate / w_up: the largest
+    for m, name, phase in ((4, "qmatmul_decode", ("serve", "qmatmul_decode")),
+                           (16, "qmatmul_prefill",
+                            ("serve", "qmatmul_prefill"))):
+        a, b = i8(m, k), i8(k, n)
+        ap = torch.cat([a, torch.zeros((32 - m, k), dtype=torch.int8,
+                                       device=dev)])
+        record(name, "src/repro_torch/csrc/qmatmul.cu",
+               "src/repro/kernels/qmatmul.py:107",
+               time_ms(lambda: ops.qmatmul(a, b)),
+               time_ms(lambda: ref.qmatmul(a, b), 5),
+               m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS,
+               time_ms(lambda: torch._int_mm(ap, b)),
+               max_err(ops.qmatmul(a, b), ref.qmatmul(a, b)), phase,
+               device_ms=device_ms(lambda: ops.qmatmul(a, b)),
+               note=f"library: torch._int_mm on A zero-padded to 32 rows "
+                    f"(it takes M > 16 only)")
     m = 4096                          # the training step's w_gate / w_up
     a, b = i8(m, k), i8(k, n)
-    assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), \
-        "qmatmul at M=4096 differs"
     record("qmatmul", "src/repro_torch/csrc/qmatmul.cu",
            "src/repro/kernels/qmatmul.py:107",
            time_ms(lambda: ops.qmatmul(a, b)),
            time_ms(lambda: ref.qmatmul(a, b), 3),
            m * k + k * n + 4 * m * n, 2 * m * k * n, INT8_OPS,
-           time_ms(lambda: torch._int_mm(a, b)), 0)
+           time_ms(lambda: torch._int_mm(a, b)),
+           max_err(ops.qmatmul(a, b), ref.qmatmul(a, b)),
+           ("train", "qmatmul_qdense"),
+           device_ms=device_ms(lambda: ops.qmatmul(a, b)))
+    # the attention chunks as the training step's _chunked_core passes them
+    # (q chunk 1024, kv chunk 512, 8 KV heads x 4 query heads of 128)
+    for name, (x, y) in attn.items():
+        if name.startswith("prefill"):
+            continue
+        z = math.prod(torch.broadcast_shapes(x.shape[:-2], y.shape[:-2]))
+        (m, k), n = x.shape[-2:], y.shape[-1]
+        record(f"qmatmul_attn_{name}", "src/repro_torch/csrc/qmatmul.cu",
+               "src/repro/kernels/qmatmul.py:107",
+               time_ms(lambda: ops.qmatmul(x, y)),
+               time_ms(lambda: ref.qmatmul(x, y), 3),
+               x.numel() + y.numel() + 4 * z * m * n, 2 * z * m * k * n,
+               INT8_OPS, None, max_err(ops.qmatmul(x, y), ref.qmatmul(x, y)),
+               ("train", f"qmatmul_attn_{name}"),
+               device_ms=device_ms(lambda: ops.qmatmul(x, y)),
+               note=f"batch {z} x {m}x{k}x{n} on views")
 
     # ---- K3 dgrad / wgrad: every qdense of the training step, M = 4096
     # tokens; the three prologue modes (full8 = flag, e2_16 = affine k=16)
@@ -444,21 +619,56 @@ def phase_kernels() -> None:
            max_err(ops.cq_stochastic(x, bits, inv),
                    ref.cq_stochastic(x, bits, inv)), "none")
 
-    # ---- K7 page_gather: one lane's 32 pages of (16, 8, 128) int8
+    # ---- K7 page_gather: one lane's 32 pages of (16, 8, 128) int8, K and V
+    # in one launch, head-major (the prefill page's call), and one pool in
+    # the default layout (no path calls that now)
     log("[kernels] K7 page_gather (bitwise)")
-    pages = i8(129, 16, 8, 128)
-    table = torch.randint(0, 140, (4, 32), generator=g, device=dev,
+    pages, vpages = i8(129, 16, 8, 128), i8(129, 16, 8, 128)
+    table = torch.randint(-3, 140, (4, 32), generator=g, device=dev,
                           dtype=torch.int32)            # ids past P clamp
-    assert torch.equal(ops.page_gather(pages, table),
-                       ref.page_gather(pages, table))
+    for hm in (False, True):
+        got = ops.page_gather(pages, table, pages2=vpages, head_major=hm)
+        with ops.plain_reference():
+            want = ops.page_gather(pages, table, pages2=vpages, head_major=hm)
+        assert all(map(torch.equal, got, want)), "page_gather (2 pools) differs"
+        assert torch.equal(ops.page_gather(pages, table, head_major=hm),
+                           want[0]), "page_gather (1 pool) differs"
     t1 = torch.randperm(128, generator=g, device=dev)[:32].reshape(1, 32)
     t1 = (t1 + 1).to(torch.int32)             # one lane's 32 valid pages
+    page_bytes = 16 * 8 * 128
+    kv_call = lambda: ops.page_gather(pages, t1, pages2=vpages,  # noqa: E731
+                                      head_major=True)
+    with ops.plain_reference():
+        kv_plain = lambda: ops.page_gather(  # noqa: E731
+            pages, t1, pages2=vpages, head_major=True)
+        plain_kv = time_ms(kv_plain)
+        want = kv_plain()
+    idx = t1.long()
+
+    def kv_index():         # indexing, then each pool's head-major view
+        return tuple(p[idx].permute(0, 3, 1, 2, 4).flatten(2, 3)
+                     for p in (pages, vpages))
+
+    assert all(map(torch.equal, kv_index(), want)), \
+        "indexing plus permute is not K7's function"
     record("page_gather", "src/repro_torch/csrc/page_gather.cu",
+           "src/repro/kernels/page_gather.py:48", time_ms(kv_call), plain_kv,
+           2 * 2 * 32 * page_bytes + 4 * 32, 0, FP32_OPS,
+           time_ms(kv_index),
+           max(max_err(x, y) for x, y in zip(kv_call(), want)),
+           device_ms=device_ms(kv_call),
+           note=f"K and V of 32 pages, head-major; library: two indexings "
+                f"plus permute, device {device_ms(kv_index):.4f} ms")
+    record("page_gather_one_pool", "src/repro_torch/csrc/page_gather.cu",
            "src/repro/kernels/page_gather.py:48",
            time_ms(lambda: ops.page_gather(pages, t1)),
            time_ms(lambda: ref.page_gather(pages, t1)),
-           2 * 32 * pages[0].numel() + 4 * 32, 0, FP32_OPS,
-           time_ms(lambda: pages[t1.long()]), 0)
+           2 * 32 * page_bytes + 4 * 32, 0, FP32_OPS,
+           time_ms(lambda: pages[t1.long()]),
+           max_err(ops.page_gather(pages, t1), ref.page_gather(pages, t1)),
+           ("none", "page_gather"),
+           device_ms=device_ms(lambda: ops.page_gather(pages, t1)),
+           note="32 pages of one pool (no path calls it so)")
 
     # ---- K6 paged_attention: 4 decode lanes of 32 heads over 8 KV heads.
     # Bitwise: m, l, the probability payload p8 and the output (l is a
@@ -678,13 +888,20 @@ def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
     assert eq == 1.0, "the kernels' tokens differ from the plain versions'"
     assert dist == 0.0, "the kernels' logits differ from the plain versions'"
     profile_decode(eng)
+    if eng.paged:
+        profile_prefill(model, prompts[2])
     for k, v in decode_counts.items():
         launches[f"{k}_decode"] = v
     return launches
 
 
 def phase_serve() -> dict:
-    return phase_engine("serve", "granite-3-8b", 40, SERVE_KERNELS)
+    """The serve run's K1 launches split into decode steps and prefill
+    (pages and prompt tails), then a profiled prefill page."""
+    launches = phase_engine("serve", "granite-3-8b", 40, SERVE_KERNELS)
+    launches["qmatmul_prefill"] = launches["qmatmul"] \
+        - launches["qmatmul_decode"]
+    return launches
 
 
 def phase_ssm() -> dict:
@@ -727,6 +944,50 @@ def profile_decode(eng, steps: int = 3) -> None:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     report_profile(prof, wall_us, steps, "decode step")
+
+
+def profile_prefill(model, prompt) -> None:
+    """One 16-token prefill page of one lane whose table holds 32 pages,
+    under the profiler: K7 launches (one a layer: K and V in one call),
+    aten::copy_ events inside the page's integer contractions (none: their
+    operands reach K1 as views), and the page's device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.serving.pool import PagePool
+    a = model.a
+    pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
+    view = pool.view(torch.arange(1, 33, device="cuda",
+                                  dtype=torch.int32)[None])
+    tok = torch.as_tensor(prompt[:16], device="cuda")
+    model.prefill_page(view, tok, 0)
+    torch.cuda.synchronize()
+    before, counts = dict(ops.LAUNCHES), {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            k1_by_contraction(counts, ranges=True):
+        t0 = time.time()
+        model.prefill_page(view, tok, 0)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.time() - t0)
+    gathers = ops.LAUNCHES["page_gather"] - before["page_gather"]
+    copies = inside = 0
+    for e in prof.events():
+        if e.name != "aten::copy_":
+            continue
+        copies += 1
+        parent = e.cpu_parent
+        while parent is not None and not parent.name.startswith("K1 "):
+            parent = parent.cpu_parent
+        inside += parent is not None
+    log(f"[profile] prefill page (16 tokens, 32 pages a lane): page_gather "
+        f"launches {gathers} ({a.n_layers} layers), K1 launches by "
+        f"contraction {counts}; aten::copy_ inside the contractions "
+        f"{inside} (of {copies} in the page)")
+    report_profile(prof, wall_us, 1, "prefill page",
+                   {"K1 (qmm_*)": "qmm_", "K7 (page_gather*)": "page_gather"})
+    assert gathers == a.n_layers, "prefill page: not one K7 launch a layer"
+    assert inside == 0, "prefill page: an operand of a contraction was copied"
 
 
 # ---------------------------------------------------------------------------
@@ -773,13 +1034,14 @@ def phase_train() -> dict:
     for i in range(TRAIN_STEPS):
         ops.reset_launches()
         t0 = time.time()
-        met = step(opt, task.batch(i), i)
+        with k1_by_contraction(total):
+            met = step(opt, task.batch(i), i)
         torch.cuda.synchronize()
         wall = time.time() - t0
         loss = float(met["loss"])
         losses.append(loss)
         counts = dict(ops.LAUNCHES)
-        for k in total:
+        for k in counts:
             total[k] += counts[k]
         log(f"[train] step {i + 1}: loss {loss:.6f}, wall {wall:.3f} s, "
             f"{TRAIN_SEQ / wall:.1f} tokens/s; launches {counts}")
@@ -790,13 +1052,18 @@ def phase_train() -> dict:
             after1 = (_host_copy(model.params()), _host_copy(opt.acc))
     log(f"[train] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[train] K1 launches in {TRAIN_STEPS} steps by contraction: "
+        f"{ {k: v for k, v in total.items() if k.startswith('qmatmul_')} }")
     split_train(model, cfg, opt, task.batch(TRAIN_STEPS), TRAIN_STEPS,
                 "train")
     # where a training step's time goes: device time by kernel name and
-    # the busy share of the wall
-    with_profile(lambda: step(opt, task.batch(TRAIN_STEPS + 1),
-                              TRAIN_STEPS + 1), "train step",
-                 {"K3 (bwd_*)": "bwd_", "K5 (fa_*)": "fa_"})
+    # the busy share of the wall; K1's split by contraction
+    with k1_by_contraction({}, ranges=True):
+        prof = with_profile(lambda: step(opt, task.batch(TRAIN_STEPS + 1),
+                                         TRAIN_STEPS + 1), "train step",
+                            {"K1 (qmm_*)": "qmm_", "K3 (bwd_*)": "bwd_",
+                             "K5 (fa_*)": "fa_"})
+    k1_split(prof, "train step")
 
     # step 1 again from the same weights through the plain versions
     with torch.no_grad():
@@ -944,9 +1211,10 @@ def phase_resnet() -> dict:
     return total
 
 
-def with_profile(fn, what: str, groups: dict | None = None) -> None:
+def with_profile(fn, what: str, groups: dict | None = None):
     """torch.profiler over one call of `fn` (a synchronised step); `groups`
-    maps a label to a kernel-name prefix whose device time is summed."""
+    maps a label to a kernel-name prefix whose device time is summed.
+    Returns the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -956,20 +1224,60 @@ def with_profile(fn, what: str, groups: dict | None = None) -> None:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     report_profile(prof, wall_us, 1, what, groups)
+    return prof
+
+
+def k1_split(prof, what: str) -> None:
+    """K1's device time (its qmm_* kernels) by the "K1 <key>" range of
+    k1_by_contraction that each ran in: a kernel belongs to the range whose
+    span on the card's timeline holds its start."""
+    import bisect
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        if e.name.startswith("K1 "):
+            spans.append((e.time_range.start, e.time_range.end, e.name[3:]))
+        elif "qmm_" in e.name:
+            kernels.append((e.time_range.start, e.time_range.elapsed_us()))
+    if not spans:
+        log(f"[profile] {what}: K1 by contraction: not measured (no range "
+            f"on the card's timeline)")
+        return
+    spans.sort()
+    starts = [sp[0] for sp in spans]
+    sums: dict = {}
+    for key in (sp[2] for sp in spans):
+        n, us = sums.get(key, (0, 0.0))
+        sums[key] = (n + 1, us)
+    outside = 0.0
+    for t0, us in kernels:
+        i = bisect.bisect_right(starts, t0) - 1
+        if i >= 0 and t0 < spans[i][1]:
+            n, total = sums[spans[i][2]]
+            sums[spans[i][2]] = (n, total + us)
+        else:
+            outside += us
+    attn = sum(us for k, (_, us) in sums.items() if "attn" in k)
+    log(f"[profile] {what}: K1 device ms by contraction "
+        + ", ".join(f"{k} {us / 1e3:.3f} in {n} calls"
+                    for k, (n, us) in sorted(sums.items()))
+        + f"; qdense {sums.get('qmatmul_qdense', (0, 0.0))[1] / 1e3:.3f} ms, "
+        f"attention chunks {attn / 1e3:.3f} ms, outside the ranges "
+        f"{outside / 1e3:.3f} ms")
 
 
 def report_profile(prof, wall_us: float, steps: int, what: str,
                    groups: dict | None = None) -> None:
     import torch
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # device-side events only (kernels, copies): a host op's device time
-    # is its kernels' time again
+    # is its kernels' time again, and so is a "K1 ..." range's span
     rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith("K1 ")),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows)
     if busy <= 0:
@@ -1018,9 +1326,9 @@ def main() -> int:
     phase_kernels()
     runs = {"serve": phase_serve(), "train": phase_train(),
             "resnet": phase_resnet(), "ssm": phase_ssm(), "none": {}}
-    for r in RESULTS:       # ubn_norm_batch counts as ubn_norm (one op)
-        op = r["name"].removesuffix("_batch")
-        r["launches"] = runs[PHASE_OF[r["name"]]].get(op, 0)
+    for r in RESULTS:
+        phase, key = PHASE_OF[r["name"]]
+        r["launches"] = runs[phase].get(key, 0)
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": RESULTS}))
     print(f"card: {card}")

@@ -31,6 +31,8 @@ Port of `repro.core.qdense`.  The paper's dataflow (Fig. 5 / Algorithms
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -136,10 +138,30 @@ def _bwd_specs(spec: str):
     return f"{out},{b_s}->{a_s}", f"{a_s},{out}->{b_s}"
 
 
+def _mergeable(t: Tensor, spec: str, axes) -> bool:
+    """Do `axes` of t (named by `spec`), in this order, form one strided
+    axis (so a reshape that joins them is a view)?"""
+    for c, d in zip(axes, axes[1:]):
+        i, j = spec.index(c), spec.index(d)
+        if t.shape[i] != 1 and t.shape[j] != 1 \
+                and t.stride(i) != t.stride(j) * t.shape[j]:
+            return False
+    return True
+
+
 def _int_contract(spec: str, a8: Tensor, b8: Tensor) -> Tensor:
-    """Integer contraction as ONE (batched) qmatmul launch: the axes both
-    operands and the output share become the batch, a's other output axes
-    the rows, b's the columns, the shared non-output axes the depth."""
+    """Integer contraction as ONE (batched) qmatmul launch on views of the
+    payloads: the axes both operands and the output share become the
+    batch, a's other output axes the rows, b's the columns, the shared
+    non-output axes the depth.
+
+    A group of rows, columns or depth whose strides do not join into one
+    axis (the attention's (s, g) rows or depth) keeps its largest axis;
+    the others join the batch, broadcast over the operand that lacks them,
+    or, for depth, summed after the product (an int64 sum wrapped to int32:
+    the exact sum modulo 2^32, as one int32 accumulator gives).  So the
+    operands reach ops.qmatmul as permuted views of the payloads, never as
+    copies."""
     ins, out = spec.split("->")
     sa, sb = ins.split(",")
     batch = [c for c in out if c in sa and c in sb]
@@ -149,22 +171,30 @@ def _int_contract(spec: str, a8: Tensor, b8: Tensor) -> Tensor:
     size = {c: a8.shape[sa.index(c)] for c in sa}
     size.update({c: b8.shape[sb.index(c)] for c in sb})
 
-    def prod(cs):
-        n = 1
-        for c in cs:
-            n *= size[c]
-        return n
+    def split(group, holders):
+        if len(group) < 2 or all(_mergeable(t, s_, group)
+                                 for t, s_ in holders):
+            return group, []
+        keep = max(group, key=lambda c: size[c])
+        return [keep], [c for c in group if c != keep]
 
-    a = a8.permute([sa.index(c) for c in batch + fa + depth])
-    b = b8.permute([sb.index(c) for c in batch + depth + fb])
-    a = a.reshape(prod(batch), prod(fa), prod(depth))
-    b = b.reshape(prod(batch), prod(depth), prod(fb))
-    if not batch:
-        y = ops.qmatmul(a[0].contiguous(), b[0].contiguous())
-    else:
-        y = ops.qmatmul(a.contiguous(), b.contiguous())
-    y = y.reshape([size[c] for c in batch + fa + fb])
-    order = batch + fa + fb
+    fa, pa = split(fa, [(a8, sa)])
+    fb, pb = split(fb, [(b8, sb)])
+    depth, pd = split(depth, [(a8, sa), (b8, sb)])
+    lead = batch + pd + pa + pb
+
+    def arrange(t, s_, rows, cols):
+        held = [c for c in lead if c in s_]
+        v = t.permute([s_.index(c) for c in held + rows + cols])
+        return v.reshape([size[c] if c in s_ else 1 for c in lead]
+                         + [math.prod(size[c] for c in rows),
+                            math.prod(size[c] for c in cols)])
+
+    y = ops.qmatmul(arrange(a8, sa, fa, depth), arrange(b8, sb, depth, fb))
+    y = y.reshape([size[c] for c in lead + fa + fb])
+    if pd:
+        y = y.sum([len(batch) + i for i in range(len(pd))]).to(torch.int32)
+    order = batch + pa + pb + fa + fb
     return y.permute([order.index(c) for c in out])
 
 

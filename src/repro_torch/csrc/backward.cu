@@ -25,7 +25,8 @@
 // Bound: operations at the training shapes (M = 4096 tokens: each error
 // element feeds K multiply-adds).  Design, in two launches (three with a
 // split contraction):
-//   1. operand pass (bwd_prep_rows / bwd_prep_cols): every operand is
+//   1. operand pass (bwd_prep_rows / bwd_prep_cols, on the shared
+//      op_prep_rows / op_prep_cols of hopper.cuh): every operand is
 //      written once as 128 x 128-byte tiles, K-major, 128B-swizzled and
 //      zero padded to whole tiles, in the byte image the tensor cores read:
 //      dgrad's A = the Q_E2 plane(s) of g (quantized here, rows of g are
@@ -54,197 +55,27 @@
 //      bwd_epilogue scales.
 #include "hopper.cuh"
 
-#define TILE 16384          // 128 rows x 128 bytes
+#define TILE OP_TILE        // 128 rows x 128 bytes
 #define STAGES 4
 #define GROUP 8             // row tiles a run of consecutive blocks shares
 
-enum { AFF8 = 0, AFF16 = 1, FLAG = 2, COPY8 = 3 };
-
-// One error element -> its payload bytes: plane 0 (s8: the affine payload,
-// its high half at k = 16, or the flag hi plane) and plane 1 (the u8 low
-// half at k = 16, or the flag lo plane; 0 for affine k <= 8).
-template <int MODE>
-__device__ __forceinline__ void quant_e(float g, float inv, float lim,
-                                       uint32_t& p0, uint32_t& p1) {
-    if (MODE == FLAG) {
-        const float n = __fmul_rn(g, inv);
-        const float nlo = rintf(__fmul_rn(n, lim + 1.0f));
-        const bool big = fabsf(n) >= 1.0f || fabsf(nlo) >= lim + 1.0f;
-        const float hi = big ? fminf(fmaxf(rintf(n), -lim), lim) : 0.0f;
-        const float lo = big ? 0.0f : fminf(fmaxf(nlo, -lim), lim);
-        p0 = (uint32_t)(uint8_t)(int8_t)(int)hi;
-        p1 = (uint32_t)(uint8_t)(int8_t)(int)lo;
-    } else {
-        const int q = (int)fminf(fmaxf(rintf(__fmul_rn(g, inv)), -lim), lim);
-        if (MODE == AFF16) {
-            p0 = (uint32_t)(uint8_t)(int8_t)(q >> 8);
-            p1 = (uint32_t)(q & 255);
-        } else {
-            p0 = (uint32_t)(uint8_t)(int8_t)q;
-            p1 = 0u;
-        }
-    }
-}
-
-// the operand bytes of source element (r, k) (0 outside [R) x [K)):
-// SRC = COPY8 copies an int8 matrix, otherwise quantizes an fp32 one
-template <int SRC>
-__device__ __forceinline__ void elem(const void* src, long long off, bool in,
-                                     float inv, float lim, uint32_t& p0,
-                                     uint32_t& p1) {
-    p0 = p1 = 0u;
-    if (!in) return;
-    if (SRC == COPY8)
-        p0 = (uint32_t)((const uint8_t*)src)[off];
-    else
-        quant_e<SRC>(((const float*)src)[off], inv, lim, p0, p1);
-}
-
-#define PLANES(SRC) (((SRC) == AFF16 || (SRC) == FLAG) ? 2 : 1)
-
-// Rows of the source are the tile rows (contiguous along the contraction):
-// tile (rt, kt) of plane p at dst + p * pstride + (rt * ktiles + kt) * TILE.
-// One block per tile, 256 threads, each a 16-byte chunk at a time.
+// The operand pass (hopper.cuh): rows of the source (R, K) are the tile
+// rows, or columns of the source (K, R) are.  SRC is COPY8 for the int8
+// operand, the prologue mode for the error.
 template <int SRC>
 __global__ void __launch_bounds__(256)
 bwd_prep_rows(const void* __restrict__ src, uint8_t* __restrict__ dst,
               const float* __restrict__ scal, float lim, int R, int K,
               int ktiles, long long pstride, int vec) {
-    constexpr int NP = PLANES(SRC);
-    const int kt = blockIdx.x, rt = blockIdx.y;
-    const float inv = SRC == COPY8 ? 0.f : scal[0];
-    uint8_t* tile = dst + ((long long)rt * ktiles + kt) * TILE;
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
-        const int gr = rt * 128 + r, k0 = kt * 128 + c * 16;
-        const long long base = (long long)gr * K + k0;
-        uint32_t w[NP][4];
-        const bool full = vec && gr < R && k0 + 16 <= K;
-        if (SRC == COPY8 && full) {
-            const int4 v = *reinterpret_cast<const int4*>(
-                (const uint8_t*)src + base);
-            w[0][0] = v.x; w[0][1] = v.y; w[0][2] = v.z; w[0][3] = v.w;
-        } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                float f[4];
-                if (SRC != COPY8 && full) {
-                    const float4 v = *reinterpret_cast<const float4*>(
-                        (const float*)src + base + 4 * q);
-                    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-                }
-#pragma unroll
-                for (int p = 0; p < NP; ++p) w[p][q] = 0u;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    uint32_t p0, p1;
-                    const int k = k0 + 4 * q + j;
-                    if (SRC != COPY8 && full) {
-                        quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim,
-                                                           p0, p1);
-                    } else {
-                        elem<SRC>(src, base + 4 * q + j, gr < R && k < K,
-                                  inv, lim, p0, p1);
-                    }
-                    w[0][q] |= p0 << (8 * j);
-                    if (NP == 2) w[NP - 1][q] |= p1 << (8 * j);
-                }
-            }
-        }
-        const int o = r * 128 + ((c ^ (r & 7)) << 4);
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-            *reinterpret_cast<int4*>(tile + p * pstride + o) =
-                make_int4((int)w[p][0], (int)w[p][1], (int)w[p][2],
-                          (int)w[p][3]);
-    }
+    op_prep_rows<SRC>(src, dst, scal, lim, R, K, K, ktiles, pstride, vec);
 }
 
-#define TP 132              // shared pitch of the transpose (33 words)
-
-// Columns of the source are the tile rows: the source is (K, R) row-major
-// and tile row r holds source column r.  The block stages its 128 x 128
-// source tile (quantized to bytes) in shared memory, then writes each
-// 16-byte chunk from a column of it; the odd word pitch keeps both steps
-// free of bank conflicts.
 template <int SRC>
 __global__ void __launch_bounds__(256)
 bwd_prep_cols(const void* __restrict__ src, uint8_t* __restrict__ dst,
               const float* __restrict__ scal, float lim, int R, int K,
               int ktiles, long long pstride, int vec) {
-    constexpr int NP = PLANES(SRC);
-    __shared__ __align__(16) uint8_t S[NP][128 * TP];
-    const int kt = blockIdx.x, rt = blockIdx.y;
-    const float inv = SRC == COPY8 ? 0.f : scal[0];
-    if (SRC == COPY8) {
-        // 128 source rows x 8 chunks of 16 bytes
-#pragma unroll
-        for (int it = 0; it < 4; ++it) {
-            const int u = threadIdx.x + it * 256, kk = u >> 3, rc = (u & 7) * 16;
-            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
-            const long long base = (long long)gk * R + gr;
-            uint32_t w[4] = {0u, 0u, 0u, 0u};
-            if (gk < K && vec && gr + 16 <= R) {
-                const int4 v = *reinterpret_cast<const int4*>(
-                    (const uint8_t*)src + base);
-                w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-            } else if (gk < K) {
-                for (int j = 0; j < 16; ++j)
-                    if (gr + j < R)
-                        w[j >> 2] |= (uint32_t)((const uint8_t*)src)[base + j]
-                                     << (8 * (j & 3));
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-                *reinterpret_cast<uint32_t*>(&S[0][kk * TP + rc + 4 * q]) = w[q];
-        }
-    } else {
-        // 128 source rows x 32 float4
-#pragma unroll 4
-        for (int it = 0; it < 16; ++it) {
-            const int u = threadIdx.x + it * 256, kk = u >> 5, rc = (u & 31) * 4;
-            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
-            const long long base = (long long)gk * R + gr;
-            uint32_t w0 = 0u, w1 = 0u;
-            float f[4] = {0.f, 0.f, 0.f, 0.f};
-            const bool full = gk < K && vec && gr + 4 <= R;
-            if (full) {
-                const float4 v = *reinterpret_cast<const float4*>(
-                    (const float*)src + base);
-                f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                uint32_t p0, p1;
-                if (full)
-                    quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim, p0, p1);
-                else
-                    elem<SRC>(src, base + j, gk < K && gr + j < R, inv, lim,
-                              p0, p1);
-                w0 |= p0 << (8 * j);
-                w1 |= p1 << (8 * j);
-            }
-            *reinterpret_cast<uint32_t*>(&S[0][kk * TP + rc]) = w0;
-            if (NP == 2) *reinterpret_cast<uint32_t*>(&S[NP - 1][kk * TP + rc]) = w1;
-        }
-    }
-    __syncthreads();
-    uint8_t* tile = dst + ((long long)rt * ktiles + kt) * TILE;
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
-        const int o = r * 128 + ((c ^ (r & 7)) << 4);
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-            uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-            for (int j = 0; j < 16; ++j)
-                w[j >> 2] |= (uint32_t)S[p][(c * 16 + j) * TP + r] << (8 * (j & 3));
-            *reinterpret_cast<int4*>(tile + p * pstride + o) =
-                make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
-        }
-    }
+    op_prep_cols<SRC>(src, dst, scal, lim, R, K, R, ktiles, pstride, vec);
 }
 
 // C (rows x cols) = sum over planes of A_p . B_p^T from the tiled operands:

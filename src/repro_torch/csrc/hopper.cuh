@@ -1,9 +1,10 @@
-// Shared Hopper helpers of the K3 and K5 kernels: mbarriers, bulk copies
-// into shared memory, wgmma descriptors and the int8 wgmma instructions.
+// Shared Hopper helpers of the K1, K3 and K5 kernels: mbarriers, bulk copies
+// into shared memory, wgmma descriptors, the int8 wgmma instructions, and
+// the operand pass that writes a matrix as the tiles those read.
 //
-// Included by backward.cu and flash_attention.cu; kernels/_build.py hashes
-// every header here into each library's name, so an edited header
-// rebuilds both.
+// Included by qmatmul.cu, backward.cu and flash_attention.cu;
+// kernels/_build.py hashes every header here into each library's name, so
+// an edited header rebuilds them all.
 //
 // The operand tiles are K-major with 128-byte (or 64-byte) swizzled rows,
 // the layout wgmma reads without bank conflicts.  A pre-pass of each kernel
@@ -294,4 +295,208 @@ __device__ __forceinline__ void wgmma_rs_n128_s8s8(
           "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
           "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// The operand pass (K1's wide route and K3): a matrix written once as
+// 128 x 128-byte tiles, K-major, 128B-swizzled and zero padded to whole
+// tiles, the byte image wgmma_ss reads.  Tile (rt, kt) of plane p lies at
+// tiles + p * pstride + (rt * ktiles + kt) * OP_TILE.  The source is an
+// int8 matrix (COPY8) or, for K3's error, an fp32 one quantized here into
+// one or two int8 planes (see backward.cu).  One block per tile (blockIdx.x
+// = kt, blockIdx.y = rt), 256 threads, each a 16-byte chunk at a time;
+// `vec` says that the source's start and row pitch `ld` allow 16-byte
+// loads.  The callers' __global__ wrappers add the batch offsets, so each
+// kernel keeps its own name in a profile.
+
+#define OP_TILE 16384       // 128 rows x 128 bytes
+#define OP_TP 132           // shared pitch of the transpose (33 words)
+
+enum { AFF8 = 0, AFF16 = 1, FLAG = 2, COPY8 = 3 };
+
+// One error element -> its payload bytes: plane 0 (s8: the affine payload,
+// its high half at k = 16, or the flag hi plane) and plane 1 (the u8 low
+// half at k = 16, or the flag lo plane; 0 for affine k <= 8).
+template <int MODE>
+__device__ __forceinline__ void quant_e(float g, float inv, float lim,
+                                       uint32_t& p0, uint32_t& p1) {
+    if (MODE == FLAG) {
+        const float n = __fmul_rn(g, inv);
+        const float nlo = rintf(__fmul_rn(n, lim + 1.0f));
+        const bool big = fabsf(n) >= 1.0f || fabsf(nlo) >= lim + 1.0f;
+        const float hi = big ? fminf(fmaxf(rintf(n), -lim), lim) : 0.0f;
+        const float lo = big ? 0.0f : fminf(fmaxf(nlo, -lim), lim);
+        p0 = (uint32_t)(uint8_t)(int8_t)(int)hi;
+        p1 = (uint32_t)(uint8_t)(int8_t)(int)lo;
+    } else {
+        const int q = (int)fminf(fmaxf(rintf(__fmul_rn(g, inv)), -lim), lim);
+        if (MODE == AFF16) {
+            p0 = (uint32_t)(uint8_t)(int8_t)(q >> 8);
+            p1 = (uint32_t)(q & 255);
+        } else {
+            p0 = (uint32_t)(uint8_t)(int8_t)q;
+            p1 = 0u;
+        }
+    }
+}
+
+// the operand bytes of source element off (0 where !in): SRC = COPY8
+// copies an int8 matrix, otherwise quantizes an fp32 one
+template <int SRC>
+__device__ __forceinline__ void elem(const void* src, long long off, bool in,
+                                     float inv, float lim, uint32_t& p0,
+                                     uint32_t& p1) {
+    p0 = p1 = 0u;
+    if (!in) return;
+    if (SRC == COPY8)
+        p0 = (uint32_t)((const uint8_t*)src)[off];
+    else
+        quant_e<SRC>(((const float*)src)[off], inv, lim, p0, p1);
+}
+
+#define PLANES(SRC) (((SRC) == AFF16 || (SRC) == FLAG) ? 2 : 1)
+
+// Rows of the source are the tile rows: element (r, k), r < R, k < K, at
+// src + r * ld + k.
+template <int SRC>
+__device__ __forceinline__ void op_prep_rows(
+    const void* __restrict__ src, uint8_t* __restrict__ tiles,
+    const float* __restrict__ scal, float lim, int R, int K, long long ld,
+    int ktiles, long long pstride, int vec) {
+    constexpr int NP = PLANES(SRC);
+    const int kt = blockIdx.x, rt = blockIdx.y;
+    const float inv = SRC == COPY8 ? 0.f : scal[0];
+    uint8_t* tile = tiles + ((long long)rt * ktiles + kt) * OP_TILE;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
+        const int gr = rt * 128 + r, k0 = kt * 128 + c * 16;
+        const long long base = (long long)gr * ld + k0;
+        uint32_t w[NP][4];
+        const bool full = vec && gr < R && k0 + 16 <= K;
+        if (SRC == COPY8 && full) {
+            const int4 v = *reinterpret_cast<const int4*>(
+                (const uint8_t*)src + base);
+            w[0][0] = v.x; w[0][1] = v.y; w[0][2] = v.z; w[0][3] = v.w;
+        } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                float f[4];
+                if (SRC != COPY8 && full) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        (const float*)src + base + 4 * q);
+                    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+                }
+#pragma unroll
+                for (int p = 0; p < NP; ++p) w[p][q] = 0u;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    uint32_t p0, p1;
+                    const int k = k0 + 4 * q + j;
+                    if (SRC != COPY8 && full) {
+                        quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim,
+                                                           p0, p1);
+                    } else {
+                        elem<SRC>(src, base + 4 * q + j, gr < R && k < K,
+                                  inv, lim, p0, p1);
+                    }
+                    w[0][q] |= p0 << (8 * j);
+                    if (NP == 2) w[NP - 1][q] |= p1 << (8 * j);
+                }
+            }
+        }
+        const int o = r * 128 + ((c ^ (r & 7)) << 4);
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+            *reinterpret_cast<int4*>(tile + p * pstride + o) =
+                make_int4((int)w[p][0], (int)w[p][1], (int)w[p][2],
+                          (int)w[p][3]);
+    }
+}
+
+// Columns of the source are the tile rows: element (k, r), k < K, r < R,
+// at src + k * ld + r, and tile row r holds source column r.  The block
+// stages its 128 x 128 source tile (quantized to bytes) in shared memory,
+// then writes each 16-byte chunk from a column of it; the odd word pitch
+// keeps both steps free of bank conflicts.
+template <int SRC>
+__device__ __forceinline__ void op_prep_cols(
+    const void* __restrict__ src, uint8_t* __restrict__ tiles,
+    const float* __restrict__ scal, float lim, int R, int K, long long ld,
+    int ktiles, long long pstride, int vec) {
+    constexpr int NP = PLANES(SRC);
+    __shared__ __align__(16) uint8_t S[NP][128 * OP_TP];
+    const int kt = blockIdx.x, rt = blockIdx.y;
+    const float inv = SRC == COPY8 ? 0.f : scal[0];
+    if (SRC == COPY8) {
+        // 128 source rows x 8 chunks of 16 bytes
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+            const int u = threadIdx.x + it * 256, kk = u >> 3, rc = (u & 7) * 16;
+            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
+            const long long base = (long long)gk * ld + gr;
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+            if (gk < K && vec && gr + 16 <= R) {
+                const int4 v = *reinterpret_cast<const int4*>(
+                    (const uint8_t*)src + base);
+                w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+            } else if (gk < K) {
+                for (int j = 0; j < 16; ++j)
+                    if (gr + j < R)
+                        w[j >> 2] |= (uint32_t)((const uint8_t*)src)[base + j]
+                                     << (8 * (j & 3));
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                *reinterpret_cast<uint32_t*>(&S[0][kk * OP_TP + rc + 4 * q]) =
+                    w[q];
+        }
+    } else {
+        // 128 source rows x 32 float4
+#pragma unroll 4
+        for (int it = 0; it < 16; ++it) {
+            const int u = threadIdx.x + it * 256, kk = u >> 5, rc = (u & 31) * 4;
+            const int gk = kt * 128 + kk, gr = rt * 128 + rc;
+            const long long base = (long long)gk * ld + gr;
+            uint32_t w0 = 0u, w1 = 0u;
+            float f[4] = {0.f, 0.f, 0.f, 0.f};
+            const bool full = gk < K && vec && gr + 4 <= R;
+            if (full) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    (const float*)src + base);
+                f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                uint32_t p0, p1;
+                if (full)
+                    quant_e<SRC == COPY8 ? AFF8 : SRC>(f[j], inv, lim, p0, p1);
+                else
+                    elem<SRC>(src, base + j, gk < K && gr + j < R, inv, lim,
+                              p0, p1);
+                w0 |= p0 << (8 * j);
+                w1 |= p1 << (8 * j);
+            }
+            *reinterpret_cast<uint32_t*>(&S[0][kk * OP_TP + rc]) = w0;
+            if (NP == 2)
+                *reinterpret_cast<uint32_t*>(&S[NP - 1][kk * OP_TP + rc]) = w1;
+        }
+    }
+    __syncthreads();
+    uint8_t* tile = tiles + ((long long)rt * ktiles + kt) * OP_TILE;
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+        const int u = threadIdx.x + it * 256, r = u >> 3, c = u & 7;
+        const int o = r * 128 + ((c ^ (r & 7)) << 4);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+                w[j >> 2] |= (uint32_t)S[p][(c * 16 + j) * OP_TP + r]
+                             << (8 * (j & 3));
+            *reinterpret_cast<int4*>(tile + p * pstride + o) =
+                make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+        }
+    }
 }

@@ -21,13 +21,14 @@ that way); the serving path never enters it.
 
 `LAUNCHES` counts kernel launches per op: an op adds one each time it
 launches its kernel (K6 counts one per call, which is two launches with
-the glue between; K3, K4 "batch" and K5 count one per call likewise) and
-never on the plain route.
+the glue between; K1, K3, K4 "batch", K5 and K7 count one per call
+likewise) and never on the plain route.
 """
 from __future__ import annotations
 
 import contextlib
-from ctypes import c_float, c_int, c_longlong, c_void_p
+import math
+from ctypes import POINTER, c_float, c_int, c_longlong, c_void_p
 
 import torch
 
@@ -41,20 +42,21 @@ LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
 
 _PLAIN = False
 
-# entry point -> argument types (pointers and the stream as c_void_p)
+# launch function -> argument types (pointers and the stream as c_void_p)
 _P = c_void_p
 _SIGS = {
     ("quantize", "quantize_launch"): [_P, _P, c_float, _P, c_longlong, _P],
     ("quantize", "cq_launch"): [_P, _P, _P, c_float, _P, c_longlong, _P],
-    ("qmatmul", "qmatmul_launch"): [_P, _P, _P, _P, _P, c_float, c_int,
-                                    c_int, c_int, c_int, c_int, c_int, _P],
+    ("qmatmul", "qmatmul_launch"): [_P, _P, _P, _P, _P, c_float,
+                                    POINTER(c_longlong), c_int, c_int, c_int,
+                                    c_int, c_int, c_int, _P, _P, _P, _P],
     ("ubn", "ubn_launch"): [_P, _P, _P, _P, c_int, c_int, c_int, c_float,
                             c_float, c_float, c_float, c_float, c_float, _P],
     ("ubn", "ubn_batch_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
                                   c_int, c_float, c_float, c_float, c_float,
                                   c_float, c_float, _P],
-    ("page_gather", "page_gather_launch"): [_P, _P, _P, c_int, c_int, c_int,
-                                            c_longlong, _P],
+    ("page_gather", "page_gather_launch"): [_P] * 5 + [c_int] * 6 + [
+        c_longlong, c_int, _P],
     ("paged_attention", "pa_stats_launch"): [_P, _P, _P, _P, _P, _P, c_float,
                                              c_int, c_int, c_int, c_int,
                                              c_int, c_int, c_int, _P, _P, _P],
@@ -83,12 +85,15 @@ def reset_launches() -> None:
 def plain_reference():
     """Run the plain PyTorch versions on any device inside this context
     (for holding the kernels against them on the card)."""
-    global _PLAIN
-    prev, _PLAIN = _PLAIN, True
-    try:
+    with contextlib.ExitStack() as restore:
+        restore.callback(_set_plain, _PLAIN)
+        _set_plain(True)
         yield
-    finally:
-        _PLAIN = prev
+
+
+def _set_plain(on: bool) -> None:
+    global _PLAIN
+    _PLAIN = on
 
 
 def _on_kernel(t: Tensor) -> bool:
@@ -120,7 +125,10 @@ def _ptr(t: Tensor | None):
 
 
 def _stream(t: Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw pointer, read without
+    building a torch.cuda.Stream object (a host cost that a decode-shape
+    launch, bound by host work, would pay on every call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _need(cond: bool, msg: str) -> None:
@@ -138,56 +146,168 @@ def _scalar(v, like: Tensor) -> Tensor:
 # K1 qmatmul
 # --------------------------------------------------------------------------
 
-def _splits(tiles: int, k: int, sms: int) -> tuple[int, int]:
-    """Split K so that about two blocks per SM are in flight; returns
-    (splits, k per split, a multiple of the 64-deep K tile)."""
-    ktiles = max(1, -(-k // 64))
-    want = max(1, min(ktiles, (2 * sms) // max(tiles, 1)))
-    per = -(-ktiles // want)
-    return -(-ktiles // per), per * 64
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _layout(t: Tensor):
+    """(flag, row pitch) of t's last two dimensions as the K1 kernel reads
+    them: 0 row-major, element (i, j) at i * ld + j; 1 transposed, at
+    j * ld + i.  None when neither dimension is contiguous."""
+    r, c = t.shape[-2:]
+    sr, sc = t.stride()[-2:]
+    if c == 1 or sc == 1:
+        return 0, sr if r > 1 else 0
+    if r == 1 or sr == 1:
+        return 1, sc if c > 1 else 0
+    return None
+
+
+def _batch_dims(a: Tensor, b: Tensor, shape) -> list:
+    """The broadcast batch dimensions `shape` of a and b as (size, a
+    stride, b stride), 0 where an operand broadcasts, with size-1
+    dimensions dropped and neighbours merged where both operands allow."""
+    dims: list = []
+    for i, n in enumerate(shape):
+        if n == 1:
+            continue
+        st = []
+        for t in (a, b):
+            j = i - len(shape) + t.dim() - 2
+            st.append(t.stride(j) if j >= 0 and t.shape[j] != 1 else 0)
+        if dims and dims[-1][1] == st[0] * n and dims[-1][2] == st[1] * n:
+            dims[-1] = (dims[-1][0] * n, st[0], st[1])
+        else:
+            dims.append((n, st[0], st[1]))
+    return dims
+
+
+def _qmm_operands(a8: Tensor, b8: Tensor):
+    """What K1 reads: (a, b, batch shape, desc).  a and b are the operands
+    as given where their last two dimensions are contiguous either way and
+    their broadcast batch dimensions merge into at most three; otherwise a
+    contiguous copy.  desc holds each operand's three batch strides, row
+    pitch and layout flag, then the sizes n1, n2 of the batch (n0, n1,
+    n2)."""
+    shape = torch.broadcast_shapes(a8.shape[:-2], b8.shape[:-2])
+    a, b = a8, b8
+    if _layout(a) is None:
+        a = a.contiguous()
+    if _layout(b) is None:
+        b = b.contiguous()
+    dims = _batch_dims(a, b, shape)
+    if len(dims) > 3:
+        a = a.expand(*shape, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+        b = b.expand(*shape, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+        dims = _batch_dims(a, b, a.shape[:-2])
+    dims = [(1, 0, 0)] * (3 - len(dims)) + dims
+    (fa, lda), (fb, ldb) = _layout(a), _layout(b)
+    desc = [d[1] for d in dims] + [lda, fa] + [d[2] for d in dims] \
+        + [ldb, fb, dims[1][0], dims[2][0]]
+    return a, b, tuple(shape), desc
+
+
+def _qmm_splits(z: int, m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(splits, depth per split) of K1's contraction.  M > 16 (128 x 128
+    tiles, 128-deep k tiles): split only when the tiles cannot fill the
+    SMs, up to two blocks an SM.  M <= 16 (128 columns a block, 64-deep
+    stages): split until there are about four blocks an SM, each slice at
+    least four stages deep."""
+    if m > 16:
+        kt = -(-k // 128)
+        tiles = z * -(-m // 128) * -(-n // 128)
+        want = min(kt, (2 * sms) // tiles) if tiles < sms else 1
+        step = 128
+    else:
+        kt = -(-k // 64)
+        blocks = z * -(-n // 128)
+        want = min(-(-4 * sms // blocks), max(1, kt // 4))
+        step = 64
+    per = -(-kt // max(want, 1))
+    return -(-kt // per), per * step
+
+
+_QMM_PLANS: dict = {}
+
+
+def _qmm_plan(a8: Tensor, b8: Tensor):
+    """K1's launch for these operands: (a, b, output shape, desc array, z,
+    splits, kper, and the scratch's layout: split-partial bytes, A's
+    operand-tile bytes, total bytes).  Cached by shapes and strides where
+    the operands are read as they lie (a serving step repeats its shapes
+    every step)."""
+    key = (a8.shape, a8.stride(), b8.shape, b8.stride(), a8.device)
+    plan = _QMM_PLANS.get(key)
+    if plan is not None:
+        return (a8, b8) + plan
+    m, k = a8.shape[-2:]
+    n = b8.shape[-1]
+    a, b, shape, desc = _qmm_operands(a8, b8)
+    z = math.prod(shape)
+    splits, kper = _qmm_splits(z, m, n, k, _sm_count(a.device)) \
+        if z and m and n and k else (1, 0)
+    _need(z < 65536 and splits < 65536 and -(-max(m, n) // 128) < 65536,
+          "qmatmul: batch or shape too large for one launch")
+    # scratch: the split partials (int32), then the operand pass's tiles
+    ws = -(-(splits * z * m * n * 4 if splits > 1 else 0) // 256) * 256
+    kt = -(-k // 128)
+    at = z * -(-m // 128) * kt * 16384 if m > 16 else 0
+    bt = z * -(-n // 128) * kt * 16384 if m > 16 else 0
+    plan = (shape + (m, n), (c_longlong * 12)(*desc), z, splits, kper, ws,
+            at, ws + at + bt)
+    if a is a8 and b is b8:
+        if len(_QMM_PLANS) >= 4096:
+            _QMM_PLANS.clear()
+        _QMM_PLANS[key] = plan
+    return (a, b) + plan
 
 
 def qmatmul(a8: Tensor, b8: Tensor, requant_inv=None, *,
             lim: float = 127.0) -> Tensor:
-    """int8 (.., M, K) x int8 (.., K, N) -> int32 (.., M, N).
+    """int8 (.., M, K) x int8 (.., K, N) -> int32 (.., M, N), batched and
+    broadcast like torch.matmul over the leading dimensions.
 
-    2-D operands, or 3-D with a shared leading batch.  With `requant_inv`
-    (scalar: the pow2 rescale a_scale * b_scale / out_step) the epilogue
-    emits clip(round(acc * requant_inv), +-lim) as int8."""
+    With `requant_inv` (scalar: the pow2 rescale a_scale * b_scale /
+    out_step) the epilogue emits clip(round(acc * requant_inv), +-lim) as
+    int8.  On the card an operand whose last two dimensions are contiguous
+    either way (a permuted view, a transpose) is read as it lies; any
+    other is copied first."""
     if not _on_kernel(a8):
         inv = None if requant_inv is None else _scalar(requant_inv, a8)
         return ref.qmatmul(a8, b8, inv, lim=lim)
-    _need(a8.dtype == torch.int8 and b8.dtype == torch.int8,
-          "qmatmul takes int8 operands")
-    _need(a8.dim() == b8.dim() and a8.dim() in (2, 3),
-          "qmatmul takes 2-D operands or 3-D with a shared batch")
-    _need(b8.device == a8.device, "qmatmul operands on different devices")
-    a, b = a8.contiguous(), b8.contiguous()
-    if a.dim() == 2:
-        a, b = a[None], b[None]
-    bt, m, k = a.shape
-    _need(b.shape[0] == bt and b.shape[1] == k,
-          f"qmatmul shapes {tuple(a8.shape)} x {tuple(b8.shape)}")
-    n = b.shape[2]
-    tiles = bt * -(-m // 64) * -(-n // 64)
-    if requant_inv is None:
-        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        splits, kchunk = _splits(tiles, k, sms)
-        out = (torch.zeros if splits > 1 else torch.empty)(
-            (bt, m, n), dtype=torch.int32, device=a.device)
-        out8, inv = None, None
-    else:
-        splits, kchunk = 1, max(64, -(-k // 64) * 64)
-        inv = _scalar(requant_inv, a)
-        out8 = torch.empty((bt, m, n), dtype=torch.int8, device=a.device)
-        out = None
-    _need(bt * splits < 65536, "qmatmul batch too large for one launch")
-    _launch("qmatmul", "qmatmul_launch", _ptr(a), _ptr(b), _ptr(out),
-            _ptr(out8), _ptr(inv), lim, bt, m, n, k, splits, kchunk,
+    if not (a8.dtype == torch.int8 and b8.dtype == torch.int8
+            and a8.dim() >= 2 and b8.dim() >= 2 and b8.device == a8.device
+            and a8.shape[-1] == b8.shape[-2]):
+        raise ValueError(f"qmatmul takes int8 (.., M, K) x (.., K, N) on one "
+                         f"device, got {tuple(a8.shape)} x {tuple(b8.shape)}")
+    a, b, out_shape, desc, z, splits, kper, ws, at, scratch = \
+        _qmm_plan(a8, b8)
+    dev = a.device
+    inv = None if requant_inv is None else _scalar(requant_inv, a)
+    out = torch.empty(out_shape, dtype=torch.int32 if inv is None
+                      else torch.int8, device=dev)
+    if kper == 0:                 # an empty product or an empty output
+        return out.zero_()
+    base = buf = None
+    if scratch:       # kept referenced until the launch is enqueued
+        buf = torch.empty(scratch, dtype=torch.uint8, device=dev)
+        base = buf.data_ptr()
+    m, n, k = out_shape[-2], out_shape[-1], a.shape[-1]
+    _launch("qmatmul", "qmatmul_launch", _ptr(a), _ptr(b),
+            None if inv is not None else out.data_ptr(),
+            None if inv is None else out.data_ptr(), _ptr(inv), lim, desc, z,
+            m, n, k, splits, kper, base if ws else None,
+            base + ws if at else None, base + ws + at if at else None,
             _stream(a))
     LAUNCHES["qmatmul"] += 1
-    res = out if out8 is None else out8
-    return res if a8.dim() == 3 else res[0]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -389,23 +509,63 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
 # --------------------------------------------------------------------------
 
 
-def page_gather(pages: Tensor, table: Tensor) -> Tensor:
+def _head_major(x: Tensor) -> Tensor:
+    """(B, NB, page, KV, dh) -> (B, KV, NB * page, dh)."""
+    b, nb, page, kv, dh = x.shape
+    return x.permute(0, 3, 1, 2, 4).reshape(b, kv, nb * page, dh)
+
+
+def page_gather(pages: Tensor, table: Tensor, *, pages2: Tensor | None = None,
+                head_major: bool = False):
     """pages (P, page, *rest) int8 + table (B, NB) page ids (clamped; 0 is
-    the trash page) -> (B, NB, page, *rest) int8, no dequantize."""
+    the trash page) -> (B, NB, page, *rest) int8, no dequantize.
+
+    pages2, a second pool of the same shape (V beside K), is gathered
+    through the same table in the same launch; the result is then the
+    pair.  head_major, for pages (P, page, KV, dh), gives (B, KV, NB * page,
+    dh) instead: each head's positions in one run, the layout the prefill
+    contractions read without a copy."""
     if not _on_kernel(pages):
-        return ref.page_gather(pages, table)
-    _need(pages.dtype == torch.int8, "page_gather takes int8 pages")
-    pc = pages.contiguous()
-    tb = table.to(device=pc.device, dtype=torch.int32).contiguous()
+        outs = [ref.page_gather(p, table)
+                for p in ((pages,) if pages2 is None else (pages, pages2))]
+        if head_major:
+            outs = [_head_major(o) for o in outs]
+        return outs[0] if pages2 is None else tuple(outs)
+    shape = pages.shape
+    _need(pages.dtype == torch.int8 and (pages2 is None or (
+        pages2.dtype == torch.int8 and pages2.shape == shape
+        and pages2.device == pages.device)),
+        "page_gather takes int8 pools of one shape on one device")
+    _need(shape[0] > 0 and (not head_major or len(shape) == 4),
+          "page_gather takes pages (P, page, ..) with P > 0, (P, page, KV, "
+          "dh) for head_major")
+    if not pages.is_contiguous():
+        pages = pages.contiguous()
+    p2 = pages
+    if pages2 is not None:
+        p2 = pages2 if pages2.is_contiguous() else pages2.contiguous()
+    dev = pages.device
+    tb = table
+    if tb.dtype != torch.int32 or tb.device != dev or not tb.is_contiguous():
+        tb = tb.to(device=dev, dtype=torch.int32).contiguous()
     b, nb = tb.shape
-    out = torch.empty((b, nb) + tuple(pc.shape[1:]), dtype=torch.int8,
-                      device=pc.device)
-    _need(pc.shape[0] > 0, "page_gather needs at least one page")
-    page_bytes = pc[0].numel()
-    _launch("page_gather", "page_gather_launch", _ptr(pc), _ptr(tb),
-            _ptr(out), pc.shape[0], b, nb, page_bytes, _stream(pc))
-    LAUNCHES["page_gather"] += 1
-    return out
+    page = shape[1]
+    kv = shape[2] if len(shape) >= 4 else 1
+    row = math.prod(shape[2:]) // kv
+    out_shape = (b, kv, nb * page, row) if head_major else (b, nb) + shape[1:]
+    pools = 1 if pages2 is None else 2
+    # both pools' results in one allocation (the call is bound by host work)
+    out = torch.empty(out_shape if pools == 1 else (2,) + out_shape,
+                      dtype=torch.int8, device=dev)
+    size = math.prod(out_shape)
+    _need(b < 65536 and nb * kv < 2 ** 31, "page_gather table too large")
+    if size:
+        _launch("page_gather", "page_gather_launch", pages.data_ptr(),
+                p2.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                out.data_ptr() + size, pools, shape[0], b, nb, page, kv, row,
+                int(head_major), _stream(tb))
+        LAUNCHES["page_gather"] += 1
+    return out if pools == 1 else out.unbind(0)
 
 
 # --------------------------------------------------------------------------

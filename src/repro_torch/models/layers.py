@@ -245,16 +245,18 @@ def paged_prefill_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
     layer, one lane): the chunked-prefill data path.
 
     q: (1, S, H, dh) QTensor, S = page_size tokens whose KV page was just
-    written; q_pos: (S,) their positions.  The lane's pages are gathered
-    (page_gather, K7) and every position past q_pos is masked, so stale
-    arena contents never leak in.  Every amax spans this lane's page only.
+    written; q_pos: (S,) their positions.  The lane's K and V pages are
+    gathered in one launch (page_gather, K7), head-major, so the two
+    contractions read each head's positions as views; every position past
+    q_pos is masked, so stale arena contents never leak in.  Every amax
+    spans this lane's page only.
     """
     b, s, h, dh = q.shape
     page, kv = k_pages.shape[1], k_pages.shape[2]
     nb = table.shape[1]
     g = h // kv
-    k8 = ops.page_gather(k_pages, table).reshape(b, nb * page, kv, dh)
-    v8 = ops.page_gather(v_pages, table).reshape(b, nb * page, kv, dh)
+    k8, v8 = ops.page_gather(k_pages, table, pages2=v_pages, head_major=True)
+    k8, v8 = k8.permute(0, 2, 1, 3), v8.permute(0, 2, 1, 3)  # (b, T, KV, dh)
     qr = q.reshape(b, s, kv, g, dh)
     sc = _attn_scores(cfg, qr, QTensor(k8, k_scale, 8)) \
         * (1.0 / math.sqrt(dh))

@@ -367,3 +367,153 @@ def test_cuda_selective_scan_continues_and_checks(cuda):
     a8, b8, c8, h8 = _scan_inputs(g, (1, 4, 32, 8), cuda)
     with pytest.raises(ValueError, match="N = 8"):
         ops.selective_scan(a8, b8, c8, h8)
+
+
+# --------------------------------------------------------------------------
+# K1's two routes (M <= 16 narrow, M > 16 wide) and K7's pools and layouts
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 63, 64, 4096])
+def test_cuda_qmatmul_routes_bitwise(cuda, m):
+    """K1 on each side of the route boundary (M = 16 narrow, 17 wide) and
+    at the wide route's small and full tiles, plain and requantized."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    inv = torch.tensor(2.0 ** -13, device=cuda)
+    for k, n in ((4096, 1024), (384, 200)):
+        a, b = _i8(g, (m, k), cuda), _i8(g, (k, n), cuda)
+        assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b)), (m, k, n)
+        assert torch.equal(ops.qmatmul(a, b, inv), ref.qmatmul(a, b, inv)), \
+            (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 16, 96])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("ta,tb", [(True, False), (False, True),
+                                   (True, True)])
+def test_cuda_qmatmul_transposed_operands(cuda, m, batch, ta, tb):
+    """A given as (K, M) and B as (N, K), transposed views read as they
+    lie, 2-D and batched, on both routes."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    k, n = 320, 272
+    lead = () if batch is None else (batch,)
+    a = _i8(g, lead + (k, m), cuda).transpose(-1, -2) if ta \
+        else _i8(g, lead + (m, k), cuda)
+    b = _i8(g, lead + (n, k), cuda).transpose(-1, -2) if tb \
+        else _i8(g, lead + (k, n), cuda)
+    assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b))
+    inv = torch.tensor(2.0 ** -12, device=cuda)
+    assert torch.equal(ops.qmatmul(a, b, inv), ref.qmatmul(a, b, inv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 40])
+def test_cuda_qmatmul_unaligned_operands(cuda, m):
+    """Operands the 16-byte loads cannot take (a row pitch of 100 bytes, a
+    start one byte in) go through the byte-wise loaders of both routes,
+    row-major and transposed."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    k, n = 100, 90
+    a = _i8(g, (m * k + 1,), cuda)[1:].reshape(m, k)        # starts 1 byte in
+    b = _i8(g, (k, n), cuda)
+    at = _i8(g, (k, m), cuda).t()
+    bt = _i8(g, (n * k + 1,), cuda)[1:].reshape(n, k).t()
+    for x, y in ((a, b), (at, b), (a, bt), (at, bt)):
+        assert torch.equal(ops.qmatmul(x, y), ref.qmatmul(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 128, 512), (4096, 512, 128),
+                                   (512, 4096, 128), (128, 4096, 512)])
+def test_cuda_qmatmul_attention_chunk_shapes(cuda, m, k, n):
+    """K1 at the training step's attention-chunk contractions, batch 8
+    (B KV) contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a, b = _i8(g, (8, m, k), cuda), _i8(g, (8, k, n), cuda)
+    assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_int_contract_attention_views(cuda):
+    """The six attention-chunk contractions of the training step and the
+    prefill page's two, through _int_contract on permuted views (heads
+    joined to the batch, the other operand broadcast over them, the
+    grouped depth summed after): equal to the plain versions."""
+    from repro_torch.core.qdense import _int_contract
+    g = torch.Generator(device=cuda).manual_seed(14)
+    for s in (1024, 16):                       # a q chunk, a prefill page
+        q, k = _i8(g, (1, s, 8, 4, 128), cuda), _i8(g, (1, 512, 8, 128), cuda)
+        sc = _i8(g, (1, s, 8, 4, 512), cuda)
+        kh = _i8(g, (1, 8, 512, 128), cuda).permute(0, 2, 1, 3)  # head-major
+        specs = [("bskgd,btkd->bskgt", q, k), ("bskgt,btkd->bskgd", sc, k),
+                 ("bskgd,btkd->bskgt", q, kh), ("bskgt,btkd->bskgd", sc, kh)]
+        if s == 1024:
+            specs += [("bskgd,bskgt->btkd", q, sc),
+                      ("bskgt,bskgd->btkd", sc, q)]
+        for spec, x, y in specs:
+            got = _int_contract(spec, x, y)
+            with ops.plain_reference():
+                want = _int_contract(spec, x, y)
+            assert torch.equal(got, want), (s, spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 256), (16, 8192, 288),
+                                   (64, 8192, 96), (4, 100, 288),
+                                   (40, 100, 288), (3, 7, 5)])
+def test_cuda_qmatmul_split_requant_and_ragged(cuda, m, k, n):
+    """A long contraction over few output columns splits across blocks,
+    the requantize epilogue following the exact combine; ragged N (x_proj's
+    288) and K not a multiple of 64 or 16."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a, b = _i8(g, (m, k), cuda), _i8(g, (k, n), cuda)
+    splits, _ = ops._qmm_splits(1, m, n, k, ops._sm_count(cuda))
+    if k >= 4096:
+        assert splits > 1, "the shape meant to split did not"
+    assert torch.equal(ops.qmatmul(a, b), ref.qmatmul(a, b))
+    for inv in (2.0 ** -14, 2.0 ** -6):        # rounds, and saturates
+        t = torch.tensor(inv, device=cuda)
+        assert torch.equal(ops.qmatmul(a, b, t), ref.qmatmul(a, b, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 64])
+def test_cuda_qmatmul_int32_worst_case(cuda, m):
+    """Every product at its largest, -128 x -128, over K = 12800: the
+    int32 sum 209715200 on both routes, whole and split."""
+    a = torch.full((m, 12800), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((12800, 256), -128, dtype=torch.int8, device=cuda)
+    got = ops.qmatmul(a, b)
+    assert torch.equal(got, ref.qmatmul(a, b))
+    assert int(got[0, 0]) == 128 * 128 * 12800
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("head_major", [False, True])
+def test_cuda_page_gather_pools_and_layouts(cuda, two, head_major):
+    """K7 with one and two pools through one table, in the default and the
+    head-major layout, with ids past both ends clamped; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    kp, vp = _i8(g, (40, 16, 8, 128), cuda), _i8(g, (40, 16, 8, 128), cuda)
+    table = torch.randint(-3, 45, (3, 32), generator=g, device=cuda,
+                          dtype=torch.int32)
+    before = ops.LAUNCHES["page_gather"]
+    got = ops.page_gather(kp, table, pages2=vp if two else None,
+                          head_major=head_major)
+    assert ops.LAUNCHES["page_gather"] == before + 1
+    with ops.plain_reference():
+        want = ops.page_gather(kp, table, pages2=vp if two else None,
+                               head_major=head_major)
+    got, want = (got, want) if two else ((got,), (want,))
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if head_major:
+        assert got[0].shape == (3, 8, 32 * 16, 128)
+    odd = _i8(g, (9, 5, 3, 7), cuda)          # rows of 7 bytes: byte copies
+    t2 = torch.tensor([[4, 0, 11]], device=cuda, dtype=torch.int32)
+    assert torch.equal(ops.page_gather(odd, t2, head_major=head_major),
+                       ops.page_gather(odd.cpu(), t2.cpu(),
+                                       head_major=head_major).to(cuda))

@@ -28,6 +28,7 @@ test_torch_cuda.py.
 """
 import functools
 import importlib
+import math
 import pkgutil
 import re
 import subprocess
@@ -109,6 +110,108 @@ def test_qmatmul_int32_worst_case_exact():
     a = torch.full((2, k), 127, dtype=torch.int8)
     b = torch.full((k, 3), -127, dtype=torch.int8)
     assert int(ops.qmatmul(a, b)[0, 0]) == -k * 127 * 127
+
+
+def _views(r, m, k, n, batch, ta, tb):
+    """int8 operands of (batch.., M, K) x (batch.., K, N) as transposed
+    views where asked, with their contiguous copies."""
+    a = _t(_i8(r, batch + (k, m))).transpose(-1, -2) if ta \
+        else _t(_i8(r, batch + (m, k)))
+    b = _t(_i8(r, batch + (n, k))).transpose(-1, -2) if tb \
+        else _t(_i8(r, batch + (k, n)))
+    return a, b
+
+
+@pytest.mark.parametrize("batch", [(), (3,), (2, 2)])
+@pytest.mark.parametrize("ta,tb", [(True, False), (False, True),
+                                   (True, True)])
+def test_qmatmul_views_equal_contiguous(batch, ta, tb):
+    """ops.qmatmul on transposed and permuted views equals the product of
+    the contiguous copies (and the reference's), requantized too."""
+    r = np.random.default_rng(len(batch) * 4 + 2 * ta + tb)
+    a, b = _views(r, 6, 40, 24, batch, ta, tb)
+    assert not (a.is_contiguous() and b.is_contiguous())
+    got = ops.qmatmul(a, b)
+    np.testing.assert_array_equal(
+        got.numpy(), ops.qmatmul(a.contiguous(), b.contiguous()).numpy())
+    np.testing.assert_array_equal(got.reshape(-1, 6, 24).numpy(), np.stack(
+        [np.asarray(jref.qmatmul_ref(jnp.asarray(x), jnp.asarray(y)))
+         for x, y in zip(a.reshape(-1, 6, 40).numpy(),
+                         b.reshape(-1, 40, 24).numpy())]))
+    inv = torch.tensor(2.0 ** -9)
+    np.testing.assert_array_equal(
+        ops.qmatmul(a, b, inv).numpy(),
+        ops.qmatmul(a.contiguous(), b.contiguous(), inv).numpy())
+
+
+def _emulate(x, flag, ld, strides, sizes, rows, cols):
+    """The (z, rows, cols) matrices K1 reads for one operand: its storage
+    addressed as the kernel does from the descriptor."""
+    flat = torch.empty(0, dtype=torch.int8).set_(x.untyped_storage())
+    n0, n1, n2 = sizes
+    mats = []
+    for z in range(n0 * n1 * n2):
+        off = x.storage_offset() + (z // (n1 * n2)) * strides[0] \
+            + (z // n2) % n1 * strides[1] + (z % n2) * strides[2]
+        st = (1, ld) if flag else (ld, 1)
+        mats.append(torch.as_strided(flat, (rows, cols), st, off))
+    return torch.stack(mats)
+
+
+@pytest.mark.parametrize("case", ["2d", "batched_t", "broadcast",
+                                  "attention", "four_dims", "odd_strides"])
+def test_qmm_operands_address_like_the_kernel(case):
+    """The descriptor K1 gets (batch strides, row pitch, layout flag per
+    operand, batch sizes) addresses exactly the operands' elements: the
+    product of the matrices read through it equals the plain product."""
+    r = np.random.default_rng(5)
+    if case == "2d":
+        a, b = _views(r, 5, 33, 7, (), False, True)
+    elif case == "batched_t":
+        a, b = _views(r, 5, 33, 7, (3,), True, True)
+    elif case == "broadcast":
+        a, b = _t(_i8(r, (2, 3, 5, 16))), _t(_i8(r, (2, 1, 16, 9)))
+    elif case == "attention":      # q (b,s,k,g,d) x k (b,t,k,d) as qdense does
+        q, k = _t(_i8(r, (2, 6, 3, 2, 8))), _t(_i8(r, (2, 10, 3, 8)))
+        a = q.permute(0, 2, 3, 1, 4)
+        b = k.permute(0, 2, 3, 1)[:, :, None]
+    elif case == "four_dims":      # more batch dims than the kernel takes
+        a = _t(_i8(r, (2, 3, 2, 3, 4, 6))).permute(0, 2, 1, 3, 4, 5)
+        b = _t(_i8(r, (3, 2, 3, 6, 5))).permute(1, 0, 2, 3, 4)[None]
+    else:                          # rows not contiguous either way
+        a = _t(_i8(r, (4, 12, 9)))[:, ::2, ::3]
+        b = _t(_i8(r, (3, 7)))
+    x, y, shape, desc = ops._qmm_operands(a, b)
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    sizes = (math.prod(shape) // max(desc[10] * desc[11], 1), desc[10],
+             desc[11])
+    ea = _emulate(x, desc[4], desc[3], desc[0:3], sizes, m, k)
+    eb = _emulate(y, desc[9], desc[8], desc[5:8], sizes, k, n)
+    want = ops.qmatmul(a, b).reshape(-1, m, n)
+    np.testing.assert_array_equal(ops.qmatmul(ea, eb).numpy(), want.numpy())
+    if case in ("2d", "batched_t", "broadcast", "attention"):
+        assert x is a and y is b          # read as they lie: no copy
+
+
+@pytest.mark.parametrize("z,m,n,k,split", [
+    (1, 4, 12800, 4096, True),       # decode: the weight streams, sliced
+    (1, 16, 288, 8192, True),        # x_proj: three column blocks
+    (1, 4096, 12800, 4096, False),   # training qdense: 3200 tiles
+    (32, 1024, 512, 128, False),     # attention chunk, one k tile
+    (32, 128, 512, 1024, True),      # dk / dv: 128 tiles, 8 k tiles
+    (1, 4, 64, 100, False)])         # too shallow to split
+def test_qmm_splits(z, m, n, k, split):
+    """K1 splits the contraction only where the blocks cannot fill the
+    card: on the narrow route until some four blocks an SM run, each slice
+    at least four 64-deep stages; on the wide route only when the tiles
+    are fewer than the SMs.  Every depth is covered exactly once."""
+    splits, kper = ops._qmm_splits(z, m, n, k, 132)
+    assert (splits > 1) == split
+    step = 128 if m > 16 else 64
+    assert kper % step == 0 and (splits - 1) * kper < k <= splits * kper
+    if m <= 16 and split:
+        assert z * -(-n // 128) * splits >= 2 * 132 or kper == 4 * 64
 
 
 # --------------------------------------------------------------------------
@@ -341,6 +444,27 @@ def test_page_gather_bitwise(p, page, d, b, nb):
                            interpret=True)))
 
 
+@pytest.mark.parametrize("head_major", [False, True])
+def test_page_gather_two_pools_against_reference(head_major):
+    """K and V through one table in one call, in the default layout and
+    head-major (B, KV, NB * page, dh): the reference's page_gather_ref of
+    each pool, permuted for the head-major layout."""
+    r = np.random.default_rng(11)
+    kp, vp = _i8(r, (9, 4, 3, 16)), _i8(r, (9, 4, 3, 16))
+    table = r.integers(-2, 12, (2, 5)).astype(np.int32)       # ids clamp
+    got = ops.page_gather(_t(kp), _t(table), pages2=_t(vp),
+                          head_major=head_major)
+    assert isinstance(got, tuple) and len(got) == 2
+    for x, pool in zip(got, (kp, vp)):
+        want = np.asarray(jref.page_gather_ref(jnp.asarray(pool),
+                                               jnp.asarray(table)))
+        if head_major:
+            want = want.transpose(0, 3, 1, 2, 4).reshape(2, 3, 5 * 4, 16)
+        np.testing.assert_array_equal(x.numpy(), want)
+    one = ops.page_gather(_t(kp), _t(table), head_major=head_major)
+    np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+
+
 def test_page_gather_trailing_dims():
     r = np.random.default_rng(1)
     pages = _i8(r, (6, 4, 2, 8))
@@ -518,9 +642,9 @@ def test_every_port_module_imports_on_cpu():
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     """A library's file name hashes the shared headers under csrc/ as well
-    as its source: one changed byte of hopper.cuh (which backward.cu and
-    flash_attention.cu include) renames, and so rebuilds, both; the header
-    is not a kernel of its own."""
+    as its source: one changed byte of hopper.cuh (which qmatmul.cu,
+    backward.cu and flash_attention.cu include) renames, and so rebuilds,
+    all three; the header is not a kernel of its own."""
     import shutil
     from repro_torch.kernels import _build
     csrc = tmp_path / "csrc"
@@ -530,12 +654,12 @@ def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     before = {n: _build._target(n) for n in _build.NAMES}
     assert before == {n: _build._target(n) for n in _build.NAMES}
     hdr = csrc / "hopper.cuh"
-    for name in ("backward", "flash_attention"):
+    for name in ("backward", "flash_attention", "qmatmul"):
         assert '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
     data = bytearray(hdr.read_bytes())
     data[-2] ^= 1
     hdr.write_bytes(bytes(data))
     after = {n: _build._target(n) for n in _build.NAMES}
-    assert after["backward"] != before["backward"]
-    assert after["flash_attention"] != before["flash_attention"]
+    for name in ("backward", "flash_attention", "qmatmul"):
+        assert after[name] != before[name]
     assert "hopper" not in _build.NAMES

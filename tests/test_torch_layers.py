@@ -13,6 +13,7 @@ oracles) and `repro_torch` (device="cpu", plain versions).  Tolerances:
   model steps: equal argmax and |d logits| <= 2^-8 * max|logits| (an int8
      flip inside the stack moves the fp32 logits a little).
 """
+import importlib
 import math
 
 import jax
@@ -25,6 +26,7 @@ from repro.core import preset as jpreset
 from repro.core import qact as jqact
 from repro.core import qdense as jqdense
 from repro.core import qfuncs as jqf
+from repro.core.qdense import _int_contract as j_int_contract
 from repro.core.qtensor import QTensor as JQT
 from repro.models import build_model as jbuild
 from repro.models import layers as JL
@@ -33,6 +35,7 @@ from repro_torch.configs import get
 from repro_torch.convert import params_from_jax
 from repro_torch.core import preset, qact, qdense, qfuncs, qrmsnorm
 from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.serving.pool import PagePool
@@ -114,6 +117,99 @@ def test_qdense_bitwise(exact_pow2):
     want2 = jqdense(JCFG, jnp.asarray(x), jnp.asarray(w))
     np.testing.assert_array_equal(qdense(CFG, _t(x), _t(w)).numpy(),
                                   np.asarray(want2))
+
+
+QD = importlib.import_module("repro_torch.core.qdense")
+
+# spec, a's shape, b's shape, b a head-major view (the prefill's gather)
+# (b, s, KV, G, dh) = (1, 8, 2, 3, 16), T = 12
+_CONTRACTS = {
+    "qdense dgrad": ("mn,kn->mk", (24, 40), (20, 40), False),
+    "qdense wgrad": ("mk,mn->kn", (24, 20), (24, 40), False),
+    "scores": ("bskgd,btkd->bskgt", (1, 8, 2, 3, 16), (1, 12, 2, 16), False),
+    "scores dq": ("bskgt,btkd->bskgd", (1, 8, 2, 3, 12), (1, 12, 2, 16),
+                  False),
+    "scores dk": ("bskgd,bskgt->btkd", (1, 8, 2, 3, 16), (1, 8, 2, 3, 12),
+                  False),
+    "out": ("bskgt,btkd->bskgd", (1, 8, 2, 3, 12), (1, 12, 2, 16), False),
+    "out dp": ("bskgd,btkd->bskgt", (1, 8, 2, 3, 16), (1, 12, 2, 16), False),
+    "out dv": ("bskgt,bskgd->btkd", (1, 8, 2, 3, 12), (1, 8, 2, 3, 16),
+               False),
+    "prefill scores": ("bskgd,btkd->bskgt", (1, 8, 2, 3, 16), (1, 12, 2, 16),
+                       True),
+    "prefill out": ("bskgt,btkd->bskgd", (1, 8, 2, 3, 12), (1, 12, 2, 16),
+                    True),
+}
+
+
+@pytest.mark.parametrize("name", list(_CONTRACTS))
+def test_int_contract_passes_views(name, monkeypatch):
+    """The integer contractions of the qdense backward (unfused), the six
+    of an attention chunk and the prefill page's two reach ops.qmatmul as
+    views of the payloads, which it reads as they lie (no copy on either
+    side), and equal the reference's int32 einsum."""
+    spec, ash, bsh, head_major = _CONTRACTS[name]
+    r = np.random.default_rng(len(name))
+    a8 = _t(r.integers(-127, 128, ash).astype(np.int8))
+    if head_major:            # (b, KV, T, dh) -> the (b, T, KV, dh) view
+        b8 = _t(r.integers(-127, 128, (bsh[0], bsh[2], bsh[1], bsh[3]))
+                .astype(np.int8)).permute(0, 2, 1, 3)
+    else:
+        b8 = _t(r.integers(-127, 128, bsh).astype(np.int8))
+    seen = []
+    real = ops.qmatmul
+    monkeypatch.setattr(ops, "qmatmul",
+                        lambda x, y, *a, **k: seen.append((x, y))
+                        or real(x, y, *a, **k))
+    got = QD._int_contract(spec, a8, b8)
+    assert len(seen) == 1
+    x, y = seen[0]
+    for view, src in ((x, a8), (y, b8)):
+        assert view.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr()
+    kx, ky, _, _ = ops._qmm_operands(x, y)
+    assert kx is x and ky is y
+    want = j_int_contract(spec, jnp.asarray(a8.numpy()),
+                          jnp.asarray(b8.numpy()))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_paged_prefill_gathers_once_head_major(monkeypatch):
+    """One prefill page gathers K and V in one page_gather call, head-major,
+    and both contractions read the gathered pages and the payloads as
+    views."""
+    r = np.random.default_rng(12)
+    page, kv, g, dh, p = 8, 2, 2, 16, 7
+    _, tq = _qt_pair(r, (1, page, kv * g, dh))
+    kp, vp = (_t(r.integers(-127, 128, (p, page, kv, dh)).astype(np.int8))
+              for _ in range(2))
+    table = torch.tensor([[2, 5, 1, 3]], dtype=torch.int32)
+    gathers, mm = [], []
+    real_g, real_mm = ops.page_gather, ops.qmatmul
+
+    def spy_gather(*a, **k):
+        out = real_g(*a, **k)
+        gathers.append((k, out))
+        return out
+
+    monkeypatch.setattr(ops, "page_gather", spy_gather)
+    monkeypatch.setattr(ops, "qmatmul", lambda x, y, *a, **k: mm.append(
+        (x, y)) or real_mm(x, y, *a, **k))
+    ts = torch.tensor(2.0 ** -7)
+    L.paged_prefill_attention(CFG, tq, kp, vp, table, ts, ts,
+                              q_pos=torch.arange(page) + 16)
+    assert len(gathers) == 1
+    kw, (k8, v8) = gathers[0]
+    assert kw["head_major"] and kw["pages2"] is vp
+    assert k8.shape == v8.shape == (1, kv, 4 * page, dh)
+    assert len(mm) == 2
+    ptr = lambda t: t.untyped_storage().data_ptr()  # noqa: E731
+    assert ptr(mm[0][0]) == ptr(tq.data) and ptr(mm[0][1]) == ptr(k8)
+    assert ptr(mm[1][1]) == ptr(v8)
+    for x, y in mm:
+        kx, ky, _, _ = ops._qmm_operands(x, y)
+        assert kx is x and ky is y
 
 
 def test_qrmsnorm_row_bound(exact_pow2):
