@@ -18,17 +18,24 @@ prints no result line:
              training and attention-chunk shapes with its device time
              beside; K2 quantize, K3 dgrad/wgrad in the affine k=8,
              affine k=16 and flag k=8 modes at the four qdense shapes, a
-             ragged and a split shape, K4 ubn_norm by rows and by
-             columns ("batch", ResNet-50's largest and smallest BN and a
-             ragged M), K5 flash_attention at train_4k and its tile-skip
-             edge cases (offset positions, leading padding, rows without
-             keys, k_a = 4, dh = 64, 3 heads per KV head) with the share
+             ragged and a split shape, K4 ubn_norm by rows (rms and
+             layer, M 1 to 4096 on both routes, N 4096, 8192 and ragged,
+             timed at 4, 16 and 4096 rows with its device time, beside
+             the exhaustive check of the fp32 division and sqrt it
+             shares with K6) and by columns ("batch", ResNet-50's
+             largest and smallest BN and a ragged M), K5
+             flash_attention at train_4k and its tile-skip edge cases
+             (offset positions, leading padding, rows without keys,
+             k_a = 4, dh = 64, 3 heads per KV head) with the share
              of tiles it skipped and the exhaustive check of its p codes,
              K7 page_gather with one pool and with K and V in one
              launch, head-major (wall time beside device time), K6
-             paged_attention, K8 cq_stochastic, which no path calls, K9
-             selective_scan at a prefill page, a decode step, the
-             train_4k length from zero state and a ragged shape), with
+             paged_attention at 4 lanes over 512 positions and 16 lanes
+             over 2048 with its device time, the sweep's edge cases and
+             a profiler listing of one call's launches, K8
+             cq_stochastic, which no path calls, K9 selective_scan at a
+             prefill page, a decode step, the train_4k length from zero
+             state and a ragged shape), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
              yardstick); this phase runs without deterministic mode's
@@ -262,6 +269,8 @@ def phase_build() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[build] card: {card}")
+    import torch
+    log(f"[build] torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
     paths = _build.build()
     log(f"[build] {len(paths)} kernels built in {time.time() - t0:.1f} s "
@@ -302,6 +311,7 @@ def phase_kernels() -> None:
 
 def kernel_rows() -> None:
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -548,22 +558,53 @@ def kernel_rows() -> None:
            time_ms(lambda: ref.quantize(w, inv), 5),
            5 * w.numel(), 3 * w.numel(), FP32_OPS, None, 0)
 
-    # ---- K4 ubn_norm (rms): rows of the prefill page and decode lanes.
-    # Bitwise: the row sums are float64 rounded once, and every division and
-    # sqrt is float64 rounded once on both sides (csrc/ubn.cu)
-    log("[kernels] K4 ubn_norm (bitwise)")
-    gam = 1.0 + 0.1 * f32(4096)
-    for m in (4, 16, 512):
+    # ---- K4 ubn_norm (rms, layer): rows of a decode step (4), a prefill
+    # page (16) and the training shape (4096), on both routes (a row over a
+    # cluster of blocks below the SM count, a block a row above it), N of
+    # the path, twice it and ragged, N(0, 1) and k_BN-grid values.
+    # Bitwise: the row sums are float64 rounded once on both sides, and the
+    # kernel's fp32 __fdiv_rn / __fsqrt_rn are the plain version's float64
+    # division and sqrt rounded once (the exhaustive check below)
+    log("[kernels] K4 ubn_norm rows (bitwise; rms and layer, both routes)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind in ("rms", "layer"):
+        for m in (1, 4, 16, 512, 4096):
+            for n in (4096, 8192, 4097):
+                x = f32(m, n) * 2
+                gam, bet = 1.0 + 0.1 * f32(n), 0.1 * f32(n)
+                for xx in (x, torch.round(x * 2.0 ** 15) / 2.0 ** 15):
+                    assert torch.equal(
+                        ops.ubn_norm(xx, gam, bet, kind=kind),
+                        ref.ubn_norm(xx, gam, bet, kind=kind)), \
+                        f"ubn_norm {kind} {m}x{n} differs"
+    miss = ops.fp32_rounding_mismatches(dev)
+    log(f"  fp32 __fdiv_rn and __fsqrt_rn against float64 rounded once: "
+        f"mismatches {miss} (2^28 random divisions, every pair of "
+        f"{2 * len(ops._FP32_EDGES)} edge values, all 2^32 sqrt inputs)")
+    assert miss == [0, 0, 0], "fp32 division or sqrt differs"
+    eps = 2.0 ** -8
+    gam, bet = 1.0 + 0.1 * f32(4096), 0.1 * f32(4096)
+    for name, m, kind, phase in (
+            ("ubn_norm_decode", 4, "rms", ("serve", "ubn_norm_decode")),
+            ("ubn_norm", 16, "rms", "serve"),
+            ("ubn_norm_train", 4096, "rms", ("train", "ubn_norm")),
+            ("ubn_norm_layer", 16, "layer", ("none", "ubn_norm"))):
         x = f32(m, 4096) * 2
-        assert torch.equal(ops.ubn_norm(x, gam), ref.ubn_norm(x, gam)), \
-            f"ubn_norm M={m} differs"
-    x = f32(16, 4096) * 2
-    record("ubn_norm", "src/repro_torch/csrc/ubn.cu",
-           "src/repro/kernels/ubn.py:110",
-           time_ms(lambda: ops.ubn_norm(x, gam)),
-           time_ms(lambda: ref.ubn_norm(x, gam)),
-           8 * x.numel() + 4 * 4096, 8 * x.numel(), FP32_OPS, None,
-           float((ops.ubn_norm(x, gam) - ref.ubn_norm(x, gam)).abs().max()))
+        call = lambda: ops.ubn_norm(x, gam, bet, kind=kind)  # noqa: E731
+        if kind == "rms":
+            lib = lambda: F.rms_norm(x, (4096,), gam, eps)  # noqa: E731
+        else:
+            lib = lambda: F.layer_norm(x, (4096,), gam, bet, eps)  # noqa
+        record(name, "src/repro_torch/csrc/ubn.cu",
+               "src/repro/kernels/ubn.py:110", time_ms(call),
+               time_ms(lambda: ref.ubn_norm(x, gam, bet, kind=kind)),
+               8 * x.numel() + 4 * 4096 * (1 if kind == "rms" else 2),
+               8 * x.numel(), FP32_OPS, time_ms(lib),
+               max_err(call(), ref.ubn_norm(x, gam, bet, kind=kind)), phase,
+               device_ms=device_ms(call),
+               note=f"{m}x4096 {kind}, {ops.ubn_cluster(m, sms)} block(s) "
+                    f"a row; library F.{kind}_norm, device "
+                    f"{device_ms(lib):.4f} ms")
 
     # ---- K4 ubn_norm (batch): ResNet-50's BNs at batch 32 flatten NHWC to
     # (N*H*W, C), from M = 100352 x C = 256 down to M = 1568 x C = 2048.
@@ -588,13 +629,19 @@ def kernel_rows() -> None:
     m, c = 100352, 256
     x = f32(m, c) * 2 + 0.3
     gam, bet = 1.0 + 0.1 * f32(c), 0.1 * f32(c)
+    lib = lambda: F.batch_norm(x, None, None, gam, bet,  # noqa: E731
+                               training=True, eps=2.0 ** -8)
     record("ubn_norm_batch", "src/repro_torch/csrc/ubn.cu",
            "src/repro/kernels/ubn.py:110",
            time_ms(lambda: ops.ubn_norm(x, gam, bet, kind="batch")),
            time_ms(lambda: ref.ubn_norm(x, gam, bet, kind="batch"), 5),
-           8 * m * c + 8 * c, 8 * m * c, FP32_OPS, None,
+           8 * m * c + 8 * c, 8 * m * c, FP32_OPS, time_ms(lib),
            max_err(ops.ubn_norm(x, gam, bet, kind="batch"),
-                   ref.ubn_norm(x, gam, bet, kind="batch")), "resnet")
+                   ref.ubn_norm(x, gam, bet, kind="batch")), "resnet",
+           device_ms=device_ms(
+               lambda: ops.ubn_norm(x, gam, bet, kind="batch")),
+           note=f"library F.batch_norm(training=True), device "
+                f"{device_ms(lib):.4f} ms")
 
     # ---- K8 cq_stochastic: no path calls it; a ResNet-50 weight leaf's
     # shape (3x3x512 -> 512) and a ragged one, from int32 random bits
@@ -670,10 +717,12 @@ def kernel_rows() -> None:
            device_ms=device_ms(lambda: ops.page_gather(pages, t1)),
            note="32 pages of one pool (no path calls it so)")
 
-    # ---- K6 paged_attention: 4 decode lanes of 32 heads over 8 KV heads.
+    # ---- K6 paged_attention: 4 decode lanes of 32 heads over 8 KV heads
+    # (T 512), edge cases of the sweep, and 16 lanes at long context.
     # Bitwise: m, l, the probability payload p8 and the output (l is a
-    # float64 sum rounded once; exp and the division by l are float64
-    # rounded once on both sides, csrc/paged_attention.cu)
+    # float64 sum rounded once and exp is float64 rounded once on both
+    # sides; the divisions are fp32 __fdiv_rn, checked above against the
+    # float64 division rounded once, csrc/paged_attention.cu)
     log("[kernels] K6 paged_attention (bitwise: m, l, p8, out)")
     kp, vp = i8(129, 16, 8, 128), i8(129, 16, 8, 128)
     q8 = i8(4, 32, 128)
@@ -684,19 +733,122 @@ def kernel_rows() -> None:
                                                  2.0 ** -7)]
     sm = 1.0 / math.sqrt(128)
     args = (q8, kp, vp, tbl, q_pos, t_valid, *sc)
-    pk = ops.paged_attention_parts(*args, sm_scale=sm)
-    pp = ref.paged_attention_parts(*args, sm_scale=sm)
-    for part in ("m", "l", "p8", "out"):
-        assert torch.equal(pk[part], pp[part]), \
-            f"paged_attention {part} differs"
+
+    def pa_equal(args, what, **kw):
+        pk = ops.paged_attention_parts(*args, **kw)
+        pp = ref.paged_attention_parts(*args, **kw)
+        for part in ("m", "l", "p8", "out"):
+            assert torch.equal(pk[part], pp[part]), \
+                f"paged_attention {part} differs ({what})"
+        return pk, pp
+
+    pk, pp = pa_equal(args, "chip_smoke's row", sm_scale=sm)
+    # the sweep's edge cases: a dead lane at position 0 (its table row is
+    # the trash page 0), ends mid-page and on a page edge, t_valid below
+    # q_pos + 1, rows with every position masked, q_scale * k_scale so
+    # large that every lane sweeps all T; g 1, 8 and 48, dh 64, k_a 4
+    dead = tbl.clone()
+    dead[0] = 0
+    for what, tb, qp, tv, kw, scl in (
+            ("lane 0 dead, ends mid-page and on page edges", dead,
+             [0, 15, 16, 511], 512, {}, sc),
+            ("t_valid below q_pos + 1", tbl, [300, 52, 271, 79], 100, {}, sc),
+            ("every position masked", tbl, [-1, 5, 60, -7], 128, {}, sc),
+            ("t_valid 0", tbl, [5, 60, 3, 9], 0, {}, sc),
+            ("k_a 4", tbl, [10, 100, 127, 3], 128, {"k_a": 4}, sc),
+            ("scores past the sweep bound", tbl, [10, 60, 200, 3], 512, {},
+             [torch.tensor(s, device=dev) for s in (2.0 ** 10, 2.0 ** 10,
+                                                     1.0)])):
+        pa_equal((q8, kp, vp, tb, torch.tensor(qp, device=dev,
+                                               dtype=torch.int32), tv,
+                  *scl), what, sm_scale=sm, **kw)
+    for gq, kvh, dh in ((1, 8, 128), (8, 4, 128), (48, 1, 128), (4, 8, 64)):
+        pools = [i8(33, 16, kvh, dh) for _ in range(2)]
+        pa_equal((i8(4, gq * kvh, dh), *pools, tbl[:, :8] % 33,
+                  torch.tensor([10, 100, 127, 3], device=dev,
+                               dtype=torch.int32), 128, *sc),
+                 f"g {gq}, dh {dh}", sm_scale=dh ** -0.5)
+    call = lambda: ops.paged_attention(*args, sm_scale=sm)  # noqa: E731
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    host = [e.name for e in sorted(prof.events(),
+                                   key=lambda e: e.time_range.start)
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    first = min((i for i, n in enumerate(host) if "Launch" in n),
+                default=len(host))
+    assert first < len(host) and not any(
+        n.startswith("aten::") for n in host[first:]), \
+        "paged_attention: a PyTorch op between its launches"
+    # the card's side over ten calls (a profile of one call can come back
+    # without its device events)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    on_card = [e.name[:40] for e in sorted(prof.events(),
+                                           key=lambda e: e.time_range.start)
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"  one call: {len(on_card) / 10:g} launches on the card "
+        f"{on_card[:3]}; on the host, in order: {host}")
+    assert 0 < len(on_card) <= 30, "paged_attention: more than 3 launches"
+
+    def sdpa_case(q8, kp, vp, tbl, q_pos, *_):
+        """SDPA's inputs: q and K/V gathered through the table and
+        dequantized to bf16 beforehand (the gather is not timed), with a
+        length mask; GQA by enable_gqa."""
+        b, h, dh = q8.shape
+        kv = kp.shape[2]
+        idx = tbl.long()
+        kf, vf = ((p[idx].flatten(1, 2).permute(0, 2, 1, 3).float() * s)
+                  .to(torch.bfloat16) for p, s in ((kp, sc[1]), (vp, sc[2])))
+        qf = (q8.float() * sc[0]).to(torch.bfloat16).reshape(b, h, 1, dh)
+        t = kf.shape[2]
+        mask = (torch.arange(t, device=dev)[None, :]
+                <= q_pos[:, None].long())[:, None, None, :]
+        assert kf.shape == (b, kv, t, dh)
+        return lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, attn_mask=mask, enable_gqa=True)
+
+    lib = sdpa_case(*args)
     valid = int((q_pos + 1).sum())
     record("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-           "src/repro/kernels/paged_attention.py:154",
-           time_ms(lambda: ops.paged_attention(*args, sm_scale=sm)),
+           "src/repro/kernels/paged_attention.py:154", time_ms(call),
            time_ms(lambda: ref.paged_attention(*args, sm_scale=sm)),
            2 * valid * 8 * 128 + q8.numel() + 4 * tbl.numel()
-           + 4 * 4 * 32 * 128, 2 * 2 * valid * 32 * 128, INT8_OPS, None,
-           float((pk["out"] - pp["out"]).abs().max()))
+           + 4 * 4 * 32 * 128, 2 * 2 * valid * 32 * 128, INT8_OPS,
+           time_ms(lib), float((pk["out"] - pp["out"]).abs().max()),
+           device_ms=device_ms(call),
+           note=f"4 lanes at 115/52/271/79 of 512; library SDPA bf16 on "
+                f"K/V gathered and dequantized beforehand (gather not "
+                f"timed), device {device_ms(lib):.4f} ms")
+    # 16 lanes at long context: NB * page 2048, positions 1024-2047
+    kp, vp = i8(2049, 16, 8, 128), i8(2049, 16, 8, 128)
+    q8 = i8(16, 32, 128)
+    tbl = torch.arange(1, 2049, device=dev, dtype=torch.int32).reshape(16,
+                                                                       128)
+    q_pos = torch.randint(1024, 2048, (16,), generator=g, device=dev,
+                          dtype=torch.int32)
+    args = (q8, kp, vp, tbl, q_pos, q_pos.max() + 1, *sc)
+    pk, pp = pa_equal(args, "long context", sm_scale=sm)
+    call = lambda: ops.paged_attention(*args, sm_scale=sm)  # noqa: E731
+    lib = sdpa_case(*args)
+    valid = int((q_pos + 1).sum())
+    record("paged_attention_long", "src/repro_torch/csrc/paged_attention.cu",
+           "src/repro/kernels/paged_attention.py:154", time_ms(call),
+           time_ms(lambda: ref.paged_attention(*args, sm_scale=sm), 5),
+           2 * valid * 8 * 128 + q8.numel() + 4 * tbl.numel()
+           + 4 * 16 * 32 * 128, 2 * 2 * valid * 32 * 128, INT8_OPS,
+           time_ms(lib), float((pk["out"] - pp["out"]).abs().max()),
+           ("none", "paged_attention"), device_ms=device_ms(call),
+           note=f"16 lanes, {valid} live positions of 16 x 2048 (no path "
+                f"runs it); library SDPA bf16 as above, device "
+                f"{device_ms(lib):.4f} ms")
+    del kp, vp, pk, pp
 
     # ---- K9 selective_scan: falcon-mamba-7b's d_inner 8192 x N 16 at a
     # prefill page and a decode step (carried state, the ssm phase's
@@ -943,7 +1095,10 @@ def profile_decode(eng, steps: int = 3) -> None:
             step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
-    report_profile(prof, wall_us, steps, "decode step")
+    groups = {"K4 rows (ubn_rows)": "ubn_rows"}
+    if eng.paged:
+        groups["K6 (pa_scores, pa_exp, pa_out)"] = "pa_"
+    report_profile(prof, wall_us, steps, "decode step", groups)
 
 
 def profile_prefill(model, prompt) -> None:

@@ -10,7 +10,7 @@ version (`kernels/ref.py`) for a CPU tensor.
   cq_stochastic    K8  stochastic CQ payload from given random bits
   flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
-  paged_attention  K6  two-pass paged int8 decode attention
+  paged_attention  K6  paged int8 decode attention over the live positions
   selective_scan   K9  the Mamba1 recurrence with a carried state
 
 Routing is by the tensor's device alone.  On a CUDA tensor an op launches
@@ -20,9 +20,9 @@ back.  The one way to run the plain versions on the card is to ask for it,
 that way); the serving path never enters it.
 
 `LAUNCHES` counts kernel launches per op: an op adds one each time it
-launches its kernel (K6 counts one per call, which is two launches with
-the glue between; K1, K3, K4 "batch", K5 and K7 count one per call
-likewise) and never on the plain route.
+launches its kernel (K6 counts one per call, which is three launches
+with nothing between them; K1, K3, K4 "batch", K5 and K7 count
+one per call likewise) and never on the plain route.
 """
 from __future__ import annotations
 
@@ -50,21 +50,17 @@ _SIGS = {
     ("qmatmul", "qmatmul_launch"): [_P, _P, _P, _P, _P, c_float,
                                     POINTER(c_longlong), c_int, c_int, c_int,
                                     c_int, c_int, c_int, _P, _P, _P, _P],
-    ("ubn", "ubn_launch"): [_P, _P, _P, _P, c_int, c_int, c_int, c_float,
-                            c_float, c_float, c_float, c_float, c_float, _P],
+    ("ubn", "ubn_launch"): [_P, _P, _P, _P] + [c_int] * 5 + [c_float] * 6
+    + [_P],
+    ("ubn", "fp32_check_launch"): [c_longlong, _P, c_int, _P, _P],
     ("ubn", "ubn_batch_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
                                   c_int, c_float, c_float, c_float, c_float,
                                   c_float, c_float, _P],
     ("page_gather", "page_gather_launch"): [_P] * 5 + [c_int] * 6 + [
         c_longlong, c_int, _P],
-    ("paged_attention", "pa_stats_launch"): [_P, _P, _P, _P, _P, _P, c_float,
-                                             c_int, c_int, c_int, c_int,
-                                             c_int, c_int, c_int, _P, _P, _P],
-    ("paged_attention", "pa_out_launch"): [_P, _P, _P, _P, _P, _P, _P,
-                                           c_float, c_int, c_int, c_int,
-                                           c_int, c_int, c_int, c_int, _P,
-                                           _P, _P, _P, c_float, c_float, _P,
-                                           _P, _P],
+    ("paged_attention", "pa_launch"): [_P] * 6 + [c_int] + [_P] * 3
+    + [c_float] * 3 + [c_int] * 8
+    + [_P] + [c_longlong] * 6 + [_P] * 3,
     ("backward", "bwd_launch"): [_P] * 8 + [c_int, c_int, c_float, c_int,
                                             c_int, c_int, c_int, c_int, _P],
     ("flash_attention", "fa_launch"): [c_int] + [_P] * 16 + [
@@ -137,9 +133,21 @@ def _need(cond: bool, msg: str) -> None:
 
 
 def _scalar(v, like: Tensor) -> Tensor:
-    """A device fp32 0-d tensor (scales stay on the device: no host sync)."""
+    """A device fp32 0-d tensor (scales stay on the device: no host sync);
+    one that already is so is returned as it is (no host ops)."""
+    if isinstance(v, Tensor) and v.dim() == 0 \
+            and v.dtype == torch.float32 and v.device == like.device:
+        return v
     return torch.as_tensor(v, dtype=torch.float32,
                            device=like.device).reshape(())
+
+
+def _as(t: Tensor, dtype, like: Tensor) -> Tensor:
+    """t contiguous, of `dtype` and on like's device, as it lies where it
+    already is so (no host work beyond the checks)."""
+    if t.dtype == dtype and t.device == like.device and t.is_contiguous():
+        return t
+    return t.to(device=like.device, dtype=dtype).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -463,6 +471,18 @@ def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
 UBN_CHUNK = 256
 
 
+def ubn_cluster(m: int, sms: int) -> int:
+    """Blocks that one row of K4's "rms" and "layer" kinds spreads over (a
+    thread-block cluster): the most of 8, 4 and 2 that keeps M x blocks
+    within the card's `sms` SMs, else 1 (a block a row).  From M alone: on
+    132 SMs, 8 for a decode step's 4 rows and a prefill page's 16, 4 up to
+    33 rows, 2 up to 66, then 1 (the training shape's 4096)."""
+    for cl in (8, 4, 2):
+        if m * cl <= sms:
+            return cl
+    return 1
+
+
 def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
              kind: str = "rms", k_mu: int = 16, k_sigma: int = 16,
              k_bn: int = 16, k_gamma: int = 8, k_beta: int = 8,
@@ -480,8 +500,8 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
     _need(kind == "rms" or beta is not None, f"ubn_norm {kind} needs beta")
     xc = x.contiguous()
     m, n = xc.shape
-    g = gamma.contiguous().float()
-    b = g if beta is None else beta.contiguous().float()
+    g = _as(gamma, torch.float32, xc)
+    b = g if beta is None else _as(beta, torch.float32, xc)
     _need(g.numel() == n and b.numel() == n, "ubn_norm gamma/beta width")
     out = torch.empty_like(xc)
     s = lambda k: 2.0 ** (k - 1)  # noqa: E731
@@ -498,10 +518,41 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
                 _ptr(out), _ptr(part), _ptr(stats), m, n, UBN_CHUNK,
                 *widths, _stream(xc))
     else:
+        # one launch: a row over a cluster of `cl` blocks (ubn_cluster),
+        # float4 groups where N and every pointer allow (csrc/ubn.cu)
+        cl = ubn_cluster(m, _sm_count(xc.device))
+        vec = 4 if n % 4 == 0 and not (xc.data_ptr() | g.data_ptr()
+                                       | b.data_ptr() | out.data_ptr()) % 16 \
+            else 1
+        _need(m * cl < 2 ** 31, f"ubn_norm: M = {m} out of range")
         _launch("ubn", "ubn_launch", _ptr(xc), _ptr(g), _ptr(b), _ptr(out),
-                m, n, int(kind == "layer"), *widths, _stream(xc))
+                m, n, int(kind == "layer"), cl, vec, *widths, _stream(xc))
     LAUNCHES["ubn_norm"] += 1
     return out
+
+
+# edge values of fp32_rounding_mismatches' divisions (and their negatives)
+_FP32_EDGES = (0.0, 2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -127,
+               2.0 ** -126 - 2.0 ** -149, 2.0 ** -126, 2.0 ** -126 + 2.0 ** -149,
+               1e-38, 1e-30, 2.0 ** -24, 0.1, 0.5, 1.0 - 2.0 ** -24, 1.0,
+               1.0 + 2.0 ** -23, 1.5, 3.0, 7.0, 10.0, 2.0 ** 24 + 2.0, 1e10,
+               1e30, 2.0 ** 127, 3.4028234663852886e38, math.inf, math.nan)
+
+
+def fp32_rounding_mismatches(device, pairs: int = 2 ** 28) -> list[int]:
+    """The fp32 __fdiv_rn and __fsqrt_rn that K4's rows and K6 use, against
+    the float64 operation rounded once that their plain versions use, on
+    the card: the counts of [`pairs` random divisions, divisions of every
+    pair of edge values (denormal, tiny, huge, inf, NaN and negatives),
+    square roots of all 2^32 bit patterns] that differ (all must be 0)."""
+    _need(torch.device(device).type == "cuda", "the fp32 check runs on the "
+          "card")
+    edge = torch.tensor([v for x in _FP32_EDGES for v in (x, -x)],
+                        dtype=torch.float32, device=device)
+    miss = torch.zeros(3, dtype=torch.int64, device=device)
+    _launch("ubn", "fp32_check_launch", pairs, _ptr(edge), edge.numel(),
+            _ptr(miss), _stream(edge))
+    return [int(v) for v in miss.cpu()]
 
 
 # --------------------------------------------------------------------------
@@ -573,17 +624,47 @@ def page_gather(pages: Tensor, table: Tensor, *, pages2: Tensor | None = None,
 # --------------------------------------------------------------------------
 
 
-def _pa_glue(l: Tensor, v_scale: Tensor, k_a: int):
-    """The single probability step from the batch-global amax: max p per
-    row is exp(0)/l == 1/l, so the GridQuantizer amax of the quantized
-    probabilities reduces over l alone."""
-    s_ = 2.0 ** (k_a - 1)
-    amax_pg = torch.round(torch.amax(ref._div32(1.0, l)) * s_) / s_
-    step = torch.clamp(ref._pow2_ceil(amax_pg), min=2.0 ** -24) \
-        * 2.0 ** (1 - k_a)
-    pinv = (1.0 / step).reshape(())
-    pv = (step * v_scale).reshape(()).float()
-    return pinv, pv
+def pa_span(b: int, kv: int, t: int, sms: int) -> int:
+    """Positions a block of K6 sweeps: the largest of 128 and 64 whose grid
+    of B x KV x ceil(T / span) blocks gives each of the card's `sms` SMs
+    four, else 32 (from the shapes alone: the positions live on the card).
+    A decode step of four lanes over 512 positions takes 32; sixteen
+    lanes over 2048 take 128."""
+    for span in (128, 64):
+        if b * kv * -(-t // span) >= 4 * sms:
+            return span
+    return 32
+
+
+def pa_sweep(q_pos: Tensor, t_valid, t: int, kq: float, sm_scale: float,
+             dh: int) -> Tensor:
+    """The positions each lane's sweep covers, as K6 computes them on the
+    card (csrc/paged_attention.cu sweep_len): end = min(q_pos + 1, t_valid,
+    T); all T where end <= 0 (no live position: every position is masked)
+    or where a score could reach within 200 of the mask value -1e9
+    (128 * 128 * dh * |kq| * |sm_scale| >= 9e8, kq = q_scale * k_scale in
+    fp32), so that past `end` every exp(score - m) is exactly 0."""
+    end = torch.clamp(torch.minimum(q_pos.long() + 1,
+                                    torch.as_tensor(t_valid).long()), max=t)
+    safe = 16384.0 * dh * abs(float(kq)) * abs(float(sm_scale)) < 9.0e8
+    return torch.where((end > 0) & safe, end, torch.full_like(end, t))
+
+
+def pa_layout(b: int, kv: int, g: int, dh: int, t: int, span: int) -> dict:
+    """Byte offsets into K6's one workspace: the part its first launch
+    zeroes (the int32 p.v accumulator (B, H, dh), then 2 * B * KV + 1
+    counters), the probability step pair, m and l (B, H) fp32 each, the
+    spans' float64 sums of exp and their maxima (B, H, ceil(T / span))
+    each, and the scores (B, H, T) fp32; 16-byte aligned."""
+    h, nspan = kv * g, -(-t // span)
+    up = lambda x: -(-x // 16) * 16  # noqa: E731
+    zero = up(4 * b * h * dh + 4 * (2 * b * kv + 1))
+    ml = zero + 16
+    lsum = up(ml + 8 * b * h)
+    smax = lsum + 8 * b * h * nspan
+    e = up(smax + 4 * b * h * nspan)
+    return {"zero": zero, "glue": zero, "ml": ml, "lsum": lsum,
+            "smax": smax, "e": e, "total": e + 4 * b * h * t}
 
 
 def _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos, t_valid,
@@ -593,36 +674,44 @@ def _paged_attention_kernel(q8, k_pages, v_pages, table, q_pos, t_valid,
           and v_pages.dtype == torch.int8, "paged_attention takes int8")
     p_cnt, page, kv, dh = k_pages.shape
     b, h, dh2 = q8.shape
-    _need(dh2 == dh and h % kv == 0, "paged_attention head shapes")
+    _need(dh2 == dh and h % kv == 0 and v_pages.shape == k_pages.shape
+          and p_cnt > 0, "paged_attention head shapes")
     g = h // kv
-    _need(dh % 4 == 0 and dh <= 128 and g <= 8,
-          f"paged_attention kernel takes dh % 4 == 0, dh <= 128, g <= 8 "
+    _need(dh % 16 == 0 and dh <= 256 and g <= 64,
+          f"paged_attention kernel takes dh % 16 == 0, dh <= 256, g <= 64 "
           f"(got dh={dh}, g={g})")
-    dev = q8.device
-    qc, kc, vc = q8.contiguous(), k_pages.contiguous(), v_pages.contiguous()
-    tb = table.to(device=dev, dtype=torch.int32).contiguous()
+    qc, kc, vc = _aligned(q8), _aligned(k_pages), _aligned(v_pages)
+    tb, qp = _as(table, torch.int32, qc), _as(q_pos, torch.int32, qc)
     nb = tb.shape[1]
-    qp = q_pos.to(device=dev, dtype=torch.int32).contiguous()
-    tv = torch.as_tensor(t_valid, device=dev).to(torch.int32).reshape(())
-    kq = _scalar(q_scale * k_scale, q8)
-    m = torch.empty((b, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, h), dtype=torch.float32, device=dev)
-    st = _stream(qc)
-    dims = (b, p_cnt, page, kv, g, dh, nb)
-    _launch("paged_attention", "pa_stats_launch", _ptr(qc), _ptr(kc),
-            _ptr(tb), _ptr(qp), _ptr(tv), _ptr(kq), sm_scale, *dims,
-            _ptr(m), _ptr(l), st)
-    pinv, pv = _pa_glue(l, _scalar(v_scale, q8), k_a)
-    out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
-    p8 = (torch.empty((b, h, nb * page), dtype=torch.int8, device=dev)
+    t = nb * page
+    _need(0 < t < 2 ** 31 and b < 65536 and kv < 65536,
+          "paged_attention: table or lanes out of range")
+    # t_valid as the kernel's argument where it is a host integer (no copy
+    # to the card), else a one-element int32 tensor on the card
+    tv, tv_imm = None, 0
+    if isinstance(t_valid, Tensor):
+        tv = _as(t_valid, torch.int32, qc)
+    else:
+        tv_imm = max(-2 ** 31, min(int(t_valid), 2 ** 31 - 1))
+    qs, ks, vs = (_scalar(s, qc) for s in (q_scale, k_scale, v_scale))
+    span = pa_span(b, kv, t, _sm_count(qc.device))
+    lay = pa_layout(b, kv, g, dh, t, span)
+    ws = torch.empty(lay["total"], dtype=torch.uint8, device=qc.device)
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=qc.device)
+    p8 = (torch.empty((b, h, t), dtype=torch.int8, device=qc.device)
           if want_p8 else None)
     s_ = 2.0 ** (k_a - 1)
-    _launch("paged_attention", "pa_out_launch", _ptr(qc), _ptr(kc), _ptr(vc),
-            _ptr(tb), _ptr(qp), _ptr(tv), _ptr(kq), sm_scale, *dims,
-            _ptr(m), _ptr(l), _ptr(pinv), _ptr(pv), s_, s_ - 1.0, _ptr(out),
-            _ptr(p8), st)
+    _launch("paged_attention", "pa_launch", _ptr(qc), _ptr(kc), _ptr(vc),
+            _ptr(tb), _ptr(qp), _ptr(tv), tv_imm, _ptr(qs), _ptr(ks),
+            _ptr(vs), sm_scale, s_, s_ - 1.0, b, p_cnt, page, kv, g, dh, nb,
+            span,
+            ws.data_ptr(), lay["zero"], lay["glue"], lay["ml"], lay["lsum"],
+            lay["smax"], lay["e"], _ptr(out), _ptr(p8), _stream(qc))
     LAUNCHES["paged_attention"] += 1
-    return {"m": m, "l": l, "p8": p8, "out": out}
+    if not want_p8:
+        return {"out": out}
+    ml = ws[lay["ml"]:lay["ml"] + 8 * b * h].view(torch.float32).view(2, b, h)
+    return {"m": ml[0], "l": ml[1], "p8": p8, "out": out}
 
 
 def paged_attention_parts(q8, k_pages, v_pages, table, q_pos, t_valid,

@@ -517,3 +517,105 @@ def test_cuda_page_gather_pools_and_layouts(cuda, two, head_major):
     assert torch.equal(ops.page_gather(odd, t2, head_major=head_major),
                        ops.page_gather(odd.cpu(), t2.cpu(),
                                        head_major=head_major).to(cuda))
+
+
+# K6 at the edges of its sweep: each case is (lanes, KV heads, query heads
+# per KV head, dh, pages a lane, q_pos, t_valid, k_a); "dead0" puts lane 0
+# on the trash page 0
+_PA_CASES = {
+    "lanes_apart_dead0": (4, 8, 4, 128, 32, [0, 52, 271, 79], None, 8),
+    "mid_page_and_edges": (4, 8, 4, 128, 32, [7, 15, 16, 511], None, 8),
+    "t_valid_below": (4, 8, 4, 128, 32, [300, 52, 271, 79], 100, 8),
+    "all_masked": (4, 8, 4, 128, 8, [-1, 5, -9, 60], 128, 8),
+    "t_valid_0": (3, 8, 4, 128, 8, [5, 60, 100], 0, 8),
+    "g1": (4, 8, 1, 128, 8, [10, 100, 127, 3], None, 8),
+    "g4_dh64": (4, 8, 4, 64, 8, [10, 100, 127, 3], None, 8),
+    "g8": (4, 4, 8, 128, 8, [10, 100, 127, 3], None, 8),
+    "g48": (2, 1, 48, 128, 8, [100, 31], None, 8),
+    "k_a4": (4, 8, 4, 128, 8, [10, 100, 127, 3], None, 4),
+    "g1_dh112": (2, 32, 1, 112, 8, [100, 31], None, 8),     # zamba2's heads
+    "long_context": (16, 8, 4, 128, 128, "long", None, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_PA_CASES))
+def test_cuda_paged_attention_sweep_edges(cuda, case):
+    """K6 sweeps each lane to min(q_pos + 1, t_valid, T) only (all T where
+    that is empty): m, l, p8 and the output equal the plain version's bit
+    for bit; a call is at most three launches on the card."""
+    b, kv, gq, dh, nb, qp, tv, k_a = _PA_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(19)
+    p = b * nb + 1
+    kp, vp = _i8(g, (p, 16, kv, dh), cuda), _i8(g, (p, 16, kv, dh), cuda)
+    q8 = _i8(g, (b, kv * gq, dh), cuda)
+    table = torch.arange(1, p, device=cuda, dtype=torch.int32).reshape(b, nb)
+    if case.endswith("dead0"):
+        table[0] = 0
+    q_pos = (torch.randint(1024, 2048, (b,), generator=g, device=cuda,
+                           dtype=torch.int32) if qp == "long"
+             else torch.tensor(qp, device=cuda, dtype=torch.int32))
+    t_valid = q_pos.max() + 1 if tv is None else tv
+    args = (q8, kp, vp, table, q_pos, t_valid,
+            *(torch.tensor(s, device=cuda)
+              for s in (2.0 ** -6, 2.0 ** -7, 2.0 ** -7)))
+    kw = dict(sm_scale=dh ** -0.5, k_a=k_a)
+    pk = ops.paged_attention_parts(*args, **kw)
+    pp = ref.paged_attention_parts(*args, **kw)
+    for part in ("m", "l", "p8", "out"):
+        assert torch.equal(pk[part], pp[part]), part
+    assert torch.equal(ops.paged_attention(*args, **kw), pp["out"])
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < len(on_card) <= 3 * 5
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_sweeps_all_past_the_score_bound(cuda):
+    """With q_scale * k_scale so large that a score could reach the mask
+    value, every lane sweeps all T positions, as the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    kp, vp = _i8(g, (17, 16, 8, 128), cuda), _i8(g, (17, 16, 8, 128), cuda)
+    q8 = _i8(g, (2, 32, 128), cuda)
+    table = torch.arange(1, 17, device=cuda, dtype=torch.int32).reshape(2, 8)
+    q_pos = torch.tensor([10, 60], device=cuda, dtype=torch.int32)
+    for s in (2.0 ** 8, 2.0 ** 12):
+        args = (q8, kp, vp, table, q_pos, 128,
+                *(torch.tensor(x, device=cuda) for x in (s, s, 1.0)))
+        pk = ops.paged_attention_parts(*args, sm_scale=128 ** -0.5)
+        pp = ref.paged_attention_parts(*args, sm_scale=128 ** -0.5)
+        for part in ("m", "l", "p8", "out"):
+            assert torch.equal(pk[part], pp[part]), (s, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("m", [1, 4, 16, 512, 4096])
+@pytest.mark.parametrize("n", [4096, 8192, 4097])
+def test_cuda_ubn_rows_routes_bitwise(cuda, kind, m, n):
+    """K4's rows on both routes (a row over a cluster of ops.ubn_cluster(M)
+    blocks below the SM count, a block a row above), N of the path, twice
+    it and ragged (scalar groups), N(0, 1) and k_BN-grid values."""
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, n), generator=g, device=cuda) * 2 + 0.3
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(n, generator=g, device=cuda)
+    for xx in (x, torch.round(x * 2.0 ** 15) / 2.0 ** 15):
+        before = ops.LAUNCHES["ubn_norm"]
+        got = ops.ubn_norm(xx, gamma, beta, kind=kind)
+        assert ops.LAUNCHES["ubn_norm"] == before + 1
+        assert torch.equal(got, ref.ubn_norm(xx, gamma, beta, kind=kind))
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_division_and_sqrt_match_float64(cuda):
+    """__fdiv_rn and __fsqrt_rn (K4's rows, K6) equal the float64 division
+    and sqrt rounded once that the plain versions take: 2^28 random pairs,
+    every pair of the edge values, every fp32 sqrt input."""
+    assert ops.fp32_rounding_mismatches(cuda) == [0, 0, 0]
