@@ -22,8 +22,10 @@ prints no result line:
              layer, M 1 to 4096 on both routes, N 4096, 8192 and ragged,
              timed at 4, 16 and 4096 rows with its device time, beside
              the exhaustive check of the fp32 division and sqrt it
-             shares with K6) and by columns ("batch", ResNet-50's
-             largest and smallest BN and a ragged M), K5
+             shares with K6) and by columns ("batch", every BN shape of
+             a ResNet-50 step at batch 32 on both routes, a row each with
+             its device time and F.batch_norm beside, a ragged M and an
+             unaligned view), K5
              flash_attention at train_4k and its tile-skip edge cases
              (offset positions, leading padding, rows without keys,
              k_a = 4, dh = 64, 3 heads per KV head) with the share
@@ -35,7 +37,8 @@ prints no result line:
              a profiler listing of one call's launches, K8
              cq_stochastic, which no path calls, K9 selective_scan at a
              prefill page, a decode step, the train_4k length from zero
-             state and a ragged shape), with
+             state (each with its device time) and ragged shapes across
+             its staged tiles), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
              yardstick); this phase runs without deterministic mode's
@@ -70,8 +73,10 @@ prints no result line:
              32, seed=0) batches (the reference's batch of 128 cut to 32)
              with loss, accuracy, wall time, images/s and kernel launches
              (ubn_norm, which is K4 "batch" here, and quantize > 0 in every
-             step), peak memory and a torch.profiler breakdown of one more
-             step; then step 1 again from the same weights through the
+             step; K4 batch's launches by (M, C), which must be the 52 of
+             RESNET50_BN), peak memory and a torch.profiler breakdown of
+             one more step with K4 batch's device time summed over its 52
+             calls; then step 1 again from the same weights through the
              plain versions, whose loss, 161 parameter leaves and 161
              accumulator leaves must equal the kernel run's bit for bit.
   6. ssm     `make_engine("falcon-mamba-7b", reduced=False, n_layers=4)`:
@@ -83,7 +88,7 @@ prints no result line:
              ubn_norm launches > 0); the same requests through the plain
              versions on the card, which must give the same tokens and
              first-step logits; a torch.profiler breakdown of the decode
-             step.
+             step and of one prefill page, each with K9's device time.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -607,41 +612,46 @@ def kernel_rows() -> None:
                     f"{device_ms(lib):.4f} ms")
 
     # ---- K4 ubn_norm (batch): ResNet-50's BNs at batch 32 flatten NHWC to
-    # (N*H*W, C), from M = 100352 x C = 256 down to M = 1568 x C = 2048.
-    # Bitwise: float64 partial sums per fixed 256-row chunk, added in chunk
-    # order, rounded once (csrc/ubn.cu)
-    log("[kernels] K4 ubn_norm batch (bitwise)")
-    times = {}
-    for m, c in ((100352, 256), (1568, 2048), (12345, 96), (100352, 64)):
+    # (N*H*W, C): every shape of a step (RESNET50_BN), on both routes (a
+    # strip over a cluster, x read once, at four of them; two passes at the
+    # others), N(0, 1) and grid values, ragged shapes on both routes and
+    # an unaligned view.  Bitwise: float64 sums in a fixed order rounded once, and
+    # __fdiv_rn / __fsqrt_rn equal to float64 rounded once (the check
+    # above).  A row per step shape, with its launches in the resnet run
+    log("[kernels] K4 ubn_norm batch (bitwise; every BN shape of a "
+        "ResNet-50 step)")
+    xu = f32(1000 * 96 + 1)[1:].view(1000, 96)     # starts 4 bytes in
+    for (m, c) in list(RESNET50_BN) + [(12345, 96), (30001, 38), (1, 9),
+                                       (1568, 2047)]:
         x = f32(m, c) * 2 + 0.3
         gam, bet = 1.0 + 0.1 * f32(c), 0.1 * f32(c)
-        got = ops.ubn_norm(x, gam, bet, kind="batch")
-        want = ref.ubn_norm(x, gam, bet, kind="batch")
-        assert torch.equal(got, want), f"ubn_norm batch {m}x{c} differs"
-        xg = torch.round(x * 64) / 64            # grid values, as on the path
-        assert torch.equal(ops.ubn_norm(xg, gam, bet, kind="batch"),
-                           ref.ubn_norm(xg, gam, bet, kind="batch")), \
-            f"ubn_norm batch {m}x{c} (grid) differs"
-        times[(m, c)] = time_ms(
-            lambda: ops.ubn_norm(x, gam, bet, kind="batch"))
-        log(f"  {m}x{c}: {times[(m, c)]:.4f} ms (bound "
-            f"{bound_ms(8 * m * c + 8 * c, 8 * m * c, FP32_OPS)[0]:.4f} ms)")
-    m, c = 100352, 256
-    x = f32(m, c) * 2 + 0.3
-    gam, bet = 1.0 + 0.1 * f32(c), 0.1 * f32(c)
-    lib = lambda: F.batch_norm(x, None, None, gam, bet,  # noqa: E731
-                               training=True, eps=2.0 ** -8)
-    record("ubn_norm_batch", "src/repro_torch/csrc/ubn.cu",
-           "src/repro/kernels/ubn.py:110",
-           time_ms(lambda: ops.ubn_norm(x, gam, bet, kind="batch")),
-           time_ms(lambda: ref.ubn_norm(x, gam, bet, kind="batch"), 5),
-           8 * m * c + 8 * c, 8 * m * c, FP32_OPS, time_ms(lib),
-           max_err(ops.ubn_norm(x, gam, bet, kind="batch"),
-                   ref.ubn_norm(x, gam, bet, kind="batch")), "resnet",
-           device_ms=device_ms(
-               lambda: ops.ubn_norm(x, gam, bet, kind="batch")),
-           note=f"library F.batch_norm(training=True), device "
-                f"{device_ms(lib):.4f} ms")
+        for xx in (x, torch.round(x * 64) / 64) + (
+                (xu,) if (m, c) == (1000, 96) else ()):
+            assert torch.equal(ops.ubn_norm(xx, gam, bet, kind="batch"),
+                               ref.ubn_norm(xx, gam, bet, kind="batch")), \
+                f"ubn_norm batch {m}x{c} differs"
+        if (m, c) not in RESNET50_BN:
+            continue
+        call = lambda: ops.ubn_norm(x, gam, bet, kind="batch")  # noqa: E731
+        lib = lambda: F.batch_norm(x, None, None, gam, bet,  # noqa: E731
+                                   training=True, eps=2.0 ** -8)
+        p = ops.ubn_batch_plan(m, c, sms)
+        name = "ubn_norm_batch" if (m, c) == (100352, 256) \
+            else f"ubn_norm_batch_{m}x{c}"
+        record(name, "src/repro_torch/csrc/ubn.cu",
+               "src/repro/kernels/ubn.py:110", time_ms(call),
+               time_ms(lambda: ref.ubn_norm(x, gam, bet, kind="batch"), 3),
+               8 * m * c + 8 * c, 8 * m * c, FP32_OPS, time_ms(lib),
+               max_err(call(), ref.ubn_norm(x, gam, bet, kind="batch")),
+               ("resnet", f"ubn_norm_batch_{m}x{c}"),
+               device_ms=device_ms(call),
+               note=f"{m}x{c}, {p['route']} (cw {p['cw']}, cl {p['cl']}), "
+                    f"{RESNET50_BN[(m, c)]} calls a step; x read twice "
+                    f"would bound it at "
+                    f"{bound_ms(12 * m * c + 8 * c, 0, FP32_OPS)[0]:.4f} ms;"
+                    f" library F.batch_norm(training=True), device "
+                    f"{device_ms(lib):.4f} ms")
+        del x
 
     # ---- K8 cq_stochastic: no path calls it; a ResNet-50 weight leaf's
     # shape (3x3x512 -> 512) and a ragged one, from int32 random bits
@@ -868,7 +878,9 @@ def kernel_rows() -> None:
             ("selective_scan", (1, 16, 8192, 16), True, "ssm"),
             ("selective_scan_decode", (4, 1, 8192, 16), True, "ssm"),
             ("selective_scan_train_4k", (1, 4096, 8192, 16), False, "none"),
-            (None, (2, 37, 1000, 4), True, None)):
+            (None, (2, 37, 1000, 4), True, None),
+            (None, (1, 17, 8192, 16), True, None),
+            (None, (2, 33, 300, 4), False, None)):
         a_, b_, c_, h0 = scan_inputs(*shape)
         h0 = h0 if with_h0 else None
         y, hl = ops.selective_scan(a_, b_, c_, h0)
@@ -879,13 +891,17 @@ def kernel_rows() -> None:
             continue
         nbytes = 4 * (2 * a_.numel() + c_.numel() + y.numel()
                       + (2 if with_h0 else 1) * hl.numel())
+        call = lambda: ops.selective_scan(a_, b_, c_, h0)  # noqa: E731
+        p = ops.sscan_plan(*shape, sms)
         record(name, "src/repro_torch/csrc/selective_scan.cu",
-               "src/repro/kernels/selective_scan.py:60",
-               time_ms(lambda: ops.selective_scan(a_, b_, c_, h0)),
+               "src/repro/kernels/selective_scan.py:60", time_ms(call),
                time_ms(lambda: ref.selective_scan(a_, b_, c_, h0),
                        2 if shape[1] > 16 else 5),
                nbytes, 4 * a_.numel(), FP32_OPS, None,
-               max(max_err(y, yp), max_err(hl, hp)), phase)
+               max(max_err(y, yp), max_err(hl, hp)), phase,
+               device_ms=device_ms(call),
+               note=f"{'x'.join(map(str, shape))}, {p['route']} route "
+                    f"(tile {p['tile']}, stages {p['stages']})")
         del a_, b_, c_, h0, y, hl, yp, hp
 
 
@@ -1042,6 +1058,13 @@ def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
     profile_decode(eng)
     if eng.paged:
         profile_prefill(model, prompts[2])
+    else:       # one 16-token page of a lane from the zero dense slot
+        tok = torch.as_tensor(prompts[2][:16], device="cuda")
+        slots = model.init_slots(1)
+        model.prefill_page(slots, tok)
+        with_profile(lambda: model.prefill_page(slots, tok),
+                     "prefill page (16 tokens, zero slot)",
+                     {"K9 (sscan_*)": "sscan_"})
     for k, v in decode_counts.items():
         launches[f"{k}_decode"] = v
     return launches
@@ -1098,6 +1121,8 @@ def profile_decode(eng, steps: int = 3) -> None:
     groups = {"K4 rows (ubn_rows)": "ubn_rows"}
     if eng.paged:
         groups["K6 (pa_scores, pa_exp, pa_out)"] = "pa_"
+    else:
+        groups["K9 (sscan_*)"] = "sscan_"
     report_profile(prof, wall_us, steps, "decode step", groups)
 
 
@@ -1282,6 +1307,34 @@ def split_train(model, cfg, opt, batch, i: int, tag: str) -> None:
 RESNET_BATCH = 32         # the reference's input_specs batch of 128, cut
 RESNET_STEPS = 3
 RESNET_KERNELS = ("ubn_norm", "quantize")
+# ResNet-50 at batch 32, 224 px: (M, C) of each quantized BN -> K4 "batch"
+# calls a training step (the resnet phase checks it against its own calls)
+RESNET50_BN = {(100352, 64): 6, (100352, 256): 4, (100352, 128): 1,
+               (25088, 128): 7, (25088, 512): 5, (25088, 256): 1,
+               (6272, 256): 11, (6272, 1024): 7, (6272, 512): 1,
+               (1568, 512): 5, (1568, 2048): 4}
+
+
+@contextlib.contextmanager
+def bn_by_shape(counts: dict):
+    """Count K4 "batch" launches by the (M, C) of x into `counts`."""
+    from repro_torch.kernels import ops
+    real = ops.ubn_norm
+
+    def spy(x, *args, kind="rms", **kw):
+        before = ops.LAUNCHES["ubn_norm"]
+        y = real(x, *args, kind=kind, **kw)
+        if kind == "batch":
+            key = tuple(x.shape)
+            counts[key] = counts.get(key, 0) + ops.LAUNCHES["ubn_norm"] \
+                - before
+        return y
+
+    ops.ubn_norm = spy
+    try:
+        yield counts
+    finally:
+        ops.ubn_norm = real
 
 
 def phase_resnet() -> dict:
@@ -1316,15 +1369,25 @@ def phase_resnet() -> dict:
     losses, total = [], dict.fromkeys(ops.LAUNCHES, 0)
     after1 = None
     for i in range(RESNET_STEPS):
+        shapes: dict = {}
         ops.reset_launches()
         t0 = time.time()
-        met = step(opt, batches[i], i)
+        with bn_by_shape(shapes):
+            met = step(opt, batches[i], i)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        for (m, c), k in shapes.items():
+            key = f"ubn_norm_batch_{m}x{c}"
+            total[key] = total.get(key, 0) + k
+        if i == 0:
+            log(f"[resnet] K4 batch launches a step by (M, C): "
+                f"{ {f'{m}x{c}': k for (m, c), k in sorted(shapes.items())} }")
+            assert shapes == RESNET50_BN, "K4 batch shapes of a step differ "\
+                "from RESNET50_BN"
         loss, acc = float(met["loss"]), float(met["acc"])
         losses.append(loss)
         counts = dict(ops.LAUNCHES)
-        for k in total:
+        for k in counts:
             total[k] += counts[k]
         log(f"[resnet] step {i + 1}: loss {loss:.6f}, acc {acc:.4f}, wall "
             f"{wall:.3f} s, {RESNET_BATCH / wall:.1f} images/s; launches "
@@ -1339,7 +1402,8 @@ def phase_resnet() -> dict:
     split_train(model, cfg, opt, batches[RESNET_STEPS], RESNET_STEPS,
                 "resnet")
     with_profile(lambda: step(opt, batches[RESNET_STEPS + 1],
-                              RESNET_STEPS + 1), "resnet50 train step")
+                              RESNET_STEPS + 1), "resnet50 train step",
+                 {"K4 batch (ubn_batch_*, its 52 calls)": "ubn_batch_"})
 
     # step 1 again from the same weights through the plain versions
     with torch.no_grad():

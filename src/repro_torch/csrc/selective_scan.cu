@@ -9,115 +9,240 @@
 // zeros, which is exactly the TPU kernel's function) and returns h_last.
 //
 // Bound: bytes.  a and b are (B, S, D, N) fp32 and read once, c (B, S, N)
-// once, y (B, S, D) written once: 8N + 4 bytes per (t, d) for some 4N
-// flops.  Design: one thread per (b, d) channel holds its N states in
-// registers and walks t in order (the recurrence is sequential in t, and
-// a channel's N states are independent of every other channel's).  A
-// channel's a and b rows are N contiguous floats (64 B at N = 16), so a
-// warp reads 32 consecutive rows, 2 KB contiguous, as float4 loads; c's row
-// is the same for every thread of a batch row (an L1 broadcast).  Step
-// t+1's rows are loaded into registers before step t computes, so one load
-// latency is in flight behind each step's arithmetic.  At B = 1 only D
-// threads run (8192 for falcon-mamba-7b): 64-thread blocks spread them over
-// 128 SMs, and the loop pays about one memory latency per step.  Deeper
-// prefetch (cp.async/TMA), seq-chunk parallelism with a carry pass, and
-// computing a = exp(dt A) and b = dt x B in the kernel so that a and b
-// never reach memory are later work.
+// once, y (B, S, D) written once, h0 read and h_last written once: 8N + 4
+// bytes per (t, d) for some 4N flops.  The recurrence is sequential in t
+// and a channel's N states are independent of every other channel's.
+// Design:
+//   * A channel's N states are split over N / 4 threads, a float4 each
+//     (4 threads at N = 16, one at N = 4), so a prefill page at B = 1
+//     (D = 8192) runs 32768 threads; a 128-thread block takes 128 / (N / 4)
+//     channels of one batch row.
+//   * y_t: each thread forms its four products h[n] * c[n] (exact in
+//     float64); the channel's first thread receives the other threads'
+//     products by warp shuffles and adds all N in n order, one rounding to
+//     fp32 at the end: the plain version's order, bit for bit.
+//   * staged route (S > 1): a, b and c do not depend on h, so a tile of
+//     `tile` steps of the block's channels is copied into shared memory
+//     with cp.async.bulk (one copy per step and operand: a block's channels
+//     of a step are contiguous in (B, S, D, N)), completing on an mbarrier,
+//     in a ring of `stages` tiles, before the recurrence reads it.  A page
+//     of 16 steps is one tile: one memory latency, then arithmetic; a long
+//     S keeps up to `stages` tiles in flight.
+//   * direct route (S <= 1, a decode step): one step is pure bytes; each
+//     thread loads its float4s of a, b, c and h0 and stores h_last.
+// kernels/ops.py sscan_plan picks the route, tile and stages from the
+// shape and the SM count.
 //
 // Numerics (the plain version in kernels/ref.py matches them bit for bit):
 // h = a * h rounded, then + b rounded (explicit __fmul_rn / __fadd_rn, and
 // the build uses -fmad=false); y_t is the float64 sum of the products
-// h[n] * c[n] (each exact in float64) in n order, rounded once to fp32.  No
-// atomics: the result is deterministic.
+// h[n] * c[n] in n order, rounded once to fp32.  No atomics: the result is
+// deterministic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-template <int N>
-struct Row {
-    float4 v[N / 4];
+#include "hopper.cuh"
+
+#define SS_THREADS 128
+#define SS_MAX_STAGES 8
+#define SS_HEAD 64                  // shared bytes for the stages' mbarriers
+#define SS_SMEM (227 * 1024)
+
+struct ScanArgs {
+    const float* a;
+    const float* b;
+    const float* c;
+    const float* h0;
+    float* y;
+    float* h_last;
+    int B, S, D, tile, stages;
 };
 
+// one step of the four states this thread holds, then the channel's y_t on
+// its first thread (the value on the other threads is not used).  Every
+// lane of the warp runs the shuffles.
 template <int N>
-__device__ __forceinline__ void load_row(Row<N>& r, const float* p) {
-    const float4* q = reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ double scan_step(float (&h)[4], const float4& av,
+                                            const float4& bv,
+                                            const float4& cv) {
+    constexpr int G = N / 4;
+    const float a4[4] = {av.x, av.y, av.z, av.w};
+    const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+    const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
+    double p[4];
 #pragma unroll
-    for (int i = 0; i < N / 4; ++i) r.v[i] = __ldg(q + i);
-}
-
-template <int N>
-__device__ __forceinline__ float at(const Row<N>& r, int n) {
-    const float4& f = r.v[n >> 2];
-    switch (n & 3) {
-        case 0: return f.x;
-        case 1: return f.y;
-        case 2: return f.z;
-        default: return f.w;
+    for (int k = 0; k < 4; ++k) {
+        h[k] = __fadd_rn(__fmul_rn(a4[k], h[k]), b4[k]);
+        p[k] = __dmul_rn((double)h[k], (double)c4[k]);
     }
+    double acc = p[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) acc = __dadd_rn(acc, p[k]);
+    if (G > 1) {
+        const int base = (threadIdx.x & 31) & ~(G - 1);
+#pragma unroll
+        for (int j = 1; j < G; ++j)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                acc = __dadd_rn(acc, __shfl_sync(0xffffffffu, p[k],
+                                                 base + j));
+    }
+    return acc;
 }
 
+__device__ __forceinline__ void load_h(float (&h)[4], const float* h0,
+                                       long long at, bool live) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live && h0) v = __ldg(reinterpret_cast<const float4*>(h0 + at));
+    h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
+}
+
+// grid (ceil(D / CH), B); thread (channel d, quarter g) holds states
+// 4g .. 4g + 3 of (b, d)
 template <int N>
-__global__ void __launch_bounds__(64)
-sscan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ c, const float* __restrict__ h0,
-             float* __restrict__ y, float* __restrict__ h_last, int S, int D) {
-    const int d = blockIdx.x * blockDim.x + threadIdx.x;
-    if (d >= D) return;
+__global__ void __launch_bounds__(SS_THREADS) sscan_direct(ScanArgs s) {
+    constexpr int G = N / 4, CH = SS_THREADS / G;
+    const int g = threadIdx.x % G;
+    const int d = blockIdx.x * CH + threadIdx.x / G;
     const long long bi = blockIdx.y;
-    const long long chan = bi * D + d;              // (b, d) state row
-    float h[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = h0 ? h0[chan * N + n] : 0.f;
-
-    const long long tstride = (long long)D * N;     // floats per time step
-    const float* ap = a + (bi * S * D + d) * N;
-    const float* bp = b + (bi * S * D + d) * N;
-    const float* cp = c + bi * S * N;
-    float* yp = y + bi * S * D + d;
-
-    Row<N> an, bn, cn;
-    if (S > 0) {
-        load_row<N>(an, ap);
-        load_row<N>(bn, bp);
-        load_row<N>(cn, cp);
-    }
-    for (int t = 0; t < S; ++t) {
-        const Row<N> ac = an, bc = bn, cc = cn;
-        if (t + 1 < S) {                            // prefetch step t+1
-            load_row<N>(an, ap + (t + 1) * tstride);
-            load_row<N>(bn, bp + (t + 1) * tstride);
-            load_row<N>(cn, cp + (long long)(t + 1) * N);
+    const bool live = d < s.D;
+    const long long hat = (bi * s.D + d) * N + 4 * g;
+    float h[4];
+    load_h(h, s.h0, hat, live);
+    for (int t = 0; t < s.S; ++t) {
+        const long long bt = bi * s.S + t;
+        float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av, cv = av;
+        if (live) {
+            const long long at = (bt * s.D + d) * N + 4 * g;
+            av = __ldcs(reinterpret_cast<const float4*>(s.a + at));
+            bv = __ldcs(reinterpret_cast<const float4*>(s.b + at));
+            cv = __ldg(reinterpret_cast<const float4*>(s.c + bt * N + 4 * g));
         }
-        double acc = 0.0;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-            h[n] = __fadd_rn(__fmul_rn(at<N>(ac, n), h[n]), at<N>(bc, n));
-            const double p = __dmul_rn((double)h[n], (double)at<N>(cc, n));
-            acc = n == 0 ? p : __dadd_rn(acc, p);
-        }
-        yp[(long long)t * D] = (float)acc;
+        const double acc = scan_step<N>(h, av, bv, cv);
+        if (live && g == 0) s.y[bt * s.D + d] = (float)acc;
     }
-#pragma unroll
-    for (int n = 0; n < N; ++n) h_last[chan * N + n] = h[n];
+    if (live)
+        *reinterpret_cast<float4*>(s.h_last + hat) =
+            make_float4(h[0], h[1], h[2], h[3]);
+}
+
+// one stage of the ring: a [tile][CH][N], b [tile][CH][N], c [tile][N]
+template <int N>
+__device__ __forceinline__ float* stage_base(unsigned char* sm, int tile,
+                                             int q) {
+    constexpr int CH = SS_THREADS / (N / 4);
+    return reinterpret_cast<float*>(
+        sm + SS_HEAD + (size_t)q * tile * (2 * CH * N + N) * 4);
+}
+
+// thread 0: tile k of the block's channels [d0, d0 + nd) into its stage
+template <int N>
+__device__ __forceinline__ void issue_tile(const ScanArgs& s,
+                                           unsigned char* sm, uint64_t* bar,
+                                           long long bi, int d0, int nd,
+                                           int k) {
+    constexpr int CH = SS_THREADS / (N / 4);
+    const int q = k % s.stages, t0 = k * s.tile;
+    const int nt = min(s.tile, s.S - t0);
+    float* as = stage_base<N>(sm, s.tile, q);
+    float* bs = as + s.tile * CH * N;
+    float* cs = bs + s.tile * CH * N;
+    const uint32_t row = (uint32_t)nd * N * 4;
+    mbar_expect_tx(&bar[q], (uint32_t)nt * (2 * row + N * 4));
+    for (int u = 0; u < nt; ++u) {
+        const long long off = ((bi * s.S + t0 + u) * s.D + d0) * N;
+        bulk_g2s(as + u * CH * N, s.a + off, row, &bar[q]);
+        bulk_g2s(bs + u * CH * N, s.b + off, row, &bar[q]);
+    }
+    bulk_g2s(cs, s.c + (bi * s.S + t0) * N, (uint32_t)nt * N * 4, &bar[q]);
 }
 
 template <int N>
-static void launch(const float* a, const float* b, const float* c,
-                   const float* h0, float* y, float* h_last, int B, int S,
-                   int D, cudaStream_t stream) {
-    const dim3 grid((D + 63) / 64, B);
-    sscan_kernel<N><<<grid, 64, 0, stream>>>(a, b, c, h0, y, h_last, S, D);
+__global__ void __launch_bounds__(SS_THREADS) sscan_staged(ScanArgs s) {
+    constexpr int G = N / 4, CH = SS_THREADS / G;
+    extern __shared__ __align__(128) unsigned char sm[];
+    uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
+    const int g = threadIdx.x % G, ch = threadIdx.x / G;
+    const int d0 = blockIdx.x * CH, d = d0 + ch;
+    const int nd = min(CH, s.D - d0);
+    const long long bi = blockIdx.y;
+    const bool live = d < s.D;
+    const int tiles = (s.S + s.tile - 1) / s.tile;
+    if (threadIdx.x == 0) {
+        for (int q = 0; q < s.stages; ++q) mbar_init(&bar[q], 1);
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+        for (int k = 0; k < min(s.stages, tiles); ++k)
+            issue_tile<N>(s, sm, bar, bi, d0, nd, k);
+    const long long hat = (bi * s.D + d) * N + 4 * g;
+    float h[4];
+    load_h(h, s.h0, hat, live);
+    for (int k = 0; k < tiles; ++k) {
+        const int q = k % s.stages, t0 = k * s.tile;
+        const int nt = min(s.tile, s.S - t0);
+        mbar_wait(&bar[q], (uint32_t)(k / s.stages) & 1);
+        const float* as = stage_base<N>(sm, s.tile, q);
+        const float* bs = as + s.tile * CH * N;
+        const float* cs = bs + s.tile * CH * N;
+        for (int u = 0; u < nt; ++u) {
+            const int e = (u * CH + ch) * N + 4 * g;
+            const double acc = scan_step<N>(
+                h, *reinterpret_cast<const float4*>(as + e),
+                *reinterpret_cast<const float4*>(bs + e),
+                *reinterpret_cast<const float4*>(cs + u * N + 4 * g));
+            if (live && g == 0)
+                s.y[(bi * s.S + t0 + u) * s.D + d] = (float)acc;
+        }
+        __syncthreads();                        // stage q read by all
+        if (threadIdx.x == 0 && k + s.stages < tiles)
+            issue_tile<N>(s, sm, bar, bi, d0, nd, k + s.stages);
+    }
+    if (live)
+        *reinterpret_cast<float4*>(s.h_last + hat) =
+            make_float4(h[0], h[1], h[2], h[3]);
+}
+
+template <int N>
+static cudaError_t launch(const ScanArgs& s, int route, cudaStream_t st) {
+    constexpr int CH = SS_THREADS / (N / 4);
+    const dim3 grid((s.D + CH - 1) / CH, s.B);
+    if (route == 0) {
+        sscan_direct<N><<<grid, SS_THREADS, 0, st>>>(s);
+        return cudaGetLastError();
+    }
+    static bool sized = false;          // once per instantiation
+    if (!sized) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sscan_staged<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            SS_SMEM);
+        if (e != cudaSuccess) return e;
+        sized = true;
+    }
+    const size_t smem = SS_HEAD + (size_t)s.stages * s.tile
+                        * (2 * CH * N + N) * 4;
+    sscan_staged<N><<<grid, SS_THREADS, smem, st>>>(s);
+    return cudaGetLastError();
 }
 
 // a, b (B, S, D, N), c (B, S, N), h0 (B, D, N) or null, y (B, S, D),
-// h_last (B, D, N); all fp32, contiguous, 16-byte aligned.  N is 4 or 16.
+// h_last (B, D, N); all fp32, contiguous; a, b, c, h0 and h_last 16-byte
+// aligned.  N is 4 or 16.  route 0 direct, 1 staged (tile steps a stage,
+// `stages` stages).
 extern "C" int sscan_launch(const float* a, const float* b, const float* c,
                             const float* h0, float* y, float* h_last, int B,
-                            int S, int D, int N, cudaStream_t stream) {
-    if (B <= 0 || D <= 0 || S < 0 || B > 65535) return (int)cudaErrorInvalidValue;
-    switch (N) {
-        case 4: launch<4>(a, b, c, h0, y, h_last, B, S, D, stream); break;
-        case 16: launch<16>(a, b, c, h0, y, h_last, B, S, D, stream); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+                            int S, int D, int N, int route, int tile,
+                            int stages, cudaStream_t stream) {
+    if (B <= 0 || D <= 0 || S < 0 || B > 65535 || (N != 4 && N != 16))
+        return (int)cudaErrorInvalidValue;
+    if (route == 1 && (tile <= 0 || stages <= 0 || stages > SS_MAX_STAGES
+                       || SS_HEAD + (long long)stages * tile
+                          * (2 * SS_THREADS * 4 + N) * 4 > SS_SMEM))
+        return (int)cudaErrorInvalidValue;
+    if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
+    ScanArgs s{a, b, c, h0, y, h_last, B, S, D, tile, stages};
+    const cudaError_t e = N == 4 ? launch<4>(s, route, stream)
+                                 : launch<16>(s, route, stream);
+    return (int)e;
 }

@@ -45,8 +45,8 @@ __device__ __forceinline__ float qd(float x, float s) {  // Q(x, k), s = 2^(k-1)
     return rintf(x * s) / s;
 }
 
-// correctly rounded fp32 a / b and sqrt(a), through float64 (the K4 batch
-// kernels and fp32_check's reference)
+// correctly rounded fp32 a / b and sqrt(a), through float64 (fp32_check's
+// reference for __fdiv_rn and __fsqrt_rn)
 __device__ __forceinline__ float div32(float a, float b) {
     return (float)((double)a / (double)b);
 }
@@ -286,124 +286,478 @@ extern "C" int fp32_check_launch(long long pairs, const void* edge,
 
 // ---------------------------------------------------------------------------
 // Kind "batch": x (M, C), M = N*H*W of an NHWC activation, statistics per
-// column over all M rows (M runs from 1,568 to 100,352 on ResNet-50 at
-// batch 32).  The TPU kernel holds a whole column in one VMEM block; no
-// Hopper block holds 100 k rows, so the reduction runs in two phases and
-// the normalize in a third launch:
+// column over all M rows (ResNet-50 at batch 32: M from 1,568 to 100,352,
+// C from 64 to 2,048).  The TPU kernel holds a whole column in one VMEM
+// block.  Here a block takes a group of `cw` columns and a run of rows.  C
+// is the fast axis of NHWC, so a row's cw columns are one 64-byte (cw 16)
+// or 128-byte (cw 32) segment, read as float4 (VEC 4: C % 4 == 0 and x
+// 16-byte aligned) or as floats.
 //
-//   A  grid (column tiles of 32, chunks of `chunk` rows).  A warp reads
-//      32 consecutive channels of one row (coalesced: C is the fast axis
-//      of NHWC); 8 warps stride the chunk's rows; each block writes the
-//      float64 partial sums of x and x*x of its chunk into a workspace, in
-//      a fixed order.  The chunk is a constant of the wrapper (UBN_CHUNK in
-//      kernels/ops.py), so the sums' order depends on M alone, never on the
-//      SM count; no atomics (a float64 atomic sum is order-dependent).
-//   B  one thread per column adds the partials in chunk order, rounds once
-//      to fp32 and forms mean, mean square, var = msq - mu^2 (fp32), sigma
-//      (sqrt through float64), and the quantized mu_q, sigma_q + eps,
-//      gamma_q and beta_q, exactly as the row kernel above and
-//      kernels/ref.py::ubn_norm do.
-//   C  elementwise normalize and quantize over (M, C), the division in
-//      float64 rounded once.
+// Bound: bytes, 8 per element (x read once, y written once).  Two routes,
+// which kernels/ops.py ubn_batch_plan picks from (M, C) and the SM count:
 //
-// Bound: bytes.  x is read twice (A and C) and y written once: 12 bytes per
-// element.  The float64 sums are exact for grid-valued inputs of the
-// path's magnitudes, and otherwise agree with the plain version's float64
-// sum (another order) once rounded to fp32, unless the sum lands within
-// its own rounding error of an fp32 tie.
-#define UBN_COLS 32
-#define UBN_WARPS 8
+//   strip     (M 1,568 and 6,272 on the path) a strip of 16 columns over
+//             all M rows fits in the shared memory of a thread-block
+//             cluster of `cl` blocks (1, 2 or 4) and the strips fill the
+//             card: each block copies its M / cl rows in with cp.async (in
+//             four groups, each summed as soon as it lands), writes its
+//             partials into every block of the cluster (distributed shared
+//             memory), and after one cluster barrier every block forms the
+//             same statistics and normalizes its rows from shared memory.
+//             One launch; x is read once.
+//   two-pass  (M 25,088 and 100,352) ubn_batch_part: a block sums a chunk
+//             of rows of a 32-column group, 4 rows in flight a thread; the
+//             last block of the group to arrive (a counter per group, which
+//             that block resets, so the next call needs no memset) adds the
+//             group's partials and writes the statistics.  ubn_batch_norm:
+//             a 2-D grid (column group x span of rows), the group's
+//             statistics in registers, walks the spans in the reverse of
+//             the partial pass's order, so the rows read last, still in L2,
+//             are read again first.  x is read twice less what L2 keeps: 12
+//             bytes an element at most.
+//
+// The sums are float64 (each x*x is exact there) in an order the plan
+// fixes: within a thread in row order, over a warp's row lanes by a shuffle
+// tree, over the warps in order, then over the cluster's blocks in rank
+// order (strip), or over the chunks in eight runs of consecutive chunks,
+// each added in order, the eight in order (two-pass, whose chunks follow
+// from M alone).  No float64 atomics.  Rounded once to fp32 the sums agree
+// with the plain version's float64 sum (another order) unless a sum lands
+// within its own rounding error of an fp32 tie.  Division and sqrt are
+// __fdiv_rn and __fsqrt_rn, equal to the plain version's float64 operations
+// rounded once (fp32_check above).
+#define UBN_BT 256                 // threads of a batch block
+#define UBN_BW (UBN_BT / 32)       // its warps
+#define UBN_MAXCW 32               // columns of a group at most
+#define UBN_MAXCL 4                // blocks of a strip's cluster at most
+#define UBN_FOLD 8                 // runs of chunks the last block adds
+#define UBN_FOLD_RUN 16            // chunks of a run at most (chunks <= 128)
+#define UBN_FOLD_LOADS 8           // of which loaded together
+#define UBN_SPAN_MAX 65535         // spans of the two-pass normalize
+#define UBN_LOADS 4                // cp.async groups of a strip block
+// shared memory of a strip block before its tile: the warps' and the
+// cluster's float64 partials, then the column statistics
+#define UBN_STRIP_HEAD ((UBN_BW + UBN_MAXCL) * UBN_MAXCW * 16 + UBN_MAXCW * 16)
+#define UBN_STRIP_SMEM (227 * 1024)
 
-__global__ void ubn_batch_partial(const float* __restrict__ x,
-                                  double* __restrict__ part, int m, int n,
-                                  int chunk) {
-    __shared__ double acc[2][UBN_WARPS][UBN_COLS];
-    const int c = blockIdx.x * UBN_COLS + threadIdx.x;
-    const long long r0 = (long long)blockIdx.y * chunk;
-    const long long r1 = min(r0 + chunk, (long long)m);
-    double s = 0.0, ss = 0.0;
-    if (c < n) {
-        for (long long r = r0 + threadIdx.y; r < r1; r += UBN_WARPS) {
-            const double v = x[r * n + c];
-            s += v;
-            ss += v * v;
+struct BatchArgs {
+    const float* x;
+    const float* gamma;
+    const float* beta;
+    float* out;
+    double* part;        // two-pass: (chunks, 2, C) float64 partials
+    float* stats;        // two-pass: (4, C) mu_q, sigma_q + eps, gamma_q, beta_q
+    int* count;          // two-pass: arrivals per column group (left at 0)
+    long long m;
+    long long rows;      // strip: rows a block holds; two-pass: a chunk's
+    long long span;      // two-pass normalize: rows a block
+    int n, cw, cl, chunks;
+    float s_mu, s_sigma, s_bn, s_gamma, s_beta, eps;
+    float inv_bn;        // 1 / s_bn, exact (a power of two)
+};
+
+struct Stat { float mu_q, den, g, b; };
+
+__device__ __forceinline__ Stat col_stat(const BatchArgs& a, int c,
+                                         double ts, double tss) {
+    const float mf = (float)a.m;
+    const float mean_sq = __fdiv_rn((float)tss, mf);
+    const float mu = __fdiv_rn((float)ts, mf);
+    const float var = __fsub_rn(mean_sq, __fmul_rn(mu, mu));
+    Stat r;
+    r.mu_q = qd(mu, a.s_mu);
+    r.den = __fadd_rn(qd(__fsqrt_rn(fmaxf(var, 0.f)), a.s_sigma), a.eps);
+    r.g = qd(a.gamma[c], a.s_gamma);
+    r.b = qd(a.beta[c], a.s_beta);
+    return r;
+}
+
+// the normalize of one element; Q(., k_BN) multiplies by the exact inverse
+// of its power-of-two step instead of dividing (the same correctly rounded
+// value: rint(.) * 2^-(k-1) is exact)
+__device__ __forceinline__ float norm1(float x, const Stat& t,
+                                       const BatchArgs& a) {
+    const float q = __fdiv_rn(__fsub_rn(x, t.mu_q), t.den);
+    const float xh = __fmul_rn(rintf(__fmul_rn(q, a.s_bn)), a.inv_bn);
+    return __fadd_rn(__fmul_rn(t.g, xh), t.b);
+}
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T ldx(const float* p) {
+    return __ldg(reinterpret_cast<const typename Vec<VEC>::T*>(p));
+}
+
+// wait until at most k of this thread's cp.async groups are pending
+__device__ __forceinline__ void cp_async_wait(int k) {
+    switch (k) {
+        case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+        case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+        case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+        default: asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+    }
+}
+
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    if (VEC == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(d), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(d), "l"(src) : "memory");
+}
+
+// a thread's place in a block over a column group of cw columns: tpr
+// threads a row (VEC columns each), rpi rows an iteration; column lane j,
+// row lane i0
+struct Lanes {
+    int tpr, rpi, j, i0, col;
+    __device__ Lanes(int cw, int vec) {
+        tpr = cw / vec;
+        rpi = UBN_BT / tpr;
+        j = threadIdx.x % tpr;
+        i0 = threadIdx.x / tpr;
+        col = j * vec;
+    }
+};
+
+template <int VEC>
+__device__ __forceinline__ void add_row(double (&s)[VEC], double (&ss)[VEC],
+                                        const typename Vec<VEC>::T& v) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+        const double d = Vec<VEC>::get(v, k);
+        s[k] = __dadd_rn(s[k], d);
+        ss[k] = __fma_rn(d, d, ss[k]);       // d*d is exact: one rounding
+    }
+}
+
+// the block's float64 sums per column of the group from each thread's
+// partials: a shuffle tree over the warp's row lanes, then the warps in
+// order.  Thread t < cw gets column t's sums in (ts, tss).
+template <int VEC>
+__device__ __forceinline__ void block_sums(double (&s)[VEC],
+                                           double (&ss)[VEC], int tpr,
+                                           int cw,
+                                           double (*red)[UBN_MAXCW][2],
+                                           double& ts, double& tss) {
+    for (int o = tpr; o < 32; o <<= 1) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+            s[k] = __dadd_rn(s[k], __shfl_xor_sync(0xffffffffu, s[k], o));
+            ss[k] = __dadd_rn(ss[k], __shfl_xor_sync(0xffffffffu, ss[k], o));
         }
     }
-    acc[0][threadIdx.y][threadIdx.x] = s;
-    acc[1][threadIdx.y][threadIdx.x] = ss;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    if (lane < tpr) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+            red[w][lane * VEC + k][0] = s[k];
+            red[w][lane * VEC + k][1] = ss[k];
+        }
+    }
     __syncthreads();
-    if (threadIdx.y == 0 && c < n) {
-        double ts = 0.0, tss = 0.0;
-        for (int w = 0; w < UBN_WARPS; ++w) {
-            ts += acc[0][w][threadIdx.x];
-            tss += acc[1][w][threadIdx.x];
+    ts = 0.0;
+    tss = 0.0;
+    if ((int)threadIdx.x < cw) {
+        for (int q = 0; q < UBN_BW; ++q) {
+            ts = __dadd_rn(ts, red[q][threadIdx.x][0]);
+            tss = __dadd_rn(tss, red[q][threadIdx.x][1]);
         }
-        double* p = part + (long long)blockIdx.y * 2 * n;
-        p[c] = ts;
-        p[n + c] = tss;
     }
 }
 
-// stats rows: mu_q, sigma_q + eps, gamma_q, beta_q
-__global__ void ubn_batch_stats(const double* __restrict__ part,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta,
-                                float* __restrict__ stats, int m, int n,
-                                int chunks, float s_mu, float s_sigma,
-                                float s_gamma, float s_beta, float eps) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= n) return;
-    double ts = 0.0, tss = 0.0;
-    for (int k = 0; k < chunks; ++k) {
-        ts += part[(long long)k * 2 * n + c];
-        tss += part[(long long)k * 2 * n + n + c];
+// strip route: grid (strips * cl) in clusters of cl; block rank r of strip
+// s holds rows [r * rows, (r + 1) * rows) of columns [s * cw, s * cw + cw)
+template <int VEC>
+__global__ void __launch_bounds__(UBN_BT) ubn_batch_strip(BatchArgs a) {
+    using T = typename Vec<VEC>::T;
+    extern __shared__ __align__(16) unsigned char sm[];
+    auto red = reinterpret_cast<double (*)[UBN_MAXCW][2]>(sm);
+    auto slot = reinterpret_cast<double (*)[UBN_MAXCW][2]>(
+        sm + UBN_BW * UBN_MAXCW * 16);
+    Stat* st = reinterpret_cast<Stat*>(sm + (UBN_BW + UBN_MAXCL)
+                                       * UBN_MAXCW * 16);
+    float* tile = reinterpret_cast<float*>(sm + UBN_STRIP_HEAD);
+    const int rank = blockIdx.x % a.cl, strip = blockIdx.x / a.cl;
+    if (a.cl > 1)   // every block of the cluster runs before any writes to it
+        asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+    const int c0 = strip * a.cw, cw = min(a.cw, a.n - c0);
+    const long long r0 = (long long)rank * a.rows;
+    const int nr = (int)max(0LL, min(a.m - r0, a.rows));
+    const Lanes L(a.cw, VEC);
+    const bool live = L.col < cw;
+    // the rows in UBN_LOADS groups of whole iterations: all copies are
+    // issued at once, and each group is summed as soon as it has landed
+    // (a thread's rows still in row order)
+    const float* xs = a.x + r0 * a.n + c0 + L.col;
+    const int per = (nr + L.rpi * UBN_LOADS - 1) / (L.rpi * UBN_LOADS)
+                    * L.rpi;
+#pragma unroll
+    for (int q = 0; q < UBN_LOADS; ++q) {
+        if (live)
+            for (int r = q * per + L.i0; r < min(nr, (q + 1) * per);
+                 r += L.rpi)
+                cp_async<VEC>(tile + r * a.cw + L.col,
+                              xs + (long long)r * a.n);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    const float mf = (float)m;
-    const float mean_sq = div32((float)tss, mf);
-    const float mu = div32((float)ts, mf);
-    const float var = mean_sq - mu * mu;
-    stats[c] = qd(mu, s_mu);
-    stats[n + c] = qd(sqrt32(fmaxf(var, 0.f)), s_sigma) + eps;
-    stats[2 * n + c] = qd(gamma[c], s_gamma);
-    stats[3 * n + c] = qd(beta[c], s_beta);
+    double s[VEC], ss[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) { s[k] = 0.0; ss[k] = 0.0; }
+#pragma unroll
+    for (int q = 0; q < UBN_LOADS; ++q) {
+        cp_async_wait(UBN_LOADS - 1 - q);          // own group q landed
+        if (live)
+            for (int r = q * per + L.i0; r < min(nr, (q + 1) * per);
+                 r += L.rpi)
+                add_row<VEC>(s, ss, *reinterpret_cast<const T*>(
+                    tile + r * a.cw + L.col));
+    }
+    double ts, tss;
+    block_sums<VEC>(s, ss, L.tpr, cw, red, ts, tss);
+    const int t = threadIdx.x;
+    if (a.cl > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+        if (t < cw)
+            for (int q = 0; q < a.cl; ++q) {
+                double* dst = cluster.map_shared_rank(&slot[0][0][0], q);
+                dst[(rank * UBN_MAXCW + t) * 2] = ts;
+                dst[(rank * UBN_MAXCW + t) * 2 + 1] = tss;
+            }
+        cluster.sync();          // every slot written; no later remote access
+    } else if (t < cw) {
+        slot[0][t][0] = ts;
+        slot[0][t][1] = tss;
+    }
+    if (t < cw) {
+        double us = 0.0, uss = 0.0;
+        for (int q = 0; q < a.cl; ++q) {
+            us = __dadd_rn(us, slot[q][t][0]);
+            uss = __dadd_rn(uss, slot[q][t][1]);
+        }
+        st[t] = col_stat(a, c0 + t, us, uss);
+    }
+    __syncthreads();
+    if (!live) return;
+    Stat sv[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) sv[k] = st[L.col + k];
+    float* ys = a.out + r0 * a.n + c0 + L.col;
+    for (int r = L.i0; r < nr; r += L.rpi) {
+        const T v = *reinterpret_cast<const T*>(tile + r * a.cw + L.col);
+        T y;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+            Vec<VEC>::set(y, k, norm1(Vec<VEC>::get(v, k), sv[k], a));
+        *reinterpret_cast<T*>(ys + (long long)r * a.n) = y;
+    }
 }
 
-__global__ void ubn_batch_apply(const float* __restrict__ x,
-                                const float* __restrict__ stats,
-                                float* __restrict__ out, long long total,
-                                int n, float s_bn) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const int c = (int)(i % n);
-        const float xh = qd(div32(x[i] - stats[c], stats[n + c]), s_bn);
-        out[i] = stats[2 * n + c] * xh + stats[3 * n + c];
+// two-pass route, pass 1: grid (column groups, chunks)
+template <int VEC>
+__global__ void __launch_bounds__(UBN_BT, 4) ubn_batch_part(BatchArgs a) {
+    using T = typename Vec<VEC>::T;
+    __shared__ double red[UBN_BW][UBN_MAXCW][2];
+    __shared__ int last;
+    const int grp = blockIdx.x, chunk = blockIdx.y;
+    const int c0 = grp * a.cw, cw = min(a.cw, a.n - c0);
+    const long long r0 = (long long)chunk * a.rows;
+    const int nr = (int)min(a.m - r0, a.rows);
+    const Lanes L(a.cw, VEC);
+    double s[VEC], ss[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) { s[k] = 0.0; ss[k] = 0.0; }
+    if (L.col < cw) {
+        const long long step = (long long)L.rpi * a.n;
+        const float* xp = a.x + (r0 + L.i0) * a.n + c0 + L.col;
+        int r = L.i0;
+        for (; r + 3 * L.rpi < nr; r += 4 * L.rpi, xp += 4 * step) {
+            T v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) v[u] = ldx<VEC>(xp + u * step);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) add_row<VEC>(s, ss, v[u]);
+        }
+        for (; r < nr; r += L.rpi, xp += step)
+            add_row<VEC>(s, ss, ldx<VEC>(xp));
+    }
+    double ts, tss;
+    block_sums<VEC>(s, ss, L.tpr, cw, red, ts, tss);
+    const int t = threadIdx.x;
+    if (t < cw) {
+        double* p = a.part + (long long)chunk * 2 * a.n + c0 + t;
+        p[0] = ts;
+        p[a.n] = tss;
+    }
+    __threadfence();
+    __syncthreads();
+    if (t == 0) last = atomicAdd(a.count + grp, 1) == a.chunks - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // the group's statistics: thread (column fc, run q) adds the q-th run of
+    // consecutive chunks in order, UBN_FOLD_LOADS loads issued together;
+    // then the eight runs in order
+    const int fc = t % UBN_MAXCW, q = t / UBN_MAXCW;
+    const int per = (a.chunks + UBN_FOLD - 1) / UBN_FOLD;
+    const int k0 = q * per, k1 = min(a.chunks, k0 + per);
+    double us = 0.0, uss = 0.0;
+    if (fc < cw) {
+        const double* p = a.part + c0 + fc;
+        for (int kb = k0; kb < k1; kb += UBN_FOLD_LOADS) {
+            double v0[UBN_FOLD_LOADS], v1[UBN_FOLD_LOADS];
+#pragma unroll
+            for (int u = 0; u < UBN_FOLD_LOADS; ++u)
+                if (kb + u < k1) {
+                    v0[u] = __ldcg(p + (long long)(kb + u) * 2 * a.n);
+                    v1[u] = __ldcg(p + (long long)(kb + u) * 2 * a.n + a.n);
+                }
+#pragma unroll
+            for (int u = 0; u < UBN_FOLD_LOADS; ++u)
+                if (kb + u < k1) {
+                    us = __dadd_rn(us, v0[u]);
+                    uss = __dadd_rn(uss, v1[u]);
+                }
+        }
+    }
+    red[q][fc][0] = us;          // block_sums' last reads of red are done
+    red[q][fc][1] = uss;         // (two barriers since)
+    __syncthreads();
+    if (t < cw) {
+        double gs = 0.0, gss = 0.0;
+        for (int k = 0; k < UBN_FOLD; ++k) {
+            gs = __dadd_rn(gs, red[k][t][0]);
+            gss = __dadd_rn(gss, red[k][t][1]);
+        }
+        const Stat r = col_stat(a, c0 + t, gs, gss);
+        float* st = a.stats + c0 + t;
+        st[0] = r.mu_q;
+        st[a.n] = r.den;
+        st[2 * a.n] = r.g;
+        st[3 * a.n] = r.b;
+    }
+    if (t == 0) a.count[grp] = 0;
+}
+
+// two-pass route, pass 2: grid (column groups, spans); block y takes span
+// spans - 1 - y and walks its rows from the last
+template <int VEC>
+__global__ void __launch_bounds__(UBN_BT, 4) ubn_batch_norm(BatchArgs a) {
+    using T = typename Vec<VEC>::T;
+    const int grp = blockIdx.x;
+    const long long sp = (long long)gridDim.y - 1 - blockIdx.y;
+    const int c0 = grp * a.cw, cw = min(a.cw, a.n - c0);
+    const Lanes L(a.cw, VEC);
+    if (L.col >= cw) return;
+    Stat sv[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+        const float* st = a.stats + c0 + L.col + k;
+        sv[k] = Stat{st[0], st[a.n], st[2 * a.n], st[3 * a.n]};
+    }
+    const long long r0 = sp * a.span;
+    const int nr = (int)min(a.m - r0, a.span);
+    const long long step = (long long)L.rpi * a.n;
+    int r = nr - 1 - L.i0;
+    const long long at = (r0 + r) * a.n + c0 + L.col;
+    const float* xp = a.x + at;
+    float* yp = a.out + at;
+    for (; r - 3 * L.rpi >= 0; r -= 4 * L.rpi, xp -= 4 * step,
+                               yp -= 4 * step) {
+        T v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = ldx<VEC>(xp - u * step);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            T y;
+#pragma unroll
+            for (int k = 0; k < VEC; ++k)
+                Vec<VEC>::set(y, k, norm1(Vec<VEC>::get(v[u], k), sv[k], a));
+            __stcs(reinterpret_cast<T*>(yp - u * step), y);
+        }
+    }
+    for (; r >= 0; r -= L.rpi, xp -= step, yp -= step) {
+        const T v = ldx<VEC>(xp);
+        T y;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+            Vec<VEC>::set(y, k, norm1(Vec<VEC>::get(v, k), sv[k], a));
+        __stcs(reinterpret_cast<T*>(yp), y);
     }
 }
 
+template <int VEC>
+static cudaError_t batch_route(const BatchArgs& a, int route,
+                               cudaStream_t st) {
+    const int groups = (a.n + a.cw - 1) / a.cw;
+    if (route == 0) {
+        static bool sized = false;     // once per instantiation
+        if (!sized) {
+            cudaError_t e = cudaFuncSetAttribute(
+                ubn_batch_strip<VEC>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, UBN_STRIP_SMEM);
+            if (e != cudaSuccess) return e;
+            sized = true;
+        }
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3((unsigned)(groups * a.cl));
+        cfg.blockDim = dim3(UBN_BT);
+        cfg.dynamicSmemBytes = UBN_STRIP_HEAD + (size_t)a.rows * a.cw * 4;
+        cfg.stream = st;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = a.cl;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = a.cl > 1 ? 1 : 0;
+        return cudaLaunchKernelEx(&cfg, ubn_batch_strip<VEC>, a);
+    }
+    ubn_batch_part<VEC><<<dim3(groups, a.chunks), UBN_BT, 0, st>>>(a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const long long spans = (a.m + a.span - 1) / a.span;
+    ubn_batch_norm<VEC><<<dim3(groups, (unsigned)spans), UBN_BT, 0, st>>>(a);
+    return cudaGetLastError();
+}
+
+// route 0 strip (cw, cl, rows), 1 two-pass (cw, rows = chunk rows, chunks,
+// span; work = chunks * 2 * n doubles then 4 * n floats; count: one int per
+// column group, all 0, left at 0).  vec 4 needs n % 4 == 0 and x and out
+// 16-byte aligned (kernels/ops.py ubn_batch_plan and ubn_norm).
 extern "C" int ubn_batch_launch(const void* x, const void* gamma,
-                                const void* beta, void* out, void* part,
-                                void* stats, int m, int n, int chunk,
-                                float s_mu,
+                                const void* beta, void* out, void* work,
+                                void* count, long long m, int n, int route,
+                                int vec, int cw, int cl, long long rows,
+                                int chunks, long long span, float s_mu,
                                 float s_sigma, float s_bn, float s_gamma,
                                 float s_beta, float eps, void* stream) {
-    if (m <= 0 || n <= 0 || chunk <= 0) return 0;
+    if (m <= 0 || n <= 0) return 0;
+    const bool ok = (cw == 16 || cw == 32) && (vec == 1 || vec == 4)
+        && (route == 0
+            ? ((cl == 1 || cl == 2 || cl == 4) && rows * cl >= m
+               && UBN_STRIP_HEAD + rows * cw * 4 <= UBN_STRIP_SMEM)
+            : (route == 1 && chunks > 0 && chunks <= UBN_FOLD * UBN_FOLD_RUN
+               && rows * chunks >= m && span > 0
+               && (m + span - 1) / span <= UBN_SPAN_MAX));
+    if (!ok) return (int)cudaErrorInvalidValue;
+    BatchArgs a;
+    a.x = (const float*)x; a.gamma = (const float*)gamma;
+    a.beta = (const float*)beta; a.out = (float*)out;
+    a.part = (double*)work;
+    a.stats = route == 1 ? (float*)(a.part + (long long)chunks * 2 * n)
+                         : nullptr;
+    a.count = (int*)count;
+    a.m = m; a.rows = rows; a.span = span;
+    a.n = n; a.cw = cw; a.cl = route == 0 ? cl : 1; a.chunks = chunks;
+    a.s_mu = s_mu; a.s_sigma = s_sigma; a.s_bn = s_bn;
+    a.s_gamma = s_gamma; a.s_beta = s_beta; a.eps = eps;
+    a.inv_bn = 1.0f / s_bn;
     cudaStream_t st = (cudaStream_t)stream;
-    const int chunks = (m + chunk - 1) / chunk;
-    dim3 grid_a((n + UBN_COLS - 1) / UBN_COLS, chunks);
-    ubn_batch_partial<<<grid_a, dim3(UBN_COLS, UBN_WARPS), 0, st>>>(
-        (const float*)x, (double*)part, m, n, chunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ubn_batch_stats<<<(n + 127) / 128, 128, 0, st>>>(
-        (const double*)part, (const float*)gamma, (const float*)beta,
-        (float*)stats, m, n, chunks, s_mu, s_sigma, s_gamma, s_beta, eps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)m * n;
-    long long want = (total + 255) / 256;
-    const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-    ubn_batch_apply<<<blocks, 256, 0, st>>>(
-        (const float*)x, (const float*)stats, (float*)out, total, n, s_bn);
-    return (int)cudaGetLastError();
+    const cudaError_t e = vec == 4 ? batch_route<4>(a, route, st)
+                                   : batch_route<1>(a, route, st);
+    return (int)e;
 }

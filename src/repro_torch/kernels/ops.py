@@ -53,9 +53,8 @@ _SIGS = {
     ("ubn", "ubn_launch"): [_P, _P, _P, _P] + [c_int] * 5 + [c_float] * 6
     + [_P],
     ("ubn", "fp32_check_launch"): [c_longlong, _P, c_int, _P, _P],
-    ("ubn", "ubn_batch_launch"): [_P, _P, _P, _P, _P, _P, c_int, c_int,
-                                  c_int, c_float, c_float, c_float, c_float,
-                                  c_float, c_float, _P],
+    ("ubn", "ubn_batch_launch"): [_P] * 6 + [c_longlong] + [c_int] * 5
+    + [c_longlong, c_int, c_longlong] + [c_float] * 6 + [_P],
     ("page_gather", "page_gather_launch"): [_P] * 5 + [c_int] * 6 + [
         c_longlong, c_int, _P],
     ("paged_attention", "pa_launch"): [_P] * 6 + [c_int] + [_P] * 3
@@ -67,7 +66,7 @@ _SIGS = {
         c_float, c_float, c_float, c_int, c_int, c_int, c_int, c_int, c_int,
         c_int, c_int, c_int, _P],
     ("flash_attention", "fa_pcode_check"): [_P, _P, _P],
-    ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 4 + [_P],
+    ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 7 + [_P],
 }
 _FNS: dict = {}
 
@@ -127,9 +126,11 @@ def _stream(t: Tensor):
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def _need(cond: bool, msg: str) -> None:
+def _need(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg.format(*args)) unless cond: the message is
+    formatted only on failure (a decode-shape call is bound by host work)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)
 
 
 def _scalar(v, like: Tensor) -> Tensor:
@@ -466,11 +467,6 @@ def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
 # K4 ubn_norm
 # --------------------------------------------------------------------------
 
-# rows per partial sum of the "batch" kind (fixed, so the sums' order
-# depends on M alone, not on the card)
-UBN_CHUNK = 256
-
-
 def ubn_cluster(m: int, sms: int) -> int:
     """Blocks that one row of K4's "rms" and "layer" kinds spreads over (a
     thread-block cluster): the most of 8, 4 and 2 that keeps M x blocks
@@ -481,6 +477,60 @@ def ubn_cluster(m: int, sms: int) -> int:
         if m * cl <= sms:
             return cl
     return 1
+
+
+# K4 "batch": bytes of x a strip block holds in shared memory (of the 227 KB
+# a block may have, beside 6.5 KB of partials and statistics)
+UBN_TILE_BYTES = 208 * 1024
+
+
+def ubn_batch_plan(m: int, n: int, sms: int) -> dict:
+    """The launch plan of K4's "batch" kind for x (M, C) = (m, n) on a card
+    of `sms` SMs (csrc/ubn.cu).
+
+    "strip" where a strip of 16 columns over all M rows fits in the shared
+    memory of a cluster of `cl` blocks (1, 2 or 4; each holds `rows` =
+    ceil(M / cl) rows) and the strips give at least 0.9 x `sms` blocks: the
+    smallest such cl; x is read once.  Otherwise "two_pass": chunks of
+    `rows` = max(256, ceil(M / 128)) rows (at most 128 chunks, from M
+    alone) of 32-column groups, then a normalize over spans of 256 rows.
+    On 132 SMs a ResNet-50 step at batch 32 takes strips at 1568 x 512 (cl
+    4), 1568 x 2048 (cl 1), 6272 x 512 (cl 4) and 6272 x 1024 (cl 2), and
+    the two passes at the other seven shapes (the card's measurements in
+    PERF.md chose this: a cluster of 8 blocks of 200 KB, the only strip
+    that holds M = 25088, ran slower than the two passes)."""
+    strips = -(-n // 16)
+    for cl in (1, 2, 4):
+        rows = -(-m // cl)
+        if rows * 64 <= UBN_TILE_BYTES and 10 * strips * cl >= 9 * sms:
+            return {"route": "strip", "cw": 16, "cl": cl, "rows": rows,
+                    "chunks": 0, "span": 0, "groups": strips,
+                    "blocks": strips * cl}
+    return _ubn_two_pass(m, n)
+
+
+def _ubn_two_pass(m: int, n: int) -> dict:
+    """ubn_batch_plan's two-pass route: chunks from M alone."""
+    rows = max(256, -(-m // 128))
+    return {"route": "two_pass", "cw": 32, "cl": 1, "rows": rows,
+            "chunks": -(-m // rows), "span": 256, "groups": -(-n // 32),
+            "blocks": -(-n // 32) * -(-m // rows)}
+
+
+# the arrival counters of K4 batch's two-pass route, per device: zeroed
+# once; each launch leaves them at 0 (the last block of a group resets its)
+_UBN_COUNTS: dict = {}
+
+
+def _ubn_counts(dev: torch.device, groups: int) -> Tensor:
+    buf = _UBN_COUNTS.get(dev)
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros(max(groups, 256), dtype=torch.int32, device=dev)
+        _UBN_COUNTS[dev] = buf
+    return buf
+
+
+_UBN_PLANS: dict = {}
 
 
 def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
@@ -495,9 +545,9 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
               k_gamma=k_gamma, k_beta=k_beta, eps=eps)
     if not _on_kernel(x):
         return ref.ubn_norm(x, gamma, beta, **kw)
-    _need(kind in ("rms", "layer", "batch"), f"unknown UBN kind {kind!r}")
+    _need(kind in ("rms", "layer", "batch"), "unknown UBN kind {!r}", kind)
     _need(x.dim() == 2 and x.dtype == torch.float32, "ubn_norm takes (M, N) f32")
-    _need(kind == "rms" or beta is not None, f"ubn_norm {kind} needs beta")
+    _need(kind == "rms" or beta is not None, "ubn_norm {} needs beta", kind)
     xc = x.contiguous()
     m, n = xc.shape
     g = _as(gamma, torch.float32, xc)
@@ -507,16 +557,26 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
     s = lambda k: 2.0 ** (k - 1)  # noqa: E731
     widths = (s(k_mu), s(k_sigma), s(k_bn), s(k_gamma), s(k_beta), eps)
     if kind == "batch":
-        # three launches: float64 partial sums per UBN_CHUNK rows, the
-        # per-column statistics, the normalize (csrc/ubn.cu)
-        chunks = -(-m // UBN_CHUNK)
-        _need(0 < chunks < 65536, f"ubn_norm batch: M = {m} out of range")
-        part = torch.empty((chunks, 2, n), dtype=torch.float64,
-                           device=x.device)
-        stats = torch.empty((4, n), dtype=torch.float32, device=x.device)
+        # a strip over a cluster (one launch, x read once) or the two
+        # passes (partials with the statistics folded in, then the
+        # normalize), as ubn_batch_plan says (csrc/ubn.cu)
+        key = (m, n, _sm_count(xc.device))
+        p = _UBN_PLANS.get(key)
+        if p is None:
+            p = _UBN_PLANS[key] = ubn_batch_plan(*key)
+        _need(m < 2 ** 31 and -(-m // max(p["span"], 1)) < 65536,
+              "ubn_norm batch: M = {} out of range", m)
+        vec = 4 if n % 4 == 0 and not xc.data_ptr() % 16 else 1
+        work = count = None
+        if p["route"] == "two_pass":
+            # one workspace: the float64 partials, then the statistics
+            work = torch.empty(8 * p["chunks"] * 2 * n + 16 * n,
+                               dtype=torch.uint8, device=x.device)
+            count = _ubn_counts(x.device, p["groups"])
         _launch("ubn", "ubn_batch_launch", _ptr(xc), _ptr(g), _ptr(b),
-                _ptr(out), _ptr(part), _ptr(stats), m, n, UBN_CHUNK,
-                *widths, _stream(xc))
+                _ptr(out), _ptr(work), _ptr(count), m, n,
+                int(p["route"] == "two_pass"), vec, p["cw"], p["cl"],
+                p["rows"], p["chunks"], p["span"], *widths, _stream(xc))
     else:
         # one launch: a row over a cluster of `cl` blocks (ubn_cluster),
         # float4 groups where N and every pointer allow (csrc/ubn.cu)
@@ -531,8 +591,11 @@ def ubn_norm(x: Tensor, gamma: Tensor, beta: Tensor | None = None, *,
     return out
 
 
-# edge values of fp32_rounding_mismatches' divisions (and their negatives)
-_FP32_EDGES = (0.0, 2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -127,
+# edge values of fp32_rounding_mismatches' divisions (and their negatives);
+# 2^-8 and the two after it are the smallest divisors of K4 batch's
+# normalize (sigma_q + eps, eps = 2^-8, sigma_q on the 2^-15 grid)
+_FP32_EDGES = (0.0, 2.0 ** -8, 2.0 ** -8 + 2.0 ** -15, 2.0 ** -8 + 2.0 ** -23,
+               2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -127,
                2.0 ** -126 - 2.0 ** -149, 2.0 ** -126, 2.0 ** -126 + 2.0 ** -149,
                1e-38, 1e-30, 2.0 ** -24, 0.1, 0.5, 1.0 - 2.0 ** -24, 1.0,
                1.0 + 2.0 ** -23, 1.5, 3.0, 7.0, 10.0, 2.0 ** 24 + 2.0, 1e10,
@@ -540,7 +603,7 @@ _FP32_EDGES = (0.0, 2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -127,
 
 
 def fp32_rounding_mismatches(device, pairs: int = 2 ** 28) -> list[int]:
-    """The fp32 __fdiv_rn and __fsqrt_rn that K4's rows and K6 use, against
+    """The fp32 __fdiv_rn and __fsqrt_rn that K4 and K6 use, against
     the float64 operation rounded once that their plain versions use, on
     the card: the counts of [`pairs` random divisions, divisions of every
     pair of edge values (denormal, tiny, huge, inf, NaN and negatives),
@@ -846,12 +909,42 @@ def flash_pcode_mismatches(device) -> list[int]:
 # --------------------------------------------------------------------------
 
 SCAN_STATES = (4, 16)   # the N the kernel is instantiated for
+SCAN_THREADS = 128      # a block: 128 / (N / 4) channels of one batch row
+SCAN_PAGE = 16          # an S up to this is one staged tile
+
+
+def sscan_plan(bsz: int, s: int, d: int, n: int, sms: int) -> dict:
+    """The launch plan of K9 (csrc/selective_scan.cu) for a (B, S, D, N)
+    scan on a card of `sms` SMs.  A channel's N states are split over
+    `lanes` = N / 4 threads; a block takes `chans` = 128 / lanes channels.
+    S <= 1 (a decode step) takes the "direct" route; a longer S the
+    "staged" one: a prefill page (S <= 16) is one tile of S steps, a longer
+    S tiles of 4 steps in a ring of 4 stages (2 where more than three
+    blocks must share an SM).  `smem` is a staged block's shared bytes."""
+    lanes = n // 4
+    chans = SCAN_THREADS // lanes
+    blocks = bsz * -(-d // chans)
+    if s <= 1:
+        return {"route": "direct", "lanes": lanes, "chans": chans,
+                "blocks": blocks, "tile": 1, "stages": 0, "smem": 0}
+    if s <= SCAN_PAGE:
+        tile, stages = s, 1
+    else:
+        tile, stages = 4, 4 if -(-blocks // sms) <= 3 else 2
+    smem = 64 + stages * tile * (2 * chans * n + n) * 4
+    return {"route": "staged", "lanes": lanes, "chans": chans,
+            "blocks": blocks, "tile": tile, "stages": stages, "smem": smem}
+
+
+_SCAN_PLANS: dict = {}
 
 
 def _aligned(t: Tensor) -> Tensor:
-    """t contiguous with a 16-byte aligned start (the kernel's float4
-    loads); a view that starts off the alignment is copied."""
-    t = t.contiguous()
+    """t contiguous with a 16-byte aligned start (the kernel's float4 loads
+    and bulk copies); an operand that already is so is passed as it is, a
+    view that starts off the alignment is copied."""
+    if not t.is_contiguous():
+        t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -861,34 +954,45 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
 
     a, b: (B, S, D, N) f32; c: (B, S, N) f32; h0: (B, D, N) f32 carried
     state, or None for zeros (the TPU kernel's function).  Returns
-    (y (B, S, D) f32, h_last (B, D, N) f32).  The kernel takes N in
-    SCAN_STATES and B < 65536; other shapes raise ValueError."""
+    (y (B, S, D) f32, h_last (B, D, N) f32); on the card both are views of
+    one allocation.  The kernel takes N in SCAN_STATES and B < 65536; other
+    shapes raise ValueError."""
     if not _on_kernel(a):
         return ref.selective_scan(a, b, c, h0)
     _need(a.dim() == 4 and a.dtype == torch.float32 and b.dtype == a.dtype
           and c.dtype == a.dtype, "selective_scan takes (B, S, D, N) f32 a "
           "and b and (B, S, N) f32 c")
     bsz, s, d, n = a.shape
-    _need(tuple(b.shape) == (bsz, s, d, n) and tuple(c.shape) == (bsz, s, n),
-          f"selective_scan shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
-          f"c {tuple(c.shape)}")
-    _need(n in SCAN_STATES, f"selective_scan kernel is built for N in "
-          f"{SCAN_STATES} (the state stays in registers), got N = {n}")
-    _need(0 < bsz < 65536 and d > 0, f"selective_scan: B = {bsz}, D = {d} "
-          "out of the kernel's grid")
+    _need(b.shape == a.shape and c.shape == (bsz, s, n),
+          "selective_scan shapes a {}, b {}, c {}", tuple(a.shape),
+          tuple(b.shape), tuple(c.shape))
+    _need(n in SCAN_STATES, "selective_scan kernel is built for N in {} (a "
+          "thread holds 4 states), got N = {}", SCAN_STATES, n)
+    _need(0 < bsz < 65536 and d > 0, "selective_scan: B = {}, D = {} out of "
+          "the kernel's grid", bsz, d)
     _need(b.device == a.device and c.device == a.device,
           "selective_scan operands on different devices")
     if h0 is not None:
-        _need(tuple(h0.shape) == (bsz, d, n) and h0.dtype == torch.float32
+        _need(h0.shape == (bsz, d, n) and h0.dtype == torch.float32
               and h0.device == a.device,
-              f"selective_scan h0 {tuple(h0.shape)} is not ({bsz}, {d}, {n})"
-              " f32")
+              "selective_scan h0 {} is not ({}, {}, {}) f32", tuple(h0.shape),
+              bsz, d, n)
         h0 = _aligned(h0)
     ac, bc, cc = _aligned(a), _aligned(b), _aligned(c)
-    y = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
-    h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=a.device)
+    key = (bsz, s, d, n, _sm_count(a.device))
+    p = _SCAN_PLANS.get(key)
+    if p is None:
+        p = _SCAN_PLANS[key] = sscan_plan(*key)
+    # one allocation: h_last first, so that its float4 stores are aligned,
+    # then y
+    hn = bsz * d * n
+    buf = torch.empty(hn + bsz * s * d, dtype=torch.float32, device=a.device)
+    h_last = buf.as_strided((bsz, d, n), (d * n, n, 1))
+    y = buf.as_strided((bsz, s, d), (s * d, d, 1), hn)
     _launch("selective_scan", "sscan_launch", _ptr(ac), _ptr(bc), _ptr(cc),
-            _ptr(h0), _ptr(y), _ptr(h_last), bsz, s, d, n, _stream(ac))
+            _ptr(h0), buf.data_ptr() + 4 * hn, _ptr(buf), bsz, s, d, n,
+            int(p["route"] == "staged"), p["tile"], p["stages"],
+            _stream(ac))
     LAUNCHES["selective_scan"] += 1
     return y, h_last
 

@@ -251,22 +251,75 @@ def test_cuda_flash_attention_pcode_exhaustive(cuda):
     assert ops.flash_pcode_mismatches(cuda) == [0] * 7
 
 
+# ResNet-50's quantized BNs at batch 32 (M = N*H*W, C): every shape of a step
+_BN_STEP = [(100352, 64), (100352, 256), (100352, 128), (25088, 128),
+            (25088, 512), (25088, 256), (6272, 256), (6272, 1024),
+            (6272, 512), (1568, 512), (1568, 2048)]
+
+
+def _bn_case(dev, m, n, grid, seed=None):
+    g = torch.Generator(device=dev).manual_seed(m if seed is None else seed)
+    x = torch.randn((m, n), generator=g, device=dev) * 2 + 0.3
+    if grid:
+        x = torch.round(x * 64) / 64
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=g, device=dev)
+    beta = 0.1 * torch.randn(n, generator=g, device=dev)
+    return x, gamma, beta
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,grid", [(100352, 256, False), (1568, 2048, False),
                                       (25088, 512, True), (1000, 96, False),
-                                      (257, 33, True)])
+                                      (257, 33, True)]
+                         + [(m, n, grid) for m, n in _BN_STEP
+                            for grid in (False, True)
+                            if (m, n) not in ((100352, 256), (1568, 2048))]
+                         + [(1, 9, False), (1, 64, False), (63, 5, True),
+                            (255, 128, False), (30001, 40, True),
+                            (30001, 38, False), (1568, 2047, True),
+                            (13312, 2048, False), (13313, 2048, False)])
 def test_cuda_ubn_batch_bitwise(cuda, m, n, grid):
-    """K4 "batch" at ResNet-50's largest and smallest BN shapes at batch
-    32, ragged M and C, and grid-valued inputs as the convolutions give."""
-    g = torch.Generator(device=cuda).manual_seed(m)
-    x = torch.randn((m, n), generator=g, device=cuda) * 2 + 0.3
-    if grid:
-        x = torch.round(x * 64) / 64
-    gamma = 1.0 + 0.1 * torch.randn(n, generator=g, device=cuda)
-    beta = 0.1 * torch.randn(n, generator=g, device=cuda)
+    """K4 "batch" at every BN shape of a ResNet-50 step at batch 32 (both
+    routes: strips over clusters of 1, 2 or 4 blocks at 1568 x 512 and
+    2048 and 6272 x 512 and 1024, two passes at the others), ragged M and
+    C (C % 4 != 0: scalar columns, on either route), M = 1, M below one
+    chunk, the routes' boundary (M 13312 / 13313 at C 2048), N(0, 1) and
+    grid-valued inputs as the convolutions give."""
+    x, gamma, beta = _bn_case(cuda, m, n, grid)
+    before = ops.LAUNCHES["ubn_norm"]
     got = ops.ubn_norm(x, gamma, beta, kind="batch")
+    assert ops.LAUNCHES["ubn_norm"] == before + 1
     assert torch.isfinite(got).all()
     assert torch.equal(got, ref.ubn_norm(x, gamma, beta, kind="batch"))
+
+
+@pytest.mark.cuda
+def test_cuda_ubn_batch_repeats_and_interleaves(cuda):
+    """Calls of both routes and of different shapes, interleaved on one
+    stream and repeated, each equal their plain version and each other:
+    the two-pass route's arrival counters are left at 0 by every call."""
+    cases = [_bn_case(cuda, m, n, False, seed=i) for i, (m, n) in enumerate(
+        [(100352, 64), (1568, 512), (30001, 40), (100352, 256), (257, 33)])]
+    want = [ref.ubn_norm(*c, kind="batch") for c in cases]
+    for _ in range(3):
+        for c, w in zip(cases + cases[::-1], want + want[::-1]):
+            assert torch.equal(ops.ubn_norm(*c, kind="batch"), w)
+    counts = [c for d, c in ops._UBN_COUNTS.items() if d.type == "cuda"]
+    assert counts and all(int(c.abs().sum()) == 0 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(100352, 64), (1568, 512), (1000, 96)])
+def test_cuda_ubn_batch_unaligned_view(cuda, m, n):
+    """x a contiguous view that starts 4 bytes into its storage (scalar
+    loads on either route)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(m * n + 1, generator=g, device=cuda) * 2)[1:].view(m, n)
+    assert x.data_ptr() % 16
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(n, generator=g, device=cuda)
+    assert torch.equal(ops.ubn_norm(x, gamma, beta, kind="batch"),
+                       ref.ubn_norm(x, gamma, beta, kind="batch"))
 
 
 @pytest.mark.cuda
@@ -337,7 +390,15 @@ def _scan_inputs(g, shape, dev):
     ((1, 4096, 8192, 16), False),   # train_4k from zero: the TPU kernel's
     ((2, 37, 1000, 4), True),       # ragged S and D, the reduced N
     ((2, 37, 1000, 4), False),
-    ((3, 5, 65, 16), True)])
+    ((3, 5, 65, 16), True),
+    ((1, 17, 8192, 16), True),      # across the staged tiles' boundaries
+    ((2, 33, 300, 4), True),
+    ((2, 33, 300, 16), False),
+    ((1, 4097, 512, 16), True),
+    ((1, 4097, 1000, 4), False),
+    ((1, 1, 8192, 16), True),       # a prompt-tail token (direct route)
+    ((5, 1, 100, 4), False),
+    ((64, 3, 2048, 16), True)])     # more blocks than stay resident
 def test_cuda_selective_scan_bitwise(cuda, shape, with_h0):
     """K9 equals its plain version bit for bit: h with two roundings per
     step, y the n-ordered float64 sum rounded once, on both sides."""
@@ -367,6 +428,31 @@ def test_cuda_selective_scan_continues_and_checks(cuda):
     a8, b8, c8, h8 = _scan_inputs(g, (1, 4, 32, 8), cuda)
     with pytest.raises(ValueError, match="N = 8"):
         ops.selective_scan(a8, b8, c8, h8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16, 17, 33])
+@pytest.mark.parametrize("n", [4, 16])
+def test_cuda_selective_scan_views_and_repeats(cuda, s, n):
+    """A non-contiguous c and a (B, S, D, N) a sliced along D (both
+    copied by the wrapper), an S of 0, and repeated calls: equal to the
+    plain version, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(10 + s + n)
+    a, b, c, h0 = _scan_inputs(g, (2, s, 96, n), cuda)
+    ct = torch.randn((2, s, 2 * n), generator=g, device=cuda)[..., ::2]
+    assert not ct.is_contiguous()
+    want = ref.selective_scan(a, b, ct, h0)
+    for _ in range(2):
+        before = ops.LAUNCHES["selective_scan"]
+        y, h = ops.selective_scan(a, b, ct, h0)
+        assert ops.LAUNCHES["selective_scan"] == before + 1
+        assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+    a2, b2 = a[:, :, 8:72], b[:, :, 8:72]
+    y, h = ops.selective_scan(a2, b2, c, h0[:, 8:72])
+    yp, hp = ref.selective_scan(a2, b2, c, h0[:, 8:72])
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+    y, h = ops.selective_scan(a[:, :0], b[:, :0], c[:, :0], h0)
+    assert y.shape == (2, 0, 96) and torch.equal(h, h0)
 
 
 # --------------------------------------------------------------------------
