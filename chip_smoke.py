@@ -79,7 +79,21 @@ prints no result line:
              calls; then step 1 again from the same weights through the
              plain versions, whose loss, 161 parameter leaves and 161
              accumulator leaves must equal the kernel run's bit for bit.
-  6. ssm     `make_engine("falcon-mamba-7b", reduced=False, n_layers=4)`:
+  6. ckpt    checkpoints, microbatching and the bit-width presets:
+             ResNet-50 at full size (as phase 5, full8, batch 32) 4 steps
+             unbroken, against 2 steps, a CheckpointManager save (under
+             build/ckpt, removed afterwards), a fresh model and optimizer
+             state, a restore and 2 steps: losses, 161 parameter leaves
+             and 161 accumulator leaves equal, with the time save holds
+             the caller, the write, the packed and dense-f32 bytes and the
+             restore's time; then 2 steps of the reference's batch of 128
+             as n_micro = 4 microbatches of 32 (K4 batch 208 launches a
+             step) with their peak memory beside phase 5's; then one step
+             each of the w4a8 (every Q_W payload within +-7) and g16
+             presets on ResNet-50 and of a4 on phase 4's granite shape
+             (K5 at k_a = 4), each with a finite loss and every kernel of
+             its path launched.
+  7. ssm     `make_engine("falcon-mamba-7b", reduced=False, n_layers=4)`:
              Mamba1 at every published width (d_model 4096, d_inner 8192,
              ssm_state 16, d_conv 4, dt rank 256, vocab 65024), depth cut
              to 4 of 64 layers, random weights from seed 0; the serve
@@ -118,6 +132,9 @@ RESULTS: list[dict] = []
 # kernel row -> (phase, key): the run whose main-path launch count the row
 # takes, and its key there ("none": no path launches it)
 PHASE_OF: dict[str, tuple] = {}
+# peak device memory in bytes by phase (the ckpt phase prints the resnet
+# phase's beside its microbatched run's)
+PEAK: dict[str, int] = {}
 
 
 def log(msg: str) -> None:
@@ -906,7 +923,7 @@ def kernel_rows() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 6: serve granite-3-8b and falcon-mamba-7b at full width,
+# phases 3 and 7: serve granite-3-8b and falcon-mamba-7b at full width,
 # 4 layers
 # ---------------------------------------------------------------------------
 
@@ -1397,8 +1414,8 @@ def phase_resnet() -> dict:
             assert counts[k] > 0, f"kernel {k} not launched in resnet step"
         if i == 0:
             after1 = (_host_copy(model.params()), _host_copy(opt.acc))
-    log(f"[resnet] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    PEAK["resnet"] = torch.cuda.max_memory_allocated()
+    log(f"[resnet] peak device memory {PEAK['resnet'] / 1e9:.2f} GB")
     split_train(model, cfg, opt, batches[RESNET_STEPS], RESNET_STEPS,
                 "resnet")
     with_profile(lambda: step(opt, batches[RESNET_STEPS + 1],
@@ -1428,6 +1445,195 @@ def phase_resnet() -> dict:
     assert all(same_p), "plain step-1 parameters differ from the kernels'"
     assert all(same_a), "plain step-1 accumulator differs from the kernels'"
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6: checkpoints and resume, microbatching, the bit-width presets
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 4            # unbroken; the resumed run saves after 2
+MICRO_BATCH = 128         # the reference's input_specs batch ...
+N_MICRO = 4               # ... as 4 microbatches of RESNET_BATCH
+
+
+def _resnet(cfg, seed: int = 0):
+    from repro_torch.configs import get
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_momentum
+    model = build_model(get("resnet50"), cfg, device="cuda").init(seed)
+    return model, init_momentum(model.params())
+
+
+def _counted(fn, kernels, what: str) -> dict:
+    """fn() with the launch counts set to 0 just before and read just
+    after; every kernel in `kernels` must have launched."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    for k in kernels:
+        assert counts[k] > 0, f"kernel {k} not launched in {what}"
+    return counts
+
+
+def phase_ckpt() -> None:
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import preset
+    from repro_torch.data import ImageTask
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import flatten
+    cfg = preset("full8")
+    task = ImageTask(224, 1000, RESNET_BATCH, seed=0)
+    batches = [task.batch(i) for i in range(CKPT_STEPS)]
+
+    # resume: 4 unbroken steps against 2, a save, a fresh model and
+    # optimizer state, a restore and 2 more
+    model, opt = _resnet(cfg)
+    step = make_train_step(model, cfg, lr=0.05)
+    losses = []
+    counts = _counted(lambda: losses.extend(
+        float(step(opt, batches[i], i)["loss"]) for i in range(CKPT_STEPS)),
+        RESNET_KERNELS, "the unbroken ckpt run")
+    log(f"[ckpt] resnet50 full8, {CKPT_STEPS} unbroken steps: losses "
+        f"{[round(x, 6) for x in losses]}; launches {counts}")
+    first, fopt = _resnet(cfg)
+    fstep = make_train_step(first, cfg, lr=0.05)
+    for i in range(2):
+        fstep(fopt, batches[i], i)
+    directory = os.path.join(ROOT, "build", "ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    cm = CheckpointManager(directory)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cm.save(2, (first.params(), fopt))
+        held = time.time() - t0
+        cm.wait()
+        written = time.time() - t0
+        rep = cm.size_report(2)
+        del first, fopt, fstep
+        model2, opt2 = _resnet(cfg, seed=1)
+        t0 = time.time()
+        _, at, _ = cm.restore((model2.params(), opt2))
+        torch.cuda.synchronize()
+        restored = time.time() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log(f"[ckpt] save of step 2 held the caller {held * 1e3:.1f} ms (host "
+        f"copy of {len(flatten(model2.params())) * 2 + 1} leaves), written "
+        f"in {written:.2f} s; {rep['ckpt_bytes_q']} B packed vs "
+        f"{rep['ckpt_bytes_f32_dense']} B dense-f32 (ratio "
+        f"{rep['ratio']:.3f}, encodings {rep['leaf_encodings']}), "
+        f"{rep['disk_bytes']} B on disk; restore {restored:.2f} s")
+    assert at == 2 and opt2.step == 2, (at, opt2.step)
+    step2 = make_train_step(model2, cfg, lr=0.05)
+    resumed = [float(step2(opt2, batches[i], i)["loss"])
+               for i in range(2, CKPT_STEPS)]
+    same_p = [torch.equal(a, b) for a, b in zip(flatten(model2.params()),
+                                                flatten(model.params()))]
+    same_a = [torch.equal(a, b) for a, b in zip(flatten(opt2.acc),
+                                                flatten(opt.acc))]
+    log(f"[ckpt] resumed at step 2, steps 3-4: losses "
+        f"{[round(x, 6) for x in resumed]} vs {[round(x, 6) for x in losses[2:]]}"
+        f"; parameters equal {sum(same_p)}/{len(same_p)}, accumulator "
+        f"equal {sum(same_a)}/{len(same_a)}")
+    assert resumed == losses[2:], "resumed losses differ from unbroken"
+    assert all(same_p), "resumed parameters differ from the unbroken run's"
+    assert all(same_a), "resumed accumulator differs from the unbroken run's"
+    del model, opt, step, model2, opt2, step2
+
+    # microbatching: the reference's batch of 128 as 4 microbatches of 32
+    big = ImageTask(224, 1000, MICRO_BATCH, seed=0)
+    model, opt = _resnet(cfg)
+    step = make_train_step(model, cfg, lr=0.05, n_micro=N_MICRO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        batch = big.batch(i)
+        t0 = time.time()
+        out = {}
+        counts = _counted(lambda: out.update(step(opt, batch, i)),
+                          RESNET_KERNELS, "the microbatched step")
+        wall = time.time() - t0
+        loss = float(out["loss"])
+        log(f"[ckpt] n_micro {N_MICRO} x {RESNET_BATCH} step {i + 1}: loss "
+            f"{loss:.6f}, wall {wall:.3f} s, {MICRO_BATCH / wall:.1f} "
+            f"images/s; K4 batch launches {counts['ubn_norm']} "
+            f"(52 x {N_MICRO}); launches {counts}")
+        assert math.isfinite(loss), "non-finite microbatched loss"
+        assert counts["ubn_norm"] == 52 * N_MICRO, counts["ubn_norm"]
+    log(f"[ckpt] peak device memory at batch {MICRO_BATCH} in {N_MICRO} "
+        f"microbatches {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"beside the resnet phase's at batch {RESNET_BATCH} "
+        f"{PEAK['resnet'] / 1e9:.2f} GB")
+    del model, opt, step
+
+    # the bit-width presets: w4a8 and g16 on ResNet-50, a4 on the train
+    # phase's granite shape (K5 at k_a = 4)
+    for name in ("w4a8", "g16"):
+        pcfg = preset(name)
+        model, opt = _resnet(pcfg)
+        step = make_train_step(model, pcfg, lr=0.05)
+        out, seen = {}, []
+        with weight_payloads(seen):
+            counts = _counted(lambda: out.update(step(opt, batches[0], 0)),
+                              RESNET_KERNELS, f"the {name} step")
+        loss = float(out["loss"])
+        wmax = max(seen)
+        log(f"[ckpt] {name} resnet50 step: loss {loss:.6f}, largest weight "
+            f"payload {wmax} over {len(seen)} Q_W calls; launches {counts}")
+        assert math.isfinite(loss), f"non-finite {name} loss"
+        assert wmax <= (7 if name == "w4a8" else 127), wmax
+        del model, opt, step
+    a4_step()
+
+
+@contextlib.contextmanager
+def weight_payloads(seen: list):
+    """Record the largest |payload| of every Q_W the ResNet calls."""
+    from repro_torch.models import resnet
+    real = resnet.qweight
+
+    def spy(q, w):
+        qt = real(q, w)
+        seen.append(int(qt.data.abs().max()))
+        return qt
+
+    resnet.qweight = spy
+    try:
+        yield seen
+    finally:
+        resnet.qweight = real
+
+
+def a4_step() -> None:
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_momentum
+    cfg = preset("a4")
+    model = build_model(get("granite-3-8b").replace(n_layers=4), cfg,
+                        device="cuda").init(0)
+    opt = init_momentum(model.params())
+    step = make_train_step(model, cfg, lr=0.05)
+    batch = TokenTask(model.a.vocab, TRAIN_SEQ, 1, kind="arith").batch(0)
+    out = {}
+    counts = _counted(lambda: out.update(step(opt, batch, 0)),
+                      TRAIN_KERNELS, "the a4 step")
+    loss = float(out["loss"])
+    log(f"[ckpt] a4 granite-3-8b step (4 of 40 layers, 1 x {TRAIN_SEQ} "
+        f"tokens, K5 at k_a = {cfg.k_a}): loss {loss:.6f}; launches {counts}")
+    assert math.isfinite(loss), "non-finite a4 loss"
+    del model, opt, step
+    torch.cuda.empty_cache()
 
 
 def with_profile(fn, what: str, groups: dict | None = None):
@@ -1544,7 +1750,9 @@ def main() -> int:
     card = phase_build()
     phase_kernels()
     runs = {"serve": phase_serve(), "train": phase_train(),
-            "resnet": phase_resnet(), "ssm": phase_ssm(), "none": {}}
+            "resnet": phase_resnet()}
+    phase_ckpt()
+    runs.update(ssm=phase_ssm(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -8,5 +8,8 @@ plain PyTorch version beside it (`kernels/ref.py`).
 Ported so far, for the dense LM: the chunked-prefill + decode serving path
 (`serving.make_engine`) and the single-device training step
 (`launch.train.make_train_step`), on the kernels qmatmul, quantize,
-dgrad/wgrad, ubn_norm, flash_attention, page_gather and paged_attention.
+dgrad/wgrad, ubn_norm, flash_attention, page_gather and paged_attention;
+the paper's ResNet18/34/50 trained by the same step; Mamba1 SSM serving on
+selective_scan; and checkpoints (`checkpoint.CheckpointManager`), which
+restore bit for bit in either package.
 """

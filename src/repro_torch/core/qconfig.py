@@ -17,7 +17,8 @@ are the reference's deprecated string aliases, reconciled with the specs in
 The port runs native mode only (int8/int16 payloads, integer dots) and
 always takes the fused kernels, so the reference's `fuse_kernels` switch
 has no counterpart.  Presets: `full8` and `e2_16` (the paper's two
-versions); the others raise NotImplementedError naming their ROADMAP item.
+versions) and the bit-width lanes `w4a8`, `a4` and `g16`; `fp32` raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from .qtensor import QuantSpec, legacy_kind, spec_from_alias
 _WIDTH_TO_SPEC = {"k_w": "w", "k_a": "a", "k_e1": "e1", "k_e2": "e2",
                   "k_gc": "g"}
 
-UNPORTED = ("is not ported yet: the other numeric modes, presets and "
-            "microbatching are ROADMAP Queue 1 item 7")
+UNPORTED = ("is not ported yet: the other numeric modes (sim, fp32) are "
+            "ROADMAP Queue 1 item 7")
 
 
 @dataclass(frozen=True)
@@ -164,9 +165,16 @@ _DEFAULT_SPECS = {sf: QConfig.__dataclass_fields__[sf].default
 FULL8 = QConfig()                                   # paper full 8-bit version
 E2_16 = QConfig(e2_kind="sq16", k_e2=16)            # paper 16-bit E2 version
 
-PRESETS = {"full8": FULL8, "e2_16": E2_16}
-# the reference's other presets, not ported yet
-UNPORTED_PRESETS = ("fp32", "w4a8", "a4", "g16")
+# the bit-width lanes (DESIGN.md §14): each re-widths one registry spec
+# through __post_init__, the same quantizer kind at another k
+W4A8 = QConfig(k_w=4)      # 4-bit weights: clip@4 on the fixed 2^-3 grid
+A4 = QConfig(k_a=4)        # 4-bit activations: scaled@4 (pow2-amax scale)
+G16 = QConfig(k_gw=16)     # wide CQ range: dr = 2^15 on int16 payloads
+
+PRESETS = {"full8": FULL8, "e2_16": E2_16, "w4a8": W4A8, "a4": A4,
+           "g16": G16}
+# the reference's other preset, not ported yet (its mode is fp32)
+UNPORTED_PRESETS = ("fp32",)
 
 
 def preset(name: str, mode: str | None = None) -> QConfig:

@@ -15,24 +15,34 @@ the reference, so the bits are a pure function of the step index.
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch resnet50 --reduced \
         --mode native --steps 3 --batch 4 --device cpu
+    python -m repro_torch.launch.train ... --ckpt-dir DIR --save-every 2
+    python -m repro_torch.launch.train ... --ckpt-dir DIR --resume
 
 The LM trains on TokenTask ("arith"); a ResNet on the synthetic ImageTask
 at its config's image size and classes, or on npz shards under
-`--data-dir` (data/imagenet.py).
+`--data-dir` (data/imagenet.py).  With `--ckpt-dir` the CLI saves
+(parameters, MomentumState) after every `--save-every` steps
+(checkpoint/manager.py, the reference's format); with `--resume` it
+restores the latest checkpoint there and continues from its step, which
+gives the same weights as an unbroken run, since the stochastic-rounding
+bits depend on the step index alone.  `make_train_step(..., n_micro=N)`
+accumulates the gradients of N microbatches, as the reference's does.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-microbatching (n_micro > 1), the sharded step and the elastic runtime
-(--dp, --tp, --elastic, ...), checkpoints (--ckpt-dir, --resume).
+the sim and fp32 modes (--mode, --preset fp32), the sharded step and the
+elastic runtime (--dp, --tp, --elastic, ...).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get as get_arch
 from repro_torch.core import prng
-from repro_torch.core.qconfig import UNPORTED, preset
+from repro_torch.core.qconfig import preset
 from repro_torch.data import ImageTask, NpzImageTask, TokenTask
 from repro_torch.models import build_model
 from repro_torch.models.ssm_lm import TRAINING
@@ -44,7 +54,6 @@ SEED = 17
 
 SHARDED = ("is not ported yet: the sharded step, its gradient wire and the "
            "elastic runtime are ROADMAP Queue 1 item 5")
-CKPT = "is not ported yet: checkpoints are ROADMAP Queue 1 item 1"
 
 
 def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
@@ -57,20 +66,50 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
     updating the model's parameters and opt_state.acc IN PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
-    base).  An SSMLM raises NotImplementedError: its scan has no backward
-    yet."""
-    if n_micro != 1:
-        raise NotImplementedError(f"n_micro={n_micro} {UNPORTED}")
+    base).  n_micro > 1 splits the batch's leading dim into n_micro equal
+    microbatches run one after another (each graph freed before the next,
+    so activation memory scales down; BN statistics per microbatch) and
+    takes the mean of their gradients, summed in fp32 from zeros in
+    microbatch order and divided by n_micro, as the reference does; the
+    metrics are then {"loss"}, the mean of the microbatch losses.  An
+    SSMLM raises NotImplementedError: its scan has no backward yet."""
+    if n_micro < 1:
+        raise ValueError(f"n_micro={n_micro} must be >= 1")
     if model.a.family == "ssm":
         raise NotImplementedError(TRAINING)
     lrq = fixed_point_lr(lr, qcfg)
     labels = model.labels() if labels_tree is None else labels_tree
 
+    def backward(batch: dict) -> dict:
+        """The loss's metrics; leaves the batch's gradient in each .grad."""
+        model.zero_grad(set_to_none=True)
+        if n_micro == 1:
+            loss, metrics = model.loss(batch)
+            loss.backward()
+            return metrics
+        b = len(next(iter(batch.values())))
+        if b % n_micro:
+            raise ValueError(f"n_micro={n_micro} does not divide the batch "
+                             f"of {b}")
+        mb = b // n_micro
+        leaves = flatten(model.params())
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        losses = []
+        for i in range(n_micro):
+            model.zero_grad(set_to_none=True)
+            loss, _ = model.loss({k: v[i * mb:(i + 1) * mb]
+                                  for k, v in batch.items()})
+            loss.backward()          # frees this microbatch's graph
+            losses.append(loss.detach())
+            for a, p in zip(acc, leaves):
+                a.add_(p.grad)
+        for a, p in zip(acc, leaves):
+            p.grad = a.div_(n_micro)
+        return {"loss": torch.stack(losses).mean()}
+
     def train_step(opt_state, batch: dict, step_idx: int) -> dict:
         key = prng.fold_in(prng.prng_key(SEED), step_idx)
-        model.zero_grad(set_to_none=True)
-        loss, metrics = model.loss(batch)
-        loss.backward()
+        metrics = backward(batch)
         params = model.params()
         grads = _grad_tree(params)
         momentum_update(qcfg, params, grads, opt_state, labels,
@@ -90,12 +129,10 @@ def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
                "grad_sync": "int_ring", "wire_codec": "auto",
                "opt_shard": "replicated", "elastic": False,
                "rebalance_flags": 0}
-    ckpt = {"ckpt_dir": "", "resume": False, "save_every": 25}
-    for table, why in ((sharded, SHARDED), (ckpt, CKPT)):
-        for name, default in table.items():
-            if getattr(args, name) != default:
-                raise NotImplementedError(
-                    f"--{name.replace('_', '-')} {why}")
+    for name, default in sharded.items():
+        if getattr(args, name) != default:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} {SHARDED}")
 
 
 def _task(acfg, args):
@@ -138,10 +175,14 @@ def main(argv=None):
                    help="ResNet: train on the npz shards under this "
                         "directory (data/imagenet.py) instead of the "
                         "synthetic ImageTask")
-    # the reference CLI's other flags: accepted, and refused unless default
-    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-dir", default="",
+                   help="save (parameters, MomentumState) here every "
+                        "--save-every steps")
     p.add_argument("--save-every", type=int, default=25)
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="with --ckpt-dir: continue from its latest "
+                        "checkpoint (ignored without --ckpt-dir)")
+    # the reference CLI's other flags: accepted, and refused unless default
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--n-shards", type=int, default=0)
@@ -165,10 +206,16 @@ def main(argv=None):
     print(f"[train] {acfg.name} {args.preset}/{args.mode} on {model.device}: "
           f"{sum(t.numel() for t in flatten(model.params())) / 1e6:.2f} M "
           f"params, batch {args.batch} x {shape}")
+    ckpt, start = None, 0
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir)
+        if args.resume and ckpt.latest_step() is not None:
+            _, start, _ = ckpt.restore((model.params(), opt))
+            print(f"resumed from step {start}")
     steps: dict[int, object] = {}
     cur = None
     t0 = time.time()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         bits = dr_bits_schedule(step, bounds, base_bits=qcfg.k_gw)
         if bits != cur:
             if bounds:
@@ -181,6 +228,10 @@ def main(argv=None):
         acc = f"acc {float(metrics['acc']):.4f} " if "acc" in metrics else ""
         print(f"step {step:5d} loss {float(metrics['loss']):.4f} {acc}"
               f"({time.time() - t0:.1f}s)")
+        if ckpt and (step + 1) % args.save_every == 0:
+            ckpt.save(step + 1, (model.params(), opt))
+    if ckpt:
+        ckpt.wait()
 
 
 if __name__ == "__main__":

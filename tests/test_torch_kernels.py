@@ -618,6 +618,7 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_reference():
     mods = _port_modules()
     assert "repro_torch.serving.engine" in mods
+    assert "repro_torch.checkpoint.manager" in mods
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"

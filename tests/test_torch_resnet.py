@@ -347,7 +347,7 @@ def test_train_slice_within_bounds(arch, name, exact_pow2):
     assert all(torch.isfinite(x).all() for x in flatten(topt.acc))
 
 
-def _trajectory(arch, name, task, steps):
+def _trajectory(arch, name, task, steps, n_micro=1):
     """make_train_step of both packages from the same weights over `steps`
     batches of `task`: per step the loss's relative gap, the share of the
     hidden weights' k_WU-grid codes that differ and their largest
@@ -355,9 +355,10 @@ def _trajectory(arch, name, task, steps):
     acfg, jm, params, tm = _models(arch, name)
     jcfg, cfg = jpreset(name, "native"), preset(name)
     jopt = jinit_momentum(params)
-    jstep = jax.jit(jmake_step(jm, jcfg, jm.labels(params), lr=0.05))
+    jstep = jax.jit(jmake_step(jm, jcfg, jm.labels(params), lr=0.05,
+                               n_micro=n_micro))
     topt = momentum_from_jax(jax.tree.map(np.asarray, jopt.acc))
-    tstep = ttrain.make_train_step(tm, cfg, lr=0.05)
+    tstep = ttrain.make_train_step(tm, cfg, lr=0.05, n_micro=n_micro)
     hidden = [i for i, lab in enumerate(flatten(tm.labels())) if lab == "w"]
 
     def codes(leaves):
@@ -371,6 +372,7 @@ def _trajectory(arch, name, task, steps):
                                   jax.tree.map(jnp.asarray, batch),
                                   jnp.int32(s))
         tmet = tstep(topt, batch, s)
+        assert set(tmet) == set(met)
         rel = abs(float(tmet["loss"]) - float(met["loss"])) \
             / float(met["loss"])
         d = np.abs(codes(jax.tree.leaves(params))
@@ -406,6 +408,20 @@ def test_train_slice_npz_within_bounds(arch, name, exact_pow2, tmp_path):
     assert gaps[0][1] <= 0.005 and gaps[0][2] <= 64, gaps[0]
     assert all(rel <= 5e-3 for rel, _, _ in gaps), gaps
     assert gaps[-1][1] <= 0.99 and gaps[-1][2] <= 2 ** 13, gaps[-1]
+
+
+def test_n_micro_within_bounds(exact_pow2):
+    """resnet50, n_micro=2 (BN statistics over each microbatch of 4)
+    beside the reference's n_micro=2 over 2 synthetic batches of 8: every
+    loss within 2e-3 relative, step 1 within the synthetic step-1 bound
+    (45% of the hidden codes, 2^12 apart), step 2 within the 5-step bound
+    (95%, 2^14)."""
+    acfg = get("resnet50").reduced()
+    gaps = _trajectory("resnet50", "full8", ImageTask(
+        acfg.img_size, acfg.num_classes, 8), 2, n_micro=2)
+    assert all(rel <= 2e-3 for rel, _, _ in gaps), gaps
+    assert gaps[0][1] <= 0.45 and gaps[0][2] <= 2 ** 12, gaps[0]
+    assert gaps[1][1] <= 0.95 and gaps[1][2] <= 2 ** 14, gaps[1]
 
 
 def test_train_cli_runs_resnet_on_cpu(capsys, tmp_path):

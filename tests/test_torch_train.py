@@ -23,6 +23,12 @@ and `repro_torch` (device="cpu", plain versions).  Tolerances:
      step times lr = 26 * 2^-9); after step 5 at most `share` of the codes
      differ, by at most `dist` codes (full8's flag-format error is the
      coarser, so its trajectories separate faster).
+  The bit-width lanes w4a8, a4 and g16: one step each within the same
+     bounds (w4a8 within its own step-1 bound, see STEP1).  n_micro=2
+     beside the reference's n_micro=2: 2 steps within full8's bounds;
+     n_micro=1 equals the plain step bit for bit.
+  The CLI's --save-every / --resume: the resumed run's step-4 checkpoint
+     equals the unbroken run's bit for bit.
 """
 import numpy as np
 import jax
@@ -40,6 +46,7 @@ from repro.models import build_model as jbuild
 from repro.optim import MomentumState as JState
 from repro.optim import init_momentum as jinit_momentum
 from repro.optim import momentum_update as jmomentum_update
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get
 from repro_torch.convert import momentum_from_jax, params_from_jax
 from repro_torch.core import prng, preset, qact, qrmsnorm
@@ -48,7 +55,8 @@ from repro_torch.core.qtensor import QTensor, get_quantizer
 from repro_torch.data import TokenTask
 from repro_torch.launch import train as ttrain
 from repro_torch.models import build_model
-from repro_torch.optim import MomentumState, flatten, momentum_update
+from repro_torch.optim import (MomentumState, flatten, init_momentum,
+                               momentum_update)
 
 from torch_parity import exact_pow2  # noqa: F401
 
@@ -120,7 +128,7 @@ def test_cq_bitwise(dr_bits, exact_pow2):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("name", ["full8", "e2_16"])
+@pytest.mark.parametrize("name", ["full8", "e2_16", "w4a8", "a4", "g16"])
 def test_presets_match_reference(name):
     j, t = jpreset(name, "native"), preset(name)
     for f in ("k_w", "k_a", "k_e1", "k_e2", "k_gw", "k_gc", "k_ggamma",
@@ -313,38 +321,115 @@ def _codes(get_w) -> np.ndarray:
                            for k in HIDDEN])
 
 
-@pytest.mark.parametrize("name", ["full8", "e2_16"])
-def test_train_slice_within_bounds(name, exact_pow2):
+def _trajectory(name, steps, n_micro=1, batch=4):
+    """make_train_step of both packages from the same weights over `steps`
+    TokenTask batches: per step the loss's relative gap, the share of the
+    hidden weights' k_WU-grid codes that differ and their largest
+    distance in codes."""
     acfg = jget("granite-3-8b").reduced()
     jcfg = jpreset(name, "native")
     jm = jbuild(acfg, jcfg)
     params = jm.init(jax.random.PRNGKey(0))
     jopt = jinit_momentum(params)
-    jstep = jax.jit(jmake_step(jm, jcfg, jm.labels(params), lr=0.05))
+    jstep = jax.jit(jmake_step(jm, jcfg, jm.labels(params), lr=0.05,
+                               n_micro=n_micro))
     cfg = preset(name)
     tm = build_model(get("granite-3-8b").reduced(), cfg, device="cpu")
     tm.load_params(params_from_jax(jax.tree.map(np.asarray, params)))
     topt = momentum_from_jax(jax.tree.map(np.asarray, jopt.acc))
-    tstep = ttrain.make_train_step(tm, cfg, lr=0.05)
-    task = TokenTask(acfg.vocab, 32, 4)
-    b = BOUNDS[name]
-    for s in range(5):
+    tstep = ttrain.make_train_step(tm, cfg, lr=0.05, n_micro=n_micro)
+    task = TokenTask(acfg.vocab, 32, batch)
+    gaps = []
+    for s in range(steps):
         batch = task.batch(s)
         params, jopt, met = jstep(params, jopt,
                                   jax.tree.map(jnp.asarray, batch),
                                   jnp.int32(s))
-        loss = float(tstep(topt, batch, s)["loss"])
+        tmet = tstep(topt, batch, s)
+        assert set(tmet) == set(met)
+        loss = float(tmet["loss"])
         rel = abs(loss - float(met["loss"])) / float(met["loss"])
         d = np.abs(_codes(lambda k: params["layers"][k])
                    - _codes(lambda k: tm.layers[k].detach().numpy()))
-        share, dist = float(np.mean(d > 0)), float(d.max())
-        print(f"{name} step {s + 1}: loss rel {rel:.3e} (bound 2e-3), "
-              f"codes differing {share:.5f}, max distance {dist:.0f}")
-        assert rel <= 2e-3
-        if s == 0:
-            assert share <= 1e-3 and dist <= 26, (share, dist)
-        if s == 4:
-            assert share <= b["share"] and dist <= b["dist"], (share, dist)
+        gaps.append((rel, float(np.mean(d > 0)), float(d.max())))
+        print(f"{name} n_micro {n_micro} step {s + 1}: loss rel {rel:.3e} "
+              f"(bound 2e-3), codes differing {gaps[-1][1]:.5f}, max "
+              f"distance {gaps[-1][2]:.0f}")
+    assert topt.step == steps
+    return gaps
+
+
+@pytest.mark.parametrize("name", ["full8", "e2_16"])
+def test_train_slice_within_bounds(name, exact_pow2):
+    gaps = _trajectory(name, 5)
+    b = BOUNDS[name]
+    assert all(rel <= 2e-3 for rel, _, _ in gaps), gaps
+    assert gaps[0][1] <= 1e-3 and gaps[0][2] <= 26, gaps[0]
+    assert gaps[4][1] <= b["share"] and gaps[4][2] <= b["dist"], gaps[4]
+
+
+# step 1 of each lane: full8's step-1 bound, but for w4a8.  Its 4-bit
+# weights amplify an ulp in the error path into whole Q_E codes: the
+# reference's own jitted and eager runs of step 1 differ by up to 2% of a
+# hidden gradient's largest magnitude there (0 in full8), and the port
+# lands as far from the jitted run (measured 3.6% of the codes, 78 apart)
+STEP1 = {"w4a8": (0.05, 104), "a4": (1e-3, 26), "g16": (1e-3, 26)}
+
+
+@pytest.mark.parametrize("name", ["w4a8", "a4", "g16"])
+def test_preset_train_step_within_bounds(name, exact_pow2):
+    """One step of each bit-width lane beside the reference's: the loss
+    within 2e-3 relative, the codes within STEP1."""
+    (rel, share, dist), = _trajectory(name, 1)
+    assert rel <= 2e-3
+    assert share <= STEP1[name][0] and dist <= STEP1[name][1], (share, dist)
+
+
+def test_n_micro_within_bounds(exact_pow2):
+    """n_micro=2 beside the reference's n_micro=2 (its microbatches scanned,
+    the gradients summed from zeros and halved): 2 steps within the
+    slice's bounds (step 1's, and the 5-step bound of full8 after 2)."""
+    gaps = _trajectory("full8", 2, n_micro=2)
+    assert all(rel <= 2e-3 for rel, _, _ in gaps), gaps
+    assert gaps[0][1] <= 1e-3 and gaps[0][2] <= 26, gaps[0]
+    b = BOUNDS["full8"]
+    assert gaps[1][1] <= b["share"] and gaps[1][2] <= b["dist"], gaps[1]
+
+
+def test_n_micro_one_is_the_plain_step():
+    """n_micro=1 stays what the step was: model.loss, loss.backward() and
+    momentum_update with the step's key, bit for bit."""
+    cfg = preset("full8")
+    models = [build_model(get("granite-3-8b").reduced(), cfg,
+                          device="cpu").init(0) for _ in range(2)]
+    opts = [init_momentum(m.params()) for m in models]
+    step = ttrain.make_train_step(models[0], cfg, lr=0.05, n_micro=1)
+    batch = TokenTask(models[0].a.vocab, 16, 4).batch(3)
+    met = step(opts[0], batch, 3)
+    m = models[1]
+    loss, _ = m.loss(batch)
+    loss.backward()
+    params = m.params()
+    momentum_update(cfg, params, ttrain._grad_tree(params), opts[1],
+                    m.labels(), prng.fold_in(prng.fold_in(
+                        prng.prng_key(ttrain.SEED), 3), 1),
+                    ttrain.fixed_point_lr(0.05, cfg))
+    assert torch.equal(met["loss"], loss.detach())
+    for a, b in zip(flatten(models[0].params()) + flatten(opts[0].acc),
+                    flatten(params) + flatten(opts[1].acc)):
+        assert torch.equal(a, b)
+
+
+def test_n_micro_must_divide_the_batch():
+    cfg = preset("full8")
+    tm = build_model(get("granite-3-8b").reduced(), cfg,
+                     device="cpu").init(0)
+    step = ttrain.make_train_step(tm, cfg, n_micro=3)
+    with pytest.raises(ValueError, match="does not divide"):
+        step(init_momentum(tm.params()), TokenTask(tm.a.vocab, 8, 4).batch(0),
+             0)
+    with pytest.raises(ValueError, match="n_micro=0"):
+        ttrain.make_train_step(tm, cfg, n_micro=0)
 
 
 def test_train_cli_runs_on_cpu(capsys):
@@ -355,24 +440,45 @@ def test_train_cli_runs_on_cpu(capsys):
     assert "step     1 loss" in out and "CQ dr width -> 7 bits" in out
 
 
+def test_train_cli_save_and_resume(capsys, tmp_path):
+    """--save-every 2 over 4 steps, against 2 steps and then --resume to 4
+    in another directory: the step-4 checkpoints are equal bit for bit."""
+    argv = ["--arch", "granite-3-8b", "--reduced", "--batch", "2", "--seq",
+            "8", "--device", "cpu", "--save-every", "2"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    ttrain.main(argv + ["--steps", "4", "--ckpt-dir", a])
+    ttrain.main(argv + ["--steps", "2", "--ckpt-dir", b])
+    assert "resumed" not in capsys.readouterr().out
+    ttrain.main(argv + ["--steps", "4", "--ckpt-dir", b, "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "step     2 loss" in out
+    assert "step     1 loss" not in out
+    for d in (a, b):
+        assert CheckpointManager(d).all_steps() == [2, 4]
+    with np.load(f"{a}/step-0000000004/arrays.npz") as x, \
+            np.load(f"{b}/step-0000000004/arrays.npz") as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            assert x[k].dtype == y[k].dtype
+            assert x[k].tobytes() == y[k].tobytes(), k
+    # --resume without --ckpt-dir is ignored, as in the reference
+    ttrain.main(argv + ["--steps", "1", "--resume"])
+    assert "step     0 loss" in capsys.readouterr().out
+
+
+# the ids the cases had before the ported options' cases went (argv2-4,
+# argv9-10), so each remaining case keeps its name
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "sim"], "item 7"), (["--mode", "fp32"], "item 7"),
-    (["--preset", "w4a8"], "item 7"), (["--preset", "a4"], "item 7"),
-    (["--preset", "g16"], "item 7"), (["--preset", "fp32"], "item 7"),
-    (["--dp", "2"], "item 5"), (["--tp", "2"], "item 5"),
-    (["--elastic"], "item 5"), (["--ckpt-dir", "ck"], "item 1"),
-    (["--resume"], "item 1")])
+    pytest.param(["--mode", "sim"], "item 7", id="argv0-item 7"),
+    pytest.param(["--mode", "fp32"], "item 7", id="argv1-item 7"),
+    pytest.param(["--preset", "fp32"], "item 7", id="argv5-item 7"),
+    pytest.param(["--dp", "2"], "item 5", id="argv6-item 5"),
+    pytest.param(["--tp", "2"], "item 5", id="argv7-item 5"),
+    pytest.param(["--elastic"], "item 5", id="argv8-item 5")])
 def test_unported_training_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(["--arch", "granite-3-8b", "--reduced", "--steps", "1",
                      "--device", "cpu", *argv])
-
-
-def test_microbatching_raises():
-    tm = build_model(get("granite-3-8b").reduced(), preset("full8"),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.make_train_step(tm, preset("full8"), n_micro=2)
 
 
 def test_train_cli_defaults_to_the_card(monkeypatch):

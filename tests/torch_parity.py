@@ -6,7 +6,16 @@ integer k <= -15 and most k >= 13, so the reference's "pow2" scales are not
 always powers of two there).  The port builds its scales from exponent
 bits; with the patch both packages follow the paper's pow2 semantics.  No
 file of the reference package changes.
+
+The reference's module-level `jax.jit`s (e.g. in kernels/paged_attention.py)
+read the patched helpers when they trace, so the patch clears JAX's caches
+before it applies and again after it is undone: no trace made under the
+patch outlives it, and none made without it is reused under it, whatever
+order the test files run in within one process.
 """
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,16 +39,28 @@ def exact_pow2_round(m):
     return jnp.where(m > 0, _pow2_int(ex), 1.0).astype(jnp.float32)
 
 
-@pytest.fixture
-def exact_pow2(monkeypatch):
+@contextlib.contextmanager
+def exact_pow2_patched():
+    """The reference's pow2 helpers made exact inside the block."""
     import repro.core.qfuncs as qf
     import repro.kernels.paged_attention as pa
     import repro.kernels.ref as kref
-    monkeypatch.setattr(qf, "pow2_ceil", exact_pow2_ceil)
-    monkeypatch.setattr(qf, "pow2_round", exact_pow2_round)
-    monkeypatch.setattr(kref, "_pow2_ceil", exact_pow2_ceil)
-    monkeypatch.setattr(pa, "_pow2_ceil", exact_pow2_ceil)
-    yield
+    jax.clear_caches()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(qf, "pow2_ceil", exact_pow2_ceil)
+            mp.setattr(qf, "pow2_round", exact_pow2_round)
+            mp.setattr(kref, "_pow2_ceil", exact_pow2_ceil)
+            mp.setattr(pa, "_pow2_ceil", exact_pow2_ceil)
+            yield
+    finally:
+        jax.clear_caches()
+
+
+@pytest.fixture
+def exact_pow2():
+    with exact_pow2_patched():
+        yield
 
 
 def ubn_rows_ok(got: np.ndarray, want: np.ndarray) -> None:
