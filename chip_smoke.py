@@ -30,8 +30,12 @@ prints no result line:
              (offset positions, leading padding, rows without keys,
              k_a = 4, dh = 64, 3 heads per KV head) with the share
              of tiles it skipped and the exhaustive check of its p codes,
-             K7 page_gather with one pool and with K and V in one
-             launch, head-major (wall time beside device time), K6
+             and at monolithic prefill's shapes (prompts of 100, 37, 256,
+             64 and 1500 tokens: below 512 one kv chunk of T, ragged
+             where T is no multiple of 64), timed at 100 tokens beside
+             SDPA in bf16, K7 page_gather with one pool (4 lanes x 128
+             pages, the unfused decode route's call) and with K and V in
+             one launch, head-major (wall time beside device time), K6
              paged_attention at 4 lanes over 512 positions and 16 lanes
              over 2048 with its device time, the sweep's edge cases and
              a profiler listing of one call's launches, K8
@@ -53,6 +57,18 @@ prints no result line:
              must give the same tokens and logits; then a torch.profiler
              breakdown of the decode step, and of one prefill page (one
              K7 launch a layer, no aten::copy_ inside its contractions).
+  3b. serve_mono  the serve phase's model on the engine's default,
+             monolithic prefill (max_ctx 2048, one more prompt of 1500
+             tokens): greedy (K5 flash_attention, K1, K2, K4, K6 launched;
+             no K7 in decode steps), tokens equal to the plain versions'
+             run on the card and the first logits of the 100- and
+             1500-token prompts at distance 0; sampled at temperature 0.7,
+             top-k 50, tokens equal to the plain run's; chunked prefill
+             with the radix cache over 6 shared-prefix requests on one
+             lane (hit rate > 0, tokens equal to the run without the
+             cache); fuse_kernels=False (K7 launched and K6 not in decode
+             steps, tokens equal to the fused run's); defrag() after step
+             3 (pages moved, tokens equal to the run without it).
   4. train   `repro_torch.launch.train.make_train_step` on granite-3-8b at
              full width, 4 of 40 layers, seed 0, full8 native, one
              TokenTask ("arith") sequence of the train_4k length (batch 1 x
@@ -102,7 +118,9 @@ prints no result line:
              ubn_norm launches > 0); the same requests through the plain
              versions on the card, which must give the same tokens and
              first-step logits; a torch.profiler breakdown of the decode
-             step and of one prefill page, each with K9's device time.
+             step and of one prefill page, each with K9's device time; then
+             the same requests through monolithic prefill (K9 over each
+             whole prompt), kernels against the plain versions.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -564,6 +582,53 @@ def kernel_rows() -> None:
                                 enable_gqa=True), 5),
            max_err(got, want), "train")
 
+    # ---- K5 at monolithic prefill's shapes (the serve_mono phase's
+    # prompts): a prompt shorter than the kv chunk is one ragged chunk
+    # (kv_chunk = T, padded inside with absent keys); 1500 tokens run q
+    # chunks of 1024 and kv chunks of 512, padded as _FlashFused pads them
+    log("[kernels] K5 flash_attention at the prefill shapes (bitwise)")
+
+    def prefill_args(t):
+        qc, kc = min(1024, t), min(512, t)
+        sp, tp = -t % qc, -t % kc
+        ar = torch.arange(t, device=dev, dtype=torch.int32)
+        zq = torch.zeros(sp, device=dev, dtype=torch.int32)
+        zk = torch.zeros(tp, device=dev, dtype=torch.int32)
+        return ((i8(1, t + sp, h, dh), i8(1, t + tp, kvh, dh),
+                 i8(1, t + tp, kvh, dh), torch.cat([ar, zq]),
+                 torch.cat([ar, zk]), torch.cat([torch.ones_like(ar), zk]),
+                 *scs),
+                dict(causal=True, sm_scale=dh ** -0.5, q_chunk=qc,
+                     kv_chunk=kc))
+
+    for t in MONO_PROMPT_LENS:
+        pa, pk = prefill_args(t)
+        before = ops.LAUNCHES["flash_attention"]
+        assert torch.equal(ops.flash_attention(*pa, **pk),
+                           ref.flash_attention(*pa, **pk)), \
+            f"flash_attention (prefill of {t} tokens) differs"
+        assert ops.LAUNCHES["flash_attention"] == before + 1, \
+            f"flash_attention (prefill of {t} tokens) did not launch"
+    log(f"  bitwise at prompts of {MONO_PROMPT_LENS} tokens (below 512 one "
+        f"kv chunk of T; 100 and 37 ragged, padded inside)")
+    pa, pk = prefill_args(100)
+    got, want = ops.flash_attention(*pa, **pk), ref.flash_attention(*pa, **pk)
+    qb, kb_, vb = ((x.float() * c).to(torch.bfloat16).transpose(1, 2)
+                   for x, c in zip(pa[:3], scs))
+    record("flash_attention_prefill",
+           "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/paged_attention.py:304",
+           time_ms(lambda: ops.flash_attention(*pa, **pk)),
+           time_ms(lambda: ref.flash_attention(*pa, **pk), 5),
+           pa[0].numel() + 2 * pa[1].numel() + 4 * got.numel(),
+           2 * 2 * (100 * 101 // 2) * h * dh, INT8_OPS,
+           time_ms(lambda: sdpa(qb, kb_, vb, is_causal=True,
+                                enable_gqa=True)),
+           max_err(got, want), ("serve_mono", "flash_attention"),
+           device_ms=device_ms(lambda: ops.flash_attention(*pa, **pk)),
+           note="monolithic prefill of 100 tokens: 1 x 100, 32/8 heads of "
+                "128, kv_chunk 100; library: SDPA bf16")
+
     # ---- K2 quantize: the largest per-forward weight (Q_W of w_gate)
     log("[kernels] K2 quantize (bitwise)")
     w = f32(4096, 12800) * 0.02
@@ -733,16 +798,22 @@ def kernel_rows() -> None:
            device_ms=device_ms(kv_call),
            note=f"K and V of 32 pages, head-major; library: two indexings "
                 f"plus permute, device {device_ms(kv_index):.4f} ms")
+    # one pool at the unfused decode route's shape (serve_mono phase): 4
+    # lanes' tables of 128 pages (max_ctx 2048) over a layer's 513 pages
+    upages = i8(513, 16, 8, 128)
+    t4 = torch.randperm(512, generator=g, device=dev).reshape(4, 128)
+    t4 = (t4 + 1).to(torch.int32)
     record("page_gather_one_pool", "src/repro_torch/csrc/page_gather.cu",
            "src/repro/kernels/page_gather.py:48",
-           time_ms(lambda: ops.page_gather(pages, t1)),
-           time_ms(lambda: ref.page_gather(pages, t1)),
-           2 * 32 * page_bytes + 4 * 32, 0, FP32_OPS,
-           time_ms(lambda: pages[t1.long()]),
-           max_err(ops.page_gather(pages, t1), ref.page_gather(pages, t1)),
-           ("none", "page_gather"),
-           device_ms=device_ms(lambda: ops.page_gather(pages, t1)),
-           note="32 pages of one pool (no path calls it so)")
+           time_ms(lambda: ops.page_gather(upages, t4)),
+           time_ms(lambda: ref.page_gather(upages, t4)),
+           2 * 512 * page_bytes + 4 * 512, 0, FP32_OPS,
+           time_ms(lambda: upages[t4.long()]),
+           max_err(ops.page_gather(upages, t4), ref.page_gather(upages, t4)),
+           ("serve_mono", "page_gather_unfused_decode"),
+           device_ms=device_ms(lambda: ops.page_gather(upages, t4)),
+           note="one pool, 4 lanes x 128 pages (the unfused decode route's "
+                "call); launches: the unfused run's decode steps")
 
     # ---- K6 paged_attention: 4 decode lanes of 32 heads over 8 KV heads
     # (T 512), edge cases of the sweep, and 16 lanes at long context.
@@ -932,7 +1003,14 @@ SERVE_KERNELS = ("qmatmul", "quantize", "ubn_norm", "page_gather",
                  "paged_attention")
 SSM_KERNELS = ("qmatmul", "quantize", "ubn_norm", "selective_scan")
 NEW_TOKENS = 16
-ENGINE_KW = dict(max_lanes=4, page_size=16, max_ctx=512)
+ENGINE_KW = dict(max_lanes=4, page_size=16, max_ctx=512,
+                 prefill_mode="chunked")
+# serve_mono: monolithic prefill (the engine's default), one more prompt of
+# 1500 tokens, so the context grows to 2048
+MONO_PROMPT_LENS = PROMPT_LENS + (1500,)
+MONO_KW = dict(max_lanes=4, page_size=16, max_ctx=2048)
+MONO_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention",
+                "paged_attention")
 
 
 def _serve(engine, prompts):
@@ -971,6 +1049,58 @@ def first_logits(model, prompt):
     return model.prefill_page(model.init_slots(1), tok)[0][0, :a.vocab]
 
 
+def count_decode(eng) -> dict:
+    """Launch counts inside `eng`'s decode steps: counted around its decode
+    call, into the returned dict."""
+    from repro_torch.kernels import ops
+    counts = dict.fromkeys(ops.LAUNCHES, 0)
+    inner = eng._decode
+
+    def counted():
+        before = dict(ops.LAUNCHES)
+        res = inner()
+        for k in counts:
+            counts[k] += ops.LAUNCHES[k] - before[k]
+        return res
+
+    eng._decode = counted
+    return counts
+
+
+def kernels_vs_plain(tag: str, what: str, model, kw: dict, prompts,
+                     kernels=(), toks=None) -> list:
+    """The same requests through `Engine(model, **kw)` on the kernels
+    (unless their tokens `toks` are given, from a run whose launches were
+    checked) and through the plain versions on the card: every kernel of
+    `kernels` launched in the kernels' run, none in the plain run, and
+    equal tokens.  Returns the kernels' tokens."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    if toks is None:
+        before = dict(ops.LAUNCHES)
+        toks = _serve(Engine(model, **kw), prompts)
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+               if v > before[k]}
+        log(f"[{tag}] {what}: kernel launches in the kernels' run {ran}")
+        for k in kernels:
+            assert ran.get(k, 0) > 0, f"{what}: kernel {k} was never " \
+                f"launched in the kernels' run"
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    with ops.plain_reference():
+        ptoks = _serve(Engine(model, **kw), prompts)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before, "the plain run launched a kernel"
+    eq = np.mean([x == y for t, u in zip(toks, ptoks) for x, y in zip(t, u)])
+    log(f"[{tag}] {what}: plain versions on the card {time.time() - t0:.1f} "
+        f"s; equal tokens {eq:.3f}")
+    assert eq == 1.0, f"{what}: the kernels' tokens differ from the plain " \
+        f"versions'"
+    return toks
+
+
 def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
     """Serve PROMPT_LENS through `make_engine(arch, reduced=False,
     n_layers=4)`, check the kernels' launches, then the same requests and
@@ -992,18 +1122,7 @@ def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
     prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
                for n in PROMPT_LENS]
 
-    # per-decode-step launch counts: count around the engine's decode call
-    decode_counts = dict.fromkeys(ops.LAUNCHES, 0)
-    inner = eng._decode
-
-    def counted():
-        before = dict(ops.LAUNCHES)
-        res = inner()
-        for k in decode_counts:
-            decode_counts[k] += ops.LAUNCHES[k] - before[k]
-        return res
-
-    eng._decode = counted
+    decode_counts = count_decode(eng)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.time()
@@ -1082,6 +1201,11 @@ def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
         with_profile(lambda: model.prefill_page(slots, tok),
                      "prefill page (16 tokens, zero slot)",
                      {"K9 (sscan_*)": "sscan_"})
+    if not eng.paged:   # the dense family's monolithic admission (K9 over
+        # each whole prompt in train mode) against the plain versions
+        kernels_vs_plain(tag, "monolithic prefill", model,
+                         dict(ENGINE_KW, prefill_mode="monolithic"), prompts,
+                         kernels)
     for k, v in decode_counts.items():
         launches[f"{k}_decode"] = v
     return launches
@@ -1093,6 +1217,146 @@ def phase_serve() -> dict:
     launches = phase_engine("serve", "granite-3-8b", 40, SERVE_KERNELS)
     launches["qmatmul_prefill"] = launches["qmatmul"] \
         - launches["qmatmul_decode"]
+    return launches
+
+
+def phase_serve_mono() -> dict:
+    """granite-3-8b at full width, 4 layers, on the engine's default
+    monolithic prefill: greedy, sampled, chunked with the radix cache, the
+    unfused decode route and a defrag, each held against the plain
+    versions or against the run it must equal.  Returns the greedy run's
+    launches, plus "page_gather_unfused_decode" (K7 one-pool launches in
+    the unfused run's decode steps)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, make_engine, shared_prefix_traffic
+    tag = "serve_mono"
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine("granite-3-8b", reduced=False, n_layers=4,
+                      device="cuda", seed=0, **MONO_KW)
+    model, a = eng.model, eng.model.a
+    log(f"[{tag}] {describe(model, 40)}; engine {MONO_KW} (monolithic "
+        f"prefill, the default), pool {eng.pool.report()['pool_bytes_int8']}"
+        f" B; built in {time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+               for n in MONO_PROMPT_LENS]
+
+    # (1) greedy: the main path's run, counted
+    decode_counts = count_decode(eng)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    toks = _serve(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(ops.LAUNCHES)
+    met = eng.metrics()
+    log(f"[{tag}] greedy: {len(prompts)} requests, prompts "
+        f"{MONO_PROMPT_LENS}, {NEW_TOKENS} new tokens each: wall {wall:.3f}"
+        f" s, prefill {met['prefill_wall_s']:.3f} s ({met['prefill_tokens']}"
+        f" tokens), decode {met['decode_wall_s']:.3f} s over "
+        f"{met['decode_steps']} steps, TTFT mean "
+        f"{1e3 * met['ttft_mean_s']:.1f} ms (max "
+        f"{1e3 * met['ttft_max_s']:.1f}), TPOT mean "
+        f"{1e3 * met['tpot_mean_s']:.2f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[{tag}] kernel launches in the run: {launches}")
+    log(f"[{tag}] kernel launches in decode steps: {decode_counts}")
+    for k in MONO_KERNELS:
+        assert launches[k] > 0, f"kernel {k} was never launched on the " \
+            f"{tag} path"
+    assert decode_counts["page_gather"] == 0, "fused decode gathered pages"
+    for t in toks:
+        assert len(t) == NEW_TOKENS and all(0 <= x < a.vocab for x in t)
+    kernels_vs_plain(tag, "greedy", model, MONO_KW, prompts, toks=toks)
+    for p in (prompts[0], prompts[4]):     # a ragged chunk; 2 x 3 chunks
+        tok = torch.as_tensor(p[None], device="cuda")
+        lk = model.prefill(tok, len(p) + 16)[1][0, :a.vocab]
+        with ops.plain_reference():
+            lp = model.prefill(tok, len(p) + 16)[1][0, :a.vocab]
+        dist = float((lk - lp).abs().max())
+        log(f"[{tag}] first logits of a {len(p)}-token prompt: max |kernel "
+            f"- plain| {dist:.3e}, argmax {int(lk.argmax())} vs "
+            f"{int(lp.argmax())}")
+        assert bool(torch.isfinite(lk).all()), "non-finite logits"
+        assert dist == 0.0, "monolithic prefill logits differ"
+
+    # (2) temperature 0.7, top-k 50
+    skw = dict(MONO_KW, temperature=0.7, top_k=50)
+    stoks = kernels_vs_plain(tag, "sampled (temperature 0.7, top-k 50)",
+                             model, skw, prompts, MONO_KERNELS)
+    log(f"[{tag}] sampled tokens differing from greedy: "
+        f"{np.mean([x != y for t, u in zip(stoks, toks) for x, y in zip(t, u)]):.3f}")
+
+    # (3) chunked prefill with the radix cache on shared-prefix traffic,
+    # one lane, one request at a time (the same batches with and without
+    # the cache), against the same requests without it
+    rkw = dict(max_lanes=1, page_size=16, max_ctx=2048,
+               prefill_mode="chunked")
+    traffic = shared_prefix_traffic(rate=1.0, n_requests=6, sharing=0.75,
+                                    prefix_len=64, n_prefixes=2,
+                                    tail_lens=(7, 20), gen_lens=(8,),
+                                    vocab=a.vocab, seed=0)
+
+    def sequential(e):
+        out = []
+        for r in traffic:
+            rid = e.submit(r["prompt"], r["max_new"])
+            out.append(e.drain()[rid])
+        return out
+
+    on = Engine(model, radix_cache=True, **rkw)
+    t0 = time.time()
+    r_on = sequential(on)
+    rm = on.metrics()
+    r_off = sequential(Engine(model, **rkw))
+    eq = np.mean([x == y for t, u in zip(r_on, r_off) for x, y in zip(t, u)])
+    log(f"[{tag}] radix cache, {len(traffic)} shared-prefix requests "
+        f"(prefix 64 of {[len(r['prompt']) for r in traffic]} tokens): hit "
+        f"rate {rm['prefix_hit_rate']:.3f} ({rm['radix']}); equal tokens to "
+        f"the run without the cache {eq:.3f} ({time.time() - t0:.1f} s)")
+    assert rm["prefix_hit_rate"] > 0, "the radix cache served no page"
+    assert eq == 1.0, "the radix cache changed the tokens"
+
+    # (4) the unfused decode route (K7 gather + decode_attention on K1)
+    fused_q = model.q
+    model.q = fused_q.replace(fuse_kernels=False)
+    try:
+        ue = Engine(model, **MONO_KW)
+        udec = count_decode(ue)
+        utoks = _serve(ue, prompts)
+    finally:
+        model.q = fused_q
+    log(f"[{tag}] fuse_kernels=False: decode-step launches page_gather "
+        f"{udec['page_gather']}, paged_attention {udec['paged_attention']},"
+        f" qmatmul {udec['qmatmul']}; equal tokens to the fused run "
+        f"{float(utoks == toks):.3f}")
+    assert udec["page_gather"] > 0 and udec["paged_attention"] == 0, \
+        "the unfused decode route did not gather or ran the fused kernel"
+    assert utoks == toks, "the unfused decode route changed the tokens"
+    launches["page_gather_unfused_decode"] = udec["page_gather"]
+
+    # (5) defrag between steps: the 37-token request stops after 4 tokens,
+    # leaving its low pages free under the others', then the pool compacts
+    news = [NEW_TOKENS, 4, NEW_TOKENS, NEW_TOKENS, NEW_TOKENS]
+    outs, moves = [], 0
+    for with_defrag in (True, False):
+        de = Engine(model, **MONO_KW)
+        rids = [de.submit(p, n) for p, n in zip(prompts, news)]
+        for _ in range(3):
+            de.step()
+        if with_defrag:
+            moves = de.defrag()
+        res = de.drain()
+        outs.append([res[r] for r in rids])
+    log(f"[{tag}] defrag after step 3: {moves} pages moved; equal tokens to "
+        f"the run without it {float(outs[0] == outs[1]):.3f}")
+    assert moves > 0, "defrag moved no page"
+    assert outs[0] == outs[1], "defrag changed the tokens"
+    for k, v in decode_counts.items():
+        launches[f"{k}_decode"] = v
     return launches
 
 
@@ -1749,8 +2013,8 @@ def main() -> int:
     t0 = time.time()
     card = phase_build()
     phase_kernels()
-    runs = {"serve": phase_serve(), "train": phase_train(),
-            "resnet": phase_resnet()}
+    runs = {"serve": phase_serve(), "serve_mono": phase_serve_mono(),
+            "train": phase_train(), "resnet": phase_resnet()}
     phase_ckpt()
     runs.update(ssm=phase_ssm(), none={})
     for r in RESULTS:

@@ -89,3 +89,16 @@ def uniform(key: tuple[int, int], shape, device="cpu") -> Tensor:
     for s in shape:
         n *= int(s)
     return uniform_flat(key, 0, n, device).reshape(tuple(shape))
+
+
+def gumbel(key: tuple[int, int], shape, device="cpu") -> Tensor:
+    """jax.random.gumbel(key, shape, float32) (its default mode, which
+    `jax.random.categorical` draws): -log(-log(u)) of the uniform u on
+    [tiny, 1), u = max(tiny, f * (1 - tiny) + tiny) for the uniform bits'
+    float f, as `jax.random.uniform(minval=tiny, maxval=1)` forms it.  The
+    logs are PyTorch's fp32 logs (XLA's may differ in the last place)."""
+    tiny = torch.finfo(torch.float32).tiny
+    f = uniform(key, shape, device)
+    u = torch.clamp_min(f * torch.tensor(1.0 - tiny, dtype=torch.float32)
+                        + tiny, tiny)
+    return -torch.log(-torch.log(u))

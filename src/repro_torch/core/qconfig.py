@@ -14,9 +14,14 @@ Per-path quantizers are `QuantSpec`s resolved through the registry
 are the reference's deprecated string aliases, reconciled with the specs in
 `__post_init__` exactly as the reference does.
 
-The port runs native mode only (int8/int16 payloads, integer dots) and
-always takes the fused kernels, so the reference's `fuse_kernels` switch
-has no counterpart.  Presets: `full8` and `e2_16` (the paper's two
+The port runs native mode only (int8/int16 payloads, integer dots).
+`fuse_kernels` (default True, as in the reference) picks the paged decode
+attention's route: the fused paged_attention kernel (K6), or
+gather-then-attend (page_gather, K7, then `decode_attention`, whose dots
+run on K1), the same bits either way.  Unlike the reference's, it leaves
+the other ops alone: the attention forward of training and of monolithic
+prefill always runs the flash kernel (K5), the norms K4 and the backward
+dots K3.  Presets: `full8` and `e2_16` (the paper's two
 versions) and the bit-width lanes `w4a8`, `a4` and `g16`; `fp32` raises
 NotImplementedError naming its ROADMAP item.
 """
@@ -94,6 +99,10 @@ class QConfig:
     # carrier dtype of the SSM scan's inputs and state: "f32" only
     # ("bf16" raises in validate())
     scan_dtype: str = "f32"
+
+    # paged decode attention through the fused kernel (K6) or gather-then-
+    # attend (K7 + K1)
+    fuse_kernels: bool = True
 
     def __post_init__(self):
         set_ = lambda n, v: object.__setattr__(self, n, v)  # noqa: E731

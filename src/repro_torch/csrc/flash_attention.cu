@@ -1,9 +1,10 @@
 // K5: tiled online-softmax attention on int8 payloads (training forward).
 //
 // Replaces repro/kernels/paged_attention.py::flash_attention (_flash_kernel
-// and _tile_dots).  On this slice it is the attention forward of every
-// layer of the training step (chunked_attention's fused route); the
-// backward is autograd of the plain chunked body, as in the reference.
+// and _tile_dots).  It is the attention forward of every layer of the
+// training step and of the serving engine's monolithic prefill
+// (chunked_attention's fused route); the backward is autograd of the plain
+// chunked body, as in the reference.
 //
 // The TPU kernel holds a whole (B, q_chunk, heads) block per grid step, so
 // it derives every per-chunk grid decomposition (q, k, v and the
@@ -63,6 +64,12 @@
 //     row whose m_j is still NEG_INF gets p = 1 for masked keys, as the
 //     plain version does.  Tiles with every key valid and wholly below
 //     the diagonal skip the mask test.
+//   * A prompt shorter than the kv chunk is one ragged chunk (T no
+//     multiple of 64); ops.flash_attention pads it to the next multiple of
+//     64 with zero payloads marked absent (kval -1).  Zeros change no
+//     chunk's amax, an absent key's score is masked, and its p code is 0
+//     even in a row whose m_j is still NEG_INF, so the result is the plain
+//     version's at kv_chunk = T.
 //   * p's code rint(exp(x) 2^(k_a-1)) (x = s - m_j) comes from a fast exp2
 //     guess corrected against exact thresholds (pcode below): no float64
 //     exp per score, and the same code as the float64 exp for every fp32
@@ -85,7 +92,7 @@ struct FaArgs {
     const int8_t* v8;       // (B, T, KV, dh)
     const int32_t* qpos;    // (S,)
     const int32_t* kpos;    // (T,)
-    const int32_t* kval;    // (T,)
+    const int32_t* kval;    // (T,) 1 valid, 0 masked, -1 absent
     const float* scales;    // [q_scale, k_scale, v_scale]
     int* stat;              // chunk statistics, zeroed by fa_init: the
                             // largest |payload| of each q chunk (nq), k
@@ -323,7 +330,7 @@ __global__ void __launch_bounds__(256) fa_prep_kv(FaArgs a) {
         for (int h = 0; h < 2; ++h) {
             const int t = t0 + threadIdx.x + 32 * h;
             const int kp = a.kpos[t];
-            if (a.kval[t] != 0) kmin = min(kmin, kp);
+            if (a.kval[t] > 0) kmin = min(kmin, kp);
             else all = 0;
             kmax = max(kmax, kp);
         }
@@ -522,22 +529,23 @@ __global__ void __launch_bounds__(NTHREADS, 1) fa_kernel(FaArgs a) {
                 __syncwarp();
                 if (lane == 0) mbar_arrive(&empty[s]);
             }
-            // the mask of this thread's 16 keys (partial tiles only)
-            bool ok[2][16];
+            // the mask of this thread's 16 keys (partial tiles only), and
+            // which of them are absent (padding past a ragged chunk)
+            bool ok[2][16], gone[16];
             const int t0 = tt * 64;
 #pragma unroll
             for (int c = 0; c < 16; ++c) {
                 const int t = t0 + (c >> 1) * 8 + tg * 2 + (c & 1);
-                bool kv = true;
-                int kp = 0;
+                int kv = 1, kp = 0;
                 if (cat_t != FULL) {
-                    kv = a.kval[t] != 0;
+                    kv = a.kval[t];
                     kp = a.kpos[t];
                 }
+                gone[c] = kv < 0;
 #pragma unroll
                 for (int rr = 0; rr < 2; ++rr)
                     ok[rr][c] = cat_t == FULL
-                        || (kv && (!a.causal || qp[rr] >= kp));
+                        || (kv > 0 && (!a.causal || qp[rr] >= kp));
             }
             uint32_t pb[32];
 #pragma unroll
@@ -550,8 +558,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) fa_kernel(FaArgs a) {
                     mx[rr] = fmaxf(mx[rr], sc);
                     continue;
                 }
-                // p onto the Q_A grid (unnormalized) and its payload
-                const int n = pcode(__fsub_rn(sc, mj[rr]), a.ps, ips, thr);
+                // p onto the Q_A grid (unnormalized) and its payload; an
+                // absent key adds nothing, even to a row whose m_j is
+                // still NEG_INF
+                const int n = gone[c] ? 0
+                    : pcode(__fsub_rn(sc, mj[rr]), a.ps, ips, thr);
                 nsum[rr] += n;
                 pb[e] = (uint32_t)min(n * cmul[rr], ips - 1);
             }
@@ -695,7 +706,8 @@ static int run_dh(const FaArgs& a, dim3 grid, cudaStream_t st) {
 // phase 2: the chunk statistics and the operand pass (fa_init, fa_amax,
 // the Q, K and V^T tiles and the tile summary); phase 0: statistics (the
 // running max mrun and the probability amaxes); phase 1: main pass (out).
-// S, T multiples of qc and kc, kc a multiple of 64, dh in {32, 64, 96,
+// S, T multiples of qc and kc, kc a multiple of 64 (kval: 1 valid, 0
+// masked, -1 absent), dh in {32, 64, 96,
 // 128}, the heads a multiple of KV; q8, k8, v8 16-byte aligned.  ps =
 // 2^(k_a-1), lim = ps - 1.  Scratch: stat nq + 2 nk + nq nk ints, pthr 130
 // floats, tinfo nt int4, qr/kr/vt the tiles (ops.flash_attention sizes

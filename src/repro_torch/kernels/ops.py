@@ -828,6 +828,13 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
     slots; q/k/v_scale: pow2 payload scales; q_chunk/kv_chunk: the
     quantization chunks.  Returns (B, S, H, dh) f32, the pre-Q_A output.
 
+    The kernel takes kv_chunk a multiple of 64, or one ragged chunk
+    (kv_chunk == T, a monolithic prefill's prompt shorter than the chunk):
+    that one is padded here to the next multiple of 64 with zero payloads
+    marked absent (k_valid -1 to the kernel), which changes no chunk amax
+    and adds nothing to any sum, so the result is the plain version's at
+    kv_chunk = T bit for bit.
+
     On the card, six launches (csrc/flash_attention.cu): the chunk
     statistics' init and each q, k and v chunk's payload amax (its grid
     step), the operand pass (q, k and v regridded once into the kernel's
@@ -852,10 +859,22 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
           and h % kv == 0, "flash_attention head shapes")
     _need(s % q_chunk == 0 and t % kv_chunk == 0,
           "flash_attention operands must be padded to chunk multiples")
-    _need(kv_chunk % 64 == 0 and dh % 32 == 0 and dh <= 128,
-          f"flash_attention kernel takes kv_chunk % 64 == 0 and dh in "
-          f"(32, 64, 96, 128) (got kv_chunk={kv_chunk}, dh={dh})")
+    _need((kv_chunk % 64 == 0 or kv_chunk == t) and dh % 32 == 0
+          and dh <= 128,
+          f"flash_attention kernel takes kv_chunk % 64 == 0 or one kv chunk, "
+          f"and dh in (32, 64, 96, 128) (got kv_chunk={kv_chunk}, T={t}, "
+          f"dh={dh})")
     dev = q8.device
+    kvl = (k_valid != 0).to(device=dev, dtype=torch.int32)
+    pad = -t % 64 if kv_chunk % 64 else 0
+    if pad:     # one ragged chunk: absent keys up to a multiple of 64
+        zeros = torch.zeros((b, pad, kv, dh), dtype=torch.int8, device=dev)
+        k8, v8 = torch.cat([k8, zeros], 1), torch.cat([v8, zeros], 1)
+        k_pos = torch.cat([k_pos.to(device=dev, dtype=torch.int32),
+                           torch.zeros(pad, dtype=torch.int32, device=dev)])
+        kvl = torch.cat([kvl, torch.full((pad,), -1, dtype=torch.int32,
+                                         device=dev)])
+        t = kv_chunk = t + pad
     nq, nk = s // q_chunk, t // kv_chunk
     nrb, nt = -(-s * (h // kv) // 128), t // 64
     _need(nrb < 65536 and kv < 65536 and b * max(nq, nk) < 65536,
@@ -879,7 +898,7 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
     m = torch.empty((b, s, h, nk), dtype=torch.float32, device=dev)
     out = torch.empty((b, s, h, dh), dtype=torch.float32, device=dev)
     s_ = 2.0 ** (k_a - 1)
-    qp, kp, kvl = i32(q_pos), i32(k_pos), i32(k_valid)
+    qp, kp, kvl = i32(q_pos), i32(k_pos), kvl.contiguous()
     sc = torch.stack(scales)
     args = [_ptr(x) for x in (qc8, kc8, vc8, qp, kp, kvl, sc, m, out, qr, kr,
                               vt, tinfo, pthr, stat, visits)]

@@ -17,7 +17,7 @@ once the contraction is longer than 516.
 Rounding is half to even (`torch.round`), as `jnp.round` and CUDA `rintf`.
 
 The fp32 divisions, square roots and exponentials of K4 and K6 are taken in
-float64 and rounded once to fp32 (`_div32`, `_sqrt32`, `_exp32`), as the
+float64 and rounded once to fp32 (`core/numerics.py`), as the
 kernels take them: a division or sqrt rounded so is the correctly rounded
 fp32 result (53 >= 2 * 24 + 2 bits), so the two sides agree bit for bit on
 the card however PyTorch and the kernels' build compile fp32 `expf`, `/`
@@ -26,6 +26,11 @@ and `sqrtf`.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.numerics import div32 as _div32
+from repro_torch.core.numerics import exp32 as _exp32
+from repro_torch.core.numerics import sqrt32 as _sqrt32
+from repro_torch.core.numerics import sum64 as _sum64
 
 Tensor = torch.Tensor
 
@@ -135,26 +140,6 @@ def wgrad(a8: Tensor, g: Tensor, scal: Tensor, *, mode: str,
 # --------------------------------------------------------------------------
 # K4 ubn_norm (repro/kernels/ubn.py)
 # --------------------------------------------------------------------------
-
-
-def _sum64(x64: Tensor, dim: int) -> Tensor:
-    """A float64 sum rounded once to fp32: the statistic the kernels compute
-    too, whatever their summation order (x*x is exact in float64)."""
-    return torch.sum(x64, dim=dim, keepdim=True).float()
-
-
-def _div32(a, b: Tensor) -> Tensor:
-    """fp32 a / b, correctly rounded (through float64)."""
-    a = a.double() if isinstance(a, Tensor) else a
-    return (a / b.double()).float()
-
-
-def _sqrt32(x: Tensor) -> Tensor:
-    return torch.sqrt(x.double()).float()
-
-
-def _exp32(x: Tensor) -> Tensor:
-    return torch.exp(x.double()).float()
 
 
 def _qd(x: Tensor, k: int) -> Tensor:

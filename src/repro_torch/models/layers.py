@@ -1,7 +1,8 @@
 """Model building blocks: RoPE, chunked online-softmax attention for
-training (the fused flash kernel forward, autograd of the plain chunked
-body backward), paged int8 attention for serving (chunked prefill and
-decode), the int8 KV page writes, SwiGLU, the norm and the loss's target
+training and monolithic prefill (the fused flash kernel forward, autograd
+of the plain chunked body backward), int8 attention for serving (chunked
+prefill pages, and decode against the pages fused or gathered, or against
+a dense cache), the int8 KV writes, SwiGLU, the norm and the loss's target
 gather.
 
 Port of `repro.models.layers`, with the reference's layouts at every
@@ -21,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core import qact, qdense, qlayernorm, qprobs, qrmsnorm
+from repro_torch.core.numerics import div32, exp32, sum64
 from repro_torch.core.qconfig import QConfig
 from repro_torch.core.qdense import qeinsum
 from repro_torch.core.qtensor import QTensor, qt_carrier
@@ -222,20 +224,60 @@ class _FlashFused(torch.autograd.Function):
         return (dq, dk, dv) + (None,) * 9
 
 
+def decode_attention(cfg: QConfig, q, k, v, *, q_pos: Tensor,
+                     t_valid) -> QTensor:
+    """Single-step attention against a full int8 KV cache.
+
+    q: (B, 1, H, dh); k/v: (B, T, KV, dh) QTensors straight from the int8
+    cache (`kv_qtensor`: their payloads feed the integer dots, K1, with no
+    dequantize round trip).  Positions past q_pos or at/after t_valid are
+    masked; the normalized probabilities go onto the k_A grid.  The exp,
+    the row sum and the division are taken in float64 and rounded once, as
+    the fused route (K6 and its plain version) takes them, so the two
+    routes give the same bits (the reference's fp32 ones are within an
+    ulp)."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    qr = q.reshape(b, s, kv, h // kv, dh)
+    sc = _attn_scores(cfg, qr, k) * (1.0 / math.sqrt(dh))   # (B,1,KV,G,T)
+    kp = torch.arange(t, device=sc.device)
+    mask = (kp[None, :] <= q_pos[:, None]) & (kp[None, :] < t_valid)
+    sc = torch.where(mask[:, None, None, None, :], sc,
+                     torch.full_like(sc, NEG_INF))
+    m = torch.amax(sc, dim=-1, keepdim=True)
+    p = exp32(sc - m)
+    p = qprobs(cfg, div32(p, sum64(p.double(), -1)))
+    out = _attn_out(cfg, p, v).reshape(b, s, h, dh)
+    return qact(cfg, "none", out)
+
+
 def paged_decode_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
                            v_pages: Tensor, table: Tensor, k_scale, v_scale,
                            *, q_pos: Tensor, t_valid) -> QTensor:
-    """Single-step attention against the PAGED int8 KV cache (one layer):
-    the fused two-pass paged_attention kernel (K6) streams the lanes'
-    pages, so the gathered KV never exists.  q: (B, 1, H, dh) QTensor;
-    k_pages/v_pages: (P, page, KV, dh) int8; table: (B, NB)."""
+    """Single-step attention against the PAGED int8 KV cache (one layer).
+    q: (B, 1, H, dh) QTensor; k_pages/v_pages: (P, page, KV, dh) int8;
+    table: (B, NB).
+
+    With `cfg.fuse_kernels` and a single-token int8 query the fused
+    two-pass paged_attention kernel (K6) streams the lanes' pages, so the
+    gathered KV never exists.  Otherwise the unfused route gathers each
+    pool (one page_gather, K7, per pool, as the reference does) and runs
+    `decode_attention`: the same numbers.  (The reference also asks a TPU
+    VMEM budget, `paged_attention_fits`; K6 sweeps any context, so the port
+    does not.)"""
     b, s, h, dh = q.shape
-    if s != 1:
-        raise ValueError(f"decode attention takes one token per lane, got {s}")
-    out = ops.paged_attention(
-        q.data.reshape(b, h, dh), k_pages, v_pages, table, q_pos, t_valid,
-        q.scale, k_scale, v_scale, sm_scale=1.0 / math.sqrt(dh), k_a=cfg.k_a)
-    return qact(cfg, "none", out.reshape(b, s, h, dh))
+    if cfg.fuse_kernels and s == 1 and _payload8(q):
+        out = ops.paged_attention(
+            q.data.reshape(b, h, dh), k_pages, v_pages, table, q_pos,
+            t_valid, q.scale, k_scale, v_scale, sm_scale=1.0 / math.sqrt(dh),
+            k_a=cfg.k_a)
+        return qact(cfg, "none", out.reshape(b, s, h, dh))
+    t = table.shape[1] * k_pages.shape[1]
+    k8 = ops.page_gather(k_pages, table).reshape(b, t, *k_pages.shape[2:])
+    v8 = ops.page_gather(v_pages, table).reshape(b, t, *v_pages.shape[2:])
+    return decode_attention(cfg, q, kv_qtensor(k8, k_scale),
+                            kv_qtensor(v8, v_scale), q_pos=q_pos,
+                            t_valid=t_valid)
 
 
 def paged_prefill_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
@@ -281,6 +323,23 @@ def kv_quantize(x: QTensor, step) -> Tensor:
     """Payload on the int8 cache grid: a pow2 requantize of the QTensor's
     payload saturating to int8 (no amax pass)."""
     return x.requantize(step, k=8)
+
+
+def kv_qtensor(x8: Tensor, step) -> QTensor:
+    """Wrap an int8 cache slice as a QTensor on the cache grid."""
+    return QTensor(x8, step, 8)
+
+
+def kv_cache_init(n_layers: int, b: int, t: int, kv: int, dh: int,
+                  device) -> dict:
+    """A dense int8 cache {"k", "v": (L, B, T, KV, dh), "k_scale",
+    "v_scale": (L,) at 2^-7, "pos": (B,)}, the reference's layout."""
+    i8 = dict(dtype=torch.int8, device=device)
+    return {"k": torch.zeros((n_layers, b, t, kv, dh), **i8),
+            "v": torch.zeros((n_layers, b, t, kv, dh), **i8),
+            "k_scale": torch.full((n_layers,), 2.0 ** -7, device=device),
+            "v_scale": torch.full((n_layers,), 2.0 ** -7, device=device),
+            "pos": torch.zeros((b,), dtype=torch.int32, device=device)}
 
 
 def page_scatter_token(pages: Tensor, table: Tensor, pos: Tensor,

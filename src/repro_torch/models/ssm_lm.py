@@ -164,9 +164,11 @@ class SSMLM(nn.Module):
     def init_slots(self, n_lanes: int) -> dict:
         return self.init_state(n_lanes)
 
-    def slot_from_cache(self, state: dict, b: int = 0) -> dict:
-        return {"conv": state["conv"][:, b], "h": state["h"][:, b],
-                "pos": state["pos"][b]}
+    def slot_from_cache(self, state: dict, b: int = 0):
+        """Sequence `b` of a prefill state -> (dense slot values, None: no
+        paged KV), the reference's pair."""
+        return ({"conv": state["conv"][:, b], "h": state["h"][:, b],
+                 "pos": state["pos"][b]}, None)
 
     def paged_decode_step(self, slots: dict, tokens) -> tuple[Tensor, dict]:
         """One decode step over all lanes (every lane's slot advances, dead

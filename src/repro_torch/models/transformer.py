@@ -2,11 +2,12 @@
 
 Port of `repro.models.transformer.LMTransformer`: `train` mode (the loss
 of the training step: chunked causal attention through the flash kernel,
-backward by autograd) and the serving modes `chunk` (chunked prefill, one
-lane, one page of tokens) and `decode` (one token per lane), driven
-through the decode-state slot API the engine uses (`paged_decode_step`,
-`prefill_page`).  Monolithic prefill in the engine is not ported yet
-(ROADMAP Queue 1 item 2).
+backward by autograd) and the serving modes: monolithic `prefill` (train
+mode over the whole prompt, emitting the int8 KV into a dense cache),
+`chunk` (chunked prefill, one lane, one page of tokens) and `decode` (one
+token per lane, against the paged pool or a dense cache), driven through
+the decode-state slot API the engine uses (`paged_decode_step`,
+`prefill_page`, `slot_from_cache`) or directly (`prefill`, `serve_step`).
 
 Weights keep the reference's layouts: stacked per-layer tensors (L, ...)
 in `layers` (ln1, wq, wk, wv, wo, ln2, w_gate, w_up, w_down), `embed`
@@ -106,7 +107,10 @@ class LMTransformer(nn.Module):
         return [{k: v[i] for k, v in per.items()}
                 for i in range(self.a.n_layers)]
 
-    def _attn(self, p, x, pos, mode, cache):
+    def _attn(self, p, x, pos, mode, cache, emit=None):
+        """One attention sublayer.  In train mode, `emit` (a list) receives
+        the layer's (k, v) int8 payloads on the cache grid (2^-7), the
+        monolithic prefill's KV."""
         a, q = self.a, self.q
         b, s, _ = x.shape
         h = qact(q, "none", L.norm(q, a.norm, x, p["ln1"]))
@@ -119,9 +123,24 @@ class LMTransformer(nn.Module):
             o = L.chunked_attention(q, qh, kh, vh, causal=True, q_pos=pos,
                                     k_pos=pos, q_chunk=a.q_chunk,
                                     kv_chunk=a.kv_chunk)
+            if emit is not None:
+                emit.append((L.kv_quantize(kh, 2.0 ** -7),
+                             L.kv_quantize(vh, 2.0 ** -7)))
             o = o.reshape(b, s, a.n_heads * a.dh)
             return x + qdense(q, o, p["wo"])
         ks, vs = cache["k_scale"], cache["v_scale"]
+        if "k" in cache:    # decode against a dense cache (B, T, KV, dh)
+            rp = pos.reshape(b, 1)
+            qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
+            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+            lanes, at = torch.arange(b, device=x.device), pos.long()
+            cache["k"][lanes, at] = L.kv_quantize(kh[:, 0], ks)
+            cache["v"][lanes, at] = L.kv_quantize(vh[:, 0], vs)
+            o = L.decode_attention(q, qh, L.kv_qtensor(cache["k"], ks),
+                                   L.kv_qtensor(cache["v"], vs), q_pos=pos,
+                                   t_valid=pos.max() + 1)
+            o = o.reshape(b, s, a.n_heads * a.dh)
+            return x + qdense(q, o, p["wo"])
         kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
         if mode == "chunk":
             # chunked prefill: ONE lane, s == page_size tokens filling one
@@ -152,11 +171,13 @@ class LMTransformer(nn.Module):
         return x + L.swiglu(q, h, p["w_gate"], p["w_up"], p["w_down"], a.act)
 
     def _backbone(self, x, pos, mode, view):
+        """Every layer against `view`: the paged pool's or a dense cache's
+        (L, ...) stacks, sliced per layer."""
+        stacks = ("k", "v") if "k" in view else ("k_pages", "v_pages")
         for i in range(self.a.n_layers):
-            cache = dict(view, k_pages=view["k_pages"][i],
-                         v_pages=view["v_pages"][i],
-                         k_scale=view["k_scale"][i],
-                         v_scale=view["v_scale"][i])
+            cache = dict(view, k_scale=view["k_scale"][i],
+                         v_scale=view["v_scale"][i],
+                         **{k: view[k][i] for k in stacks})
             p = self._layer(i)
             x = self._attn(p, x, pos, mode, cache)
             x = self._ffn(p, x)
@@ -203,11 +224,57 @@ class LMTransformer(nn.Module):
         return {"embed": "exempt", "final_norm": "gamma", "layers": layer,
                 "lm_head": "exempt"}
 
+    # ---------------- serving: monolithic prefill, dense-cache decode ----
+
+    def init_cache(self, b: int, t: int) -> dict:
+        a = self.a
+        return L.kv_cache_init(a.n_layers, b, t, a.n_kv, a.dh, self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, cache_len: int) -> tuple[dict, Tensor]:
+        """Monolithic prefill: the (B, S) prompt through the train-mode
+        layers (chunked causal attention, the flash kernel K5), each layer
+        emitting its int8 KV.  Returns (a dense cache of `cache_len`
+        positions holding them, "pos" S; the last token's logits (B, Vp))."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, s = tokens.shape
+        x = self.embed[tokens]
+        pos = torch.arange(s, device=self.device)
+        cache = self.init_cache(b, cache_len)
+        for i in range(self.a.n_layers):
+            p, emit = self._layer(i), []
+            x = self._attn(p, x, pos, "train", None, emit)
+            cache["k"][i, :, :s], cache["v"][i, :, :s] = emit[0]
+            x = self._ffn(p, x)
+        cache["pos"].fill_(s)
+        return cache, self._logits(x[:, -1:])[:, 0]
+
+    @torch.no_grad()
+    def serve_step(self, cache: dict, tokens) -> tuple[dict, Tensor]:
+        """One decode token per sequence against a dense cache (written IN
+        PLACE at cache["pos"]).  Returns (the cache with pos + 1, logits
+        (B, Vp))."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = self.embed[tokens][:, None, :]
+        x = self._backbone(x, cache["pos"], "decode", cache)
+        return dict(cache, pos=cache["pos"] + 1), self._logits(x)[:, 0]
+
     # ---------------- serving decode-state slot API ----------------
 
     def decode_state_spec(self):
         a = self.a
-        return {"kv_layers": a.n_layers, "n_kv": a.n_kv, "dh": a.dh}
+        return {"kv_layers": a.n_layers, "n_kv": a.n_kv, "dh": a.dh,
+                "dense_axes": {"pos": 0}}
+
+    def init_slots(self, n_lanes: int) -> dict:
+        return {"pos": torch.zeros((n_lanes,), dtype=torch.int32,
+                                   device=self.device)}
+
+    def slot_from_cache(self, cache: dict, b: int = 0):
+        """Sequence `b` of a prefill cache -> (dense slot values, (k, v)
+        payloads (L, T, KV, dh) int8 for the engine's pages)."""
+        return ({"pos": cache["pos"][b]},
+                (cache["k"][:, b], cache["v"][:, b]))
 
     @torch.no_grad()
     def paged_decode_step(self, pool_view: dict, tokens: Tensor,

@@ -1,31 +1,46 @@
-"""Continuous-batching int8 serving engine with chunked prefill.
+"""Continuous-batching int8 serving engine.
 
-Port of `repro.serving.engine.Engine` for the chunked-prefill, greedy
-path.  Attention KV lives as int8 pages in a `PagePool`; recurrent SSM
-state lives in dense per-lane slots (no pool), as in the reference, which
-branches on `decode_state_spec()["kv_layers"] > 0` alone.  One decode
-step runs all `max_lanes` lanes (dead lanes ride along: their table rows
-point at the trash page and their positions stay 0; a dense family's dead
-and mid-prefill lanes advance their slots' stale state, which release
-never resets, exactly as the reference's do).
+Port of `repro.serving.engine.Engine` at tp=1.  Attention KV lives as int8
+pages in a `PagePool`; recurrent SSM state lives in dense per-lane slots
+(no pool), as in the reference, which branches on
+`decode_state_spec()["kv_layers"] > 0` alone.  One decode step runs all
+`max_lanes` lanes (dead lanes ride along: their table rows point at the
+trash page and their positions stay 0; a dense family's dead and
+mid-prefill lanes advance their slots' stale state, which release never
+resets, exactly as the reference's do).
 
 Control plane (host, numpy): `Scheduler` admission/preemption, per-lane
-page tables, request bookkeeping.  Data plane (device): the model's paged
-steps, whose ops are the hand-written kernels on a CUDA device.
+page tables, request bookkeeping, the `RadixCache`.  Data plane (device):
+the model's prefill and decode steps, whose ops are the hand-written
+kernels on a CUDA device, and the sampler.
 
 Per-step flow (Engine.step):
-  1. admit queued requests into free lanes (pages for the prompt plus the
-     first decode page are allocated now; prefill streams later, for a
-     dense family from a zero mid-prefill state of its own)
-  2. run up to `prefill_budget` prompt tokens of prefill work: full pages
-     `prefill_chunk` at a time through `prefill_page`, then the ragged tail
-     token by token through the B=1 decode step; a finished dense prefill
-     moves its state into the lane's slot
-  3. paged only: allocate decode pages at page boundaries; preempt the
-     longest-context request when the pool is exhausted (recompute
-     preemption)
-  4. one decode step over all DECODE lanes; append the greedy tokens
+  1. admit queued requests into free lanes.  Monolithic prefill (the
+     default): the whole prompt runs at once through the model's train-mode
+     layers (`prefill`, attention on the flash kernel K5), its int8 KV is
+     scattered into the request's pages and the first token sampled, so the
+     request joins this very step's decode batch.  Chunked prefill: pages
+     for the prompt plus the first decode page are claimed now (radix hits
+     by reference) and prefill streams in later steps
+  2. chunked only: up to `prefill_budget` prompt tokens of prefill work:
+     full pages `prefill_chunk` at a time through `prefill_page`, then the
+     ragged tail token by token through the B=1 decode step; a finished
+     prefill samples its first token, moves a dense family's state into the
+     lane's slot and publishes its full prompt pages to the radix tree
+  3. paged only: allocate decode pages at page boundaries; on exhaustion
+     evict least-recently-used radix subtrees, then preempt the
+     longest-context request (recompute preemption)
+  4. one decode step over all DECODE lanes (fused paged attention, K6, or
+     gather-then-attend, K7 + K1, as `cfg.fuse_kernels` says); sample and
+     append the tokens
   5. retire finished requests, unref their pages
+
+Sampling is greedy at temperature 0, else softmax sampling at
+`temperature` restricted to the top-k logits, drawn as
+`jax.random.categorical` draws them (argmax of logits plus Gumbel noise
+from threefry bits, core/prng.py) with the reference's key stream: one
+`fold_in(PRNGKey(seed), n)` per tick of a counter that every prefill sample
+and every decode step advance (greedy ticks it and skips the fold-in).
 
 The reference compiles its chunk step for a fixed `prefill_chunk` pages and
 masks the pages past the prompt onto the trash page; for a paged family
@@ -33,12 +48,10 @@ the port runs those masked pages too, because their trash-page writes are
 what dead lanes read in decode, and dead lanes' outputs enter the
 batch-global activation scales (the same tokens as the reference depend on
 it).  For a dense family the reference discards a masked page's state and
-logits, and the port skips it.  Likewise the engine's warm-up steps run as
-the reference's do.
+logits, and the port skips it.  Likewise the chunked engine's warm-up
+steps run as the reference's do (monolithic engines have none).
 
-Not ported yet: monolithic prefill (ROADMAP Queue 1 item 2); temperature
-and top-k sampling and the radix prefix cache (item 3); tensor-parallel
-serving (item 5).  Each raises NotImplementedError.
+Not ported yet: tensor-parallel serving (ROADMAP Queue 1 item 5).
 
 The only host sync of a decode step is the token readback; prefill syncs
 once per engine step so that `prefill_wall_s` times its own work.
@@ -50,9 +63,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.runtime.fault import StepWatchdog
 
 from .pool import PagePool
+from .radix import RadixCache
 from .scheduler import Request, RequestState, Scheduler
 
 
@@ -61,11 +76,32 @@ def greedy_token(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.argmax(logits[..., :vocab], dim=-1).to(torch.int32)
 
 
+def make_sampler(vocab: int, temperature: float = 0.0, top_k: int = 0):
+    """(logits (B, Vp), key) -> (B,) int32 token ids; `key` a threefry key
+    (core/prng.py).
+
+    temperature <= 0 is greedy (key ignored, may be None); otherwise softmax sampling at
+    `temperature`, optionally restricted to the top-k logits, as the
+    reference's `jax.random.categorical`: argmax of the logits plus Gumbel
+    noise of the logits' (B, vocab) shape."""
+    if temperature <= 0.0:
+        return lambda logits, key: greedy_token(logits, vocab)
+
+    def sampler(logits, key):
+        lg = logits[..., :vocab] / temperature
+        if top_k:
+            kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+            lg = torch.where(lg < kth, -torch.inf, lg)
+        noise = prng.gumbel(key, lg.shape, lg.device)
+        return torch.argmax(lg + noise, dim=-1).to(torch.int32)
+    return sampler
+
+
 class Engine:
     """Continuous-batching serving engine over the paged int8 KV pool.
 
     Args:
-      model: an `LMTransformer` (paged: `decode_state_spec`,
+      model: an `LMTransformer` (paged: `decode_state_spec`, `prefill`,
         `prefill_page` and `paged_decode_step` against the pool) or an
         `SSMLM` (dense: the same methods on state dicts, plus
         `init_slots`).
@@ -73,41 +109,48 @@ class Engine:
       page_size: tokens per KV page; n_pages: pool size (default
         1 + max_lanes * ceil(max_ctx / page_size)); max_ctx: per-request
         prompt + generation cap.
-      prefill_mode: "chunked" (the only mode ported).
+      temperature/top_k: sampling policy (0.0 = greedy); seed: the
+        sampling key's seed.
+      prefill_mode: "monolithic" (default: the whole prompt in one prefill
+        call at admission) or "chunked" (page-sized chunks interleaved with
+        decode).
       prefill_chunk: full pages per chunk call; prefill_budget: prompt
         tokens of prefill work per engine step (default one chunk).
-      temperature/top_k: 0 (greedy) only; radix_cache: False only.
+      radix_cache: front the pool with a prefix-sharing RadixCache
+        (requires prefill_mode="chunked", where pages are bitwise-
+        deterministic in their token prefix, and a paged family).
       max_skip / starvation_limit: bounded-skip admission (see Scheduler).
       watchdog: StepWatchdog timing each decode step; clock: time source.
+
+    The decode attention's route (fused K6 or gather-then-attend) is the
+    model's `q.fuse_kernels`.  Raises ValueError if the pool cannot hold
+    one max-context request, on an unknown prefill_mode, or for a radix
+    cache without chunked prefill or a paged family.
     """
 
     def __init__(self, model, *, max_lanes: int = 4, page_size: int = 8,
                  n_pages: int | None = None, max_ctx: int = 64,
-                 temperature: float = 0.0, top_k: int = 0,
-                 prefill_mode: str = "chunked", prefill_chunk: int = 4,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 prefill_mode: str = "monolithic", prefill_chunk: int = 4,
                  prefill_budget: int | None = None,
                  radix_cache: bool = False, max_skip: int = 4,
                  starvation_limit: int = 8,
                  watchdog: StepWatchdog | None = None, clock=time.monotonic):
-        if prefill_mode == "monolithic":
-            raise NotImplementedError(
-                "prefill_mode='monolithic' is not ported yet (its attention, "
-                "the flash_attention kernel K5, is): ROADMAP Queue 1 item 2")
-        if prefill_mode != "chunked":
+        if prefill_mode not in ("monolithic", "chunked"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
-        if temperature > 0.0 or top_k:
-            raise NotImplementedError(
-                "temperature/top-k sampling is not ported yet: ROADMAP "
-                "Queue 1 item 3 (the port serves greedy)")
-        if radix_cache:
-            raise NotImplementedError(
-                "the radix prefix cache is not ported yet: ROADMAP Queue 1 "
-                "item 3")
         self.model = model
         self.device = model.device
         self.clock = clock
         spec = model.decode_state_spec()
         self.paged = spec["kv_layers"] > 0
+        if radix_cache and prefill_mode != "chunked":
+            raise ValueError(
+                "radix_cache requires prefill_mode='chunked' (only the "
+                "page-scoped quantization of chunked prefill makes cached "
+                "pages bitwise-exact in their token prefix)")
+        if radix_cache and not self.paged:
+            raise ValueError(f"radix_cache needs a paged KV family (got "
+                             f"{model.a.family!r})")
         self.page_size = page_size
         self.max_ctx = max_ctx
         self.n_blocks = -(-max_ctx // page_size)
@@ -121,11 +164,8 @@ class Engine:
                 raise ValueError(
                     f"pool of {n_pages} pages cannot hold one max_ctx="
                     f"{max_ctx} request ({self.n_blocks} pages needed)")
-        else:
-            self._dense_axes = spec["dense_axes"]
-            self.slots = model.init_slots(max_lanes)
-            self._dense0 = model.init_slots(1)   # zero mid-prefill state
-            self._pf_dense: dict[int, dict] = {}  # rid -> mid-prefill state
+        self._dense_axes = spec["dense_axes"]
+        self.slots = model.init_slots(max_lanes)
         self.scheduler = Scheduler(self.pool, max_skip=max_skip,
                                    starvation_limit=starvation_limit)
         self.watchdog = watchdog or StepWatchdog()
@@ -134,8 +174,24 @@ class Engine:
         self.table = np.zeros((max_lanes, self.n_blocks), np.int32)
         self._table_dev = None          # device mirror, rebuilt when dirty
         self.h_tokens = np.zeros((max_lanes,), np.int32)
-        self.prefill_chunk = prefill_chunk
-        self.prefill_budget = prefill_budget or prefill_chunk * page_size
+
+        self.key = prng.prng_key(seed)
+        self._sample_ctr = 0
+        self.greedy = temperature <= 0.0
+        self.sampler = make_sampler(model.a.vocab, temperature, top_k)
+
+        self.prefill_mode = prefill_mode
+        self.chunked = prefill_mode == "chunked"
+        self.radix = None
+        self._pf_dense: dict[int, dict] = {}  # rid -> mid-prefill state
+        if self.chunked:
+            self.prefill_chunk = prefill_chunk
+            self.prefill_budget = prefill_budget or prefill_chunk * page_size
+            self._dense0 = model.init_slots(1)   # zero mid-prefill state
+            self._warmup()
+        if radix_cache:
+            self.radix = RadixCache(self.pool)
+            self.scheduler.cache = self.radix
 
         self.engine_steps = 0
         self.decode_steps = 0
@@ -143,7 +199,6 @@ class Engine:
         self.prefill_wall_s = 0.0
         self.prefill_tokens = 0
         self.straggler_steps = 0
-        self._warmup()
 
     # ---- submission ------------------------------------------------------
 
@@ -165,14 +220,30 @@ class Engine:
     # ---- engine step -----------------------------------------------------
 
     def step(self) -> list[Request]:
-        """One engine step: admit, prefill work, ensure pages, decode.
-        Returns the requests that finished during this step."""
+        """One engine step: admit (and, monolithic, prefill), chunked
+        prefill work, ensure pages, decode.  Returns the requests that
+        finished during this step."""
+        finished: list[Request] = []
         free = [ln for ln, r in enumerate(self.lane_req) if r is None]
-        for req in self.scheduler.admit(len(free)):
-            self._admit(req, free.pop(0))
-
         t0 = time.monotonic()
-        finished, worked = self._run_prefill_chunks()
+        worked = False
+        for req in self.scheduler.admit(len(free)):
+            if self.chunked:
+                self._admit_chunked(req, free.pop(0))
+                continue
+            self._admit(req, free.pop(0))
+            worked = True
+            if req.done:             # max_new == 1: prefill completed it
+                self._release(req)
+                finished.append(req)
+        if self.chunked:
+            # chunked prefill's span leaves admission's host work out
+            # (pages, preemption, radix lookup); monolithic admission is
+            # the prefill and stays in
+            t0 = time.monotonic()
+            fin, chunk_work = self._run_prefill_chunks()
+            finished.extend(fin)
+            worked = worked or chunk_work
         if worked:
             self._sync()
             self.prefill_wall_s += time.monotonic() - t0
@@ -217,20 +288,93 @@ class Engine:
                 for r in self.scheduler.requests.values()
                 if r.state is RequestState.DONE}
 
+    # ---- sampling --------------------------------------------------------
+
+    def _next_ctr(self) -> int:
+        """Sampling-counter tick: each prefill sample and each decode step
+        takes the next key, fold_in(key, counter), as in the reference."""
+        self._sample_ctr += 1
+        return self._sample_ctr
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """(B, Vp) logits -> (B,) tokens on the host: the one sync.  The
+        counter ticks whatever the policy; greedy skips the key's fold-in
+        (host work on every decode step) since its sampler ignores it."""
+        ctr = self._next_ctr()
+        key = None if self.greedy else prng.fold_in(self.key, ctr)
+        return self.sampler(logits, key).cpu().numpy()
+
     # ---- admission / release / preemption --------------------------------
 
+    def _first_token(self, req: Request, lane: int, logits) -> None:
+        """Sample the prompt's first token and time it (TTFT)."""
+        tok0 = int(self._sample(logits)[0])
+        self.prefill_tokens += len(req.prompt)
+        req.generated.append(tok0)
+        if req.ttft is None:
+            req.ttft = self.clock() - req.arrival
+            req.prefill_s = req.ttft - req.queue_s
+        self.h_tokens[lane] = tok0
+
+    def _write_slot(self, lane: int, dense: dict) -> None:
+        """One lane's dense decode state into its slot, in place (the
+        batch axis differs per key)."""
+        for name, ax in self._dense_axes.items():
+            if ax == 0:
+                self.slots[name][lane] = dense[name]
+            else:
+                self.slots[name][:, lane] = dense[name]
+
     def _admit(self, req: Request, lane: int) -> None:
-        """Claim a lane and the prompt's pages; prefill streams later."""
+        """Monolithic admission: claim the pages, prefill the whole prompt,
+        scatter its KV into the pages, sample the first token.  The request
+        decodes in this very step."""
         if req.queue_s is None:
             req.queue_s = self.clock() - req.arrival
-        req.pf_pos = 0
+        tokens = torch.as_tensor(req.prompt[None], device=self.device)
+        if self.paged:
+            nb = self.scheduler.pages_needed(req)  # prompt + 1 decode block
+            req.page_ids = self.pool.alloc(nb)
+            assert req.page_ids is not None     # admission checked capacity
+            cache, logits = self.model.prefill(tokens, nb * self.page_size)
+        else:
+            cache, logits = self.model.prefill(tokens)
+        dense, kv = self.model.slot_from_cache(cache, 0)
+        self._write_slot(lane, dense)
+        if self.paged:
+            pids = torch.as_tensor(req.page_ids, device=self.device)
+            for arena, x8 in zip((self.pool.k, self.pool.v), kv):
+                arena.index_copy_(1, pids, x8.reshape(
+                    x8.shape[0], nb, self.page_size, *x8.shape[2:]))
+            self.table[lane] = 0
+            self.table[lane, :nb] = req.page_ids
+            self._table_dev = None
+        self._first_token(req, lane, logits)
+        req.lane = lane
+        req.state = RequestState.DECODE
+        self.lane_req[lane] = req
+
+    def _admit_chunked(self, req: Request, lane: int) -> None:
+        """Claim a lane and pages; prefill streams in later engine steps.
+        Radix lookup first: the longest cached page-aligned prefix is reused
+        by reference (one pool ref per hit page) and only the suffix pages
+        are allocated."""
+        if req.queue_s is None:
+            req.queue_s = self.clock() - req.arrival
+        hit_pids = []
+        if self.radix is not None:
+            hit_pids = self.radix.lookup(req.prompt)
+            for pid in hit_pids:
+                self.pool.ref(pid)      # the request's hold on the hit
+        req.n_shared = len(hit_pids)
+        req.pf_pos = req.n_shared * self.page_size
         if self.paged:
             nb_total = len(req.prompt) // self.page_size + 1  # + decode block
-            pids = self._alloc_pages(nb_total, req)
-            assert pids is not None  # not in lane_req yet: no self-preemption
-            req.page_ids = pids
+            new_pids = self._alloc_pages(nb_total - req.n_shared, req)
+            assert new_pids is not None  # not in lane_req yet: no self-kill
+            req.page_ids = list(hit_pids) + new_pids
             self.table[lane] = 0
-            self.table[lane, :nb_total] = pids
+            self.table[lane, :nb_total] = req.page_ids
             self._table_dev = None
         else:
             self._pf_dense[req.rid] = self._dense0
@@ -238,13 +382,12 @@ class Engine:
         self.lane_req[lane] = req       # PREFILL state: masked in decode
 
     def _release(self, req: Request) -> None:
-        """Free the lane and its pages.  A dense family's slot keeps its
-        state: the lane rides along in decode with it, as in the
-        reference."""
+        """Free the lane and unref its pages (shared pages just drop this
+        hold).  A dense family's slot keeps its state: the lane rides along
+        in decode with it, as in the reference."""
         for pid in req.page_ids:
             self.pool.unref(pid)
-        if not self.paged:
-            self._pf_dense.pop(req.rid, None)
+        self._pf_dense.pop(req.rid, None)
         if req.lane >= 0:
             self.table[req.lane] = 0
             self.lane_req[req.lane] = None
@@ -252,10 +395,19 @@ class Engine:
         req.page_ids = []
         req.lane = -1
 
+    def _preempt(self, req: Request) -> None:
+        self._release(req)
+        self.scheduler.preempt(req)
+
     def _alloc_pages(self, n: int, req: Request) -> list[int] | None:
-        """Allocate, preempting the longest-context live request while the
-        pool is short.  Returns None iff `req` itself got preempted."""
+        """Allocate under pressure: radix LRU eviction first, recompute
+        preemption of the longest-context live request second.  Returns
+        None iff `req` itself got preempted."""
         pids = self.pool.alloc(n)
+        while pids is None and self.radix is not None \
+                and self.radix.evictable() > 0:
+            self.radix.evict(n - self.pool.free_count)
+            pids = self.pool.alloc(n)
         while pids is None:
             live = [r for r in self.lane_req if r is not None]
             if not live:
@@ -263,8 +415,7 @@ class Engine:
                     f"pool exhausted with no live lanes to preempt "
                     f"(need {n} pages, free {self.pool.free_count})")
             victim = self.scheduler.pick_victim(live)
-            self._release(victim)
-            self.scheduler.preempt(victim)
+            self._preempt(victim)
             if victim is req:
                 return None
             pids = self.pool.alloc(n)
@@ -412,23 +563,27 @@ class Engine:
 
     def _finish_prefill(self, req: Request, lane: int, logits) -> None:
         """Prefill done: sample the first token, move a dense family's
-        mid-prefill state into the lane's slot, and flip to DECODE."""
-        tok0 = int(greedy_token(logits, self.model.a.vocab)[0])
-        self.prefill_tokens += len(req.prompt)
-        req.generated.append(tok0)
-        if req.ttft is None:
-            req.ttft = self.clock() - req.arrival
-            req.prefill_s = req.ttft - req.queue_s
+        mid-prefill state into the lane's slot, flip to DECODE, and publish
+        the full prompt pages to the radix tree (deduping against a
+        concurrent identical prefill that published first)."""
+        self._first_token(req, lane, logits)
         if not self.paged:
             dense = self._pf_dense.pop(req.rid)
-            for name, ax in self._dense_axes.items():   # in place
-                if ax == 0:
-                    self.slots[name][lane] = dense[name][0]
-                else:
-                    self.slots[name][:, lane] = dense[name][:, 0]
+            self._write_slot(lane, {
+                name: (dense[name][0] if ax == 0 else dense[name][:, 0])
+                for name, ax in self._dense_axes.items()})
         req.state = RequestState.DECODE
-        self.h_tokens[lane] = tok0
         self._table_dev = None          # lane unmasks in the decode table
+        if self.radix is not None:
+            nb_full = len(req.prompt) // self.page_size
+            if nb_full:
+                dedup = self.radix.insert(req.prompt,
+                                          req.page_ids[:nb_full])
+                for blk, cached in dedup.items():
+                    self.pool.ref(cached)           # byte-identical page:
+                    self.pool.unref(req.page_ids[blk])  # swap to cached
+                    req.page_ids[blk] = cached
+                    self.table[lane, blk] = cached
 
     # ---- decode ----------------------------------------------------------
 
@@ -443,7 +598,7 @@ class Engine:
             logits, self.slots = self.model.paged_decode_step(
                 dict(self.slots, pos=torch.as_tensor(pos, device=self.device)),
                 tokens)
-            return greedy_token(logits, self.model.a.vocab).cpu().numpy()
+            return self._sample(logits)
         if self._table_dev is None:     # re-upload only when tables changed
             # mid-prefill lanes decode masked: their rows point at the
             # trash page so the ride-along writes never touch real pages
@@ -456,24 +611,46 @@ class Engine:
             self.pool.view(self._table_dev), tokens,
             torch.as_tensor(pos, device=self.device))
         # the one host-device sync of the decode step: the token readback
-        return greedy_token(logits, self.model.a.vocab).cpu().numpy()
+        return self._sample(logits)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # ---- metrics ---------------------------------------------------------
+    # ---- maintenance / metrics -------------------------------------------
+
+    def defrag(self) -> int:
+        """Compact the pool's pages; rewrites live page tables, request page
+        lists and radix nodes.  Returns the number of pages moved."""
+        if not self.paged:
+            return 0
+        mapping = self.pool.defrag()
+        if mapping:
+            trans = np.arange(self.pool.n_pages)
+            for old, new in mapping.items():
+                trans[old] = new
+            self.table = trans[self.table].astype(np.int32)
+            self._table_dev = None
+            for req in self.lane_req:
+                if req is not None:
+                    req.page_ids = [int(trans[p]) for p in req.page_ids]
+            if self.radix is not None:  # shared pages moved exactly once
+                self.radix.remap(mapping)
+        return len(mapping)
 
     def metrics(self) -> dict:
         """Engine aggregates + per-request rollups: engine/decode step
         counts, decode_wall_s / prefill_wall_s (host clock, synchronized),
         completed, generated_tokens, prefill_tokens, queue_depth,
-        live_lanes, preemptions, skips, straggler_steps, TTFT and TPOT mean
-        / p50 / p99, decode_tok_s and, for a paged family, the pool
-        report."""
+        live_lanes, preemptions, skips, straggler_steps, TTFT mean / max /
+        p50 / p99 and its split queue_ms_mean / prefill_ms_mean, TPOT mean
+        / p50 / p99, decode_tok_s; for a paged family the pool report, and
+        with the radix cache on its stats and prefix_hit_rate."""
         done = [r for r in self.scheduler.requests.values()
                 if r.state is RequestState.DONE]
         ttfts = [r.ttft for r in done if r.ttft is not None]
+        queues = [r.queue_s for r in done if r.queue_s is not None]
+        prefills = [r.prefill_s for r in done if r.prefill_s is not None]
         tpots = [(r.finish - r.arrival - r.ttft) / (len(r.generated) - 1)
                  for r in done
                  if r.finish is not None and r.ttft is not None
@@ -497,14 +674,30 @@ class Engine:
             "skips": self.scheduler.skips,
             "straggler_steps": self.straggler_steps,
             "ttft_mean_s": float(np.mean(ttfts)) if ttfts else 0.0,
+            "ttft_max_s": float(np.max(ttfts)) if ttfts else 0.0,
             "ttft_p50_s": pct(ttfts, 50),
             "ttft_p99_s": pct(ttfts, 99),
             "tpot_mean_s": float(np.mean(tpots)) if tpots else 0.0,
             "tpot_p50_s": pct(tpots, 50),
             "tpot_p99_s": pct(tpots, 99),
+            "queue_ms_mean": 1e3 * float(np.mean(queues)) if queues else 0.0,
+            "prefill_ms_mean": (1e3 * float(np.mean(prefills))
+                                if prefills else 0.0),
             "decode_tok_s": (gen / self.decode_wall_s
                              if self.decode_wall_s > 0 else 0.0),
         }
-        if self.paged:
-            out["pool"] = self.pool.report()
+        if self.pool is not None:
+            out["pool"] = self.pool.report(ctx_len=self.max_ctx)
+        if self.radix is not None:
+            out["radix"] = self.radix.stats()
+            out["prefix_hit_rate"] = self.radix.hit_rate
         return out
+
+
+def fused_decode_active(engine: Engine) -> bool:
+    """Whether the engine's decode steps stream KV pages through the fused
+    paged-attention kernel (K6) rather than gather-then-attend (K7 + K1).
+    Answered from the route `models.layers.paged_decode_attention` takes:
+    fused iff the family is paged and the model's `q.fuse_kernels` is on
+    (its decode query is always a single-token int8 payload)."""
+    return engine.paged and engine.model.q.fuse_kernels

@@ -15,8 +15,9 @@ run; the engine owns the device arrays and executes the decisions.
 
 Policies:
   * admission — FIFO with BOUNDED SKIP: a request is admitted when a lane
-    is free and the pool's free pages can fund its prompt pages plus the
-    first decode page.  Up to `max_skip` queued requests that don't
+    is free and the pool (free pages + radix-evictable pages, minus the
+    prefix pages a cache hit would cover) can fund its prompt pages plus
+    the first decode page.  Up to `max_skip` queued requests that don't
     fit may be jumped by smaller ones behind them — killing the
     head-of-line blocking a single huge prompt used to impose — but every
     jump increments the skipped request's counter, and once a request has
@@ -67,6 +68,7 @@ class Request:
                                     # the prompt (don't double count)
     # chunked-prefill progress (engine-owned, reset on preemption)
     pf_pos: int = 0                 # prompt tokens already prefilled
+    n_shared: int = 0               # prefix pages served by the radix cache
 
     @property
     def ctx_len(self) -> int:
@@ -90,6 +92,7 @@ class Scheduler:
     def __init__(self, pool=None, max_skip: int = 4,
                  starvation_limit: int = 8):
         self.pool = pool
+        self.cache = None               # RadixCache (engine wires it up)
         self.max_skip = max_skip
         self.starvation_limit = starvation_limit
         self.queue: deque[Request] = deque()
@@ -112,18 +115,30 @@ class Scheduler:
         return len(self.queue)
 
     def pages_needed(self, req: Request) -> int:
-        """Prompt pages + the first decode page."""
-        return len(req.prompt) // self.pool.page_size + 1
+        """Prompt pages + the first decode page, minus the prefix pages a
+        radix-cache hit would serve (shared pages cost only a ref)."""
+        nb = len(req.prompt) // self.pool.page_size + 1
+        if self.cache is not None:
+            nb -= self.cache.match_pages(req.prompt)
+        return nb
 
     def admissible(self, req: Request, free_lanes: int,
                    committed_pages: int = 0) -> bool:
         """`committed_pages` reserves pages already promised to earlier
-        admissions in the same wave (they allocate after this check)."""
+        admissions in the same wave (they allocate after this check).
+        Radix-evictable pages count as free: the engine evicts
+        least-recently-used cache subtrees on allocation pressure."""
         if free_lanes <= 0:
             return False
         if self.pool is None:
             return True
         free = self.pool.free_count - committed_pages
+        if self.cache is not None:
+            # matched-prefix pages may themselves be tree-only (evictable)
+            # right now, but committing to the hit refs them — don't count
+            # the same page as both "served by the cache" and "reclaimable"
+            free += max(0, self.cache.evictable()
+                        - self.cache.match_pages(req.prompt))
         return free >= self.pages_needed(req)
 
     def admit(self, free_lanes: int) -> list[Request]:
@@ -173,6 +188,7 @@ class Scheduler:
         req.lane = -1
         req.page_ids = []
         req.pf_pos = 0
+        req.n_shared = 0
         req.preemptions += 1
         self.preemptions += 1
         self.queue.appendleft(req)

@@ -251,6 +251,64 @@ def test_cuda_flash_attention_pcode_exhaustive(cuda):
     assert ops.flash_pcode_mismatches(cuda) == [0] * 7
 
 
+def _prefill_flash(dev, t, *, q_pos=None, k_pos=None, k_valid=None,
+                   causal=True, seed=0):
+    """K5 as monolithic prefill calls it for a prompt of t tokens at the
+    serving widths (32 query / 8 KV heads of 128): chunks min(1024, t) and
+    min(512, t), the operands padded to chunk multiples as _FlashFused pads
+    them.  Returns (kernel out, plain out at the same kv_chunk, launches)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qc, kc = min(1024, t), min(512, t)
+    sp, tp = -t % qc, -t % kc
+    q8 = _i8(g, (1, t + sp, 32, 128), dev)
+    k8, v8 = _i8(g, (1, t + tp, 8, 128), dev), _i8(g, (1, t + tp, 8, 128), dev)
+    i32 = lambda x, n: torch.cat([torch.as_tensor(  # noqa: E731
+        x, dtype=torch.int32, device=dev), torch.zeros(n, dtype=torch.int32,
+                                                      device=dev)])
+    ar = np.arange(t)
+    qp = i32(ar if q_pos is None else q_pos, sp)
+    kp = i32(ar if k_pos is None else k_pos, tp)
+    kv = i32(np.ones(t) if k_valid is None else k_valid, tp)
+    sc = [torch.tensor(v, device=dev) for v in (2.0 ** -6, 2.0 ** -7,
+                                                2.0 ** -7)]
+    kw = dict(causal=causal, sm_scale=128 ** -0.5, q_chunk=qc, kv_chunk=kc)
+    args = (q8, k8, v8, qp, kp, kv, *sc)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(*args, **kw)
+    launched = ops.LAUNCHES["flash_attention"] - before
+    return got, ref.flash_attention(*args, **kw), launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [37, 100, 300, 1500])
+def test_cuda_flash_attention_prefill_lengths(cuda, t):
+    """Monolithic prefill's shapes: a prompt shorter than the kv chunk is
+    one ragged chunk (37, 100, 300: no multiple of 64), which the wrapper
+    pads with absent keys; 1500 runs 2 q chunks and 3 kv chunks.  The
+    kernel launches (no refusal, no plain fallback) and equals the plain
+    version at kv_chunk = T bit for bit."""
+    got, want, launched = _prefill_flash(cuda, t, seed=t)
+    assert launched == 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows_without_keys", "masked_not_causal"])
+def test_cuda_flash_attention_ragged_chunk_masks(cuda, case):
+    """The absent keys of a ragged chunk add nothing even where a row sees
+    no valid key (its p = 1 terms run over the T real keys only, as the
+    plain version's do at kv_chunk = T), and beside masked real keys."""
+    t = 100
+    if case == "rows_without_keys":
+        kw = dict(k_pos=np.arange(t) + 30)
+    else:
+        kw = dict(k_valid=np.arange(t) % 3 != 0, causal=False)
+    got, want, launched = _prefill_flash(cuda, t, seed=7, **kw)
+    assert launched == 1
+    assert torch.equal(got, want)
+
+
 # ResNet-50's quantized BNs at batch 32 (M = N*H*W, C): every shape of a step
 _BN_STEP = [(100352, 64), (100352, 256), (100352, 128), (25088, 128),
             (25088, 512), (25088, 256), (6272, 256), (6272, 1024),

@@ -45,15 +45,17 @@ def _serve(engine, prompts, new=NEW):
 
 
 @pytest.mark.parametrize("n_pages,new,max_ctx", [(None, NEW, 32),
-                                                 (6, 10, 40)])
+                                                 (6, 10, 40)],
+                         ids=["None-4-32", "6-10-40"])
 def test_engine_tokens_equal_reference(n_pages, new, max_ctx, exact_pow2):
     """Chunked prefill (full pages, then the ragged tail through the B=1
     decode step) and continuous-batching decode give the reference's
     tokens.  With 6 pages and 10 new tokens the pool runs short and the
-    engine preempts (recompute), on the same schedule as the reference's."""
-    kw = dict(KW, n_pages=n_pages, max_ctx=max_ctx)
+    engine preempts (recompute), on the same schedule as the reference's.
+    (Monolithic prefill, the default, is test_torch_engine.py's.)"""
+    kw = dict(KW, n_pages=n_pages, max_ctx=max_ctx, prefill_mode="chunked")
     jeng = jmake_engine("granite-3-8b", mode="native", reduced=True, seed=0,
-                        prefill_mode="chunked", **kw)
+                        **kw)
     prompts = _prompts(jeng.model.a.vocab)
     want = _serve(jeng, prompts, new)
     eng = _port_engine(jeng, **kw)
@@ -69,7 +71,7 @@ def test_engine_tokens_equal_reference(n_pages, new, max_ctx, exact_pow2):
 
 def test_make_engine_serves_on_cpu():
     eng = make_engine("granite-3-8b", reduced=True, device="cpu", seed=3,
-                      **KW)
+                      prefill_mode="chunked", **KW)
     a = eng.model.a
     assert (a.d_model, a.n_heads, a.n_kv, a.dh) == (64, 4, 2, 16)
     toks = _serve(eng, _prompts(a.vocab))
@@ -86,18 +88,6 @@ def test_full_width_layouts_at_cut_depth():
     model = build_model(acfg, preset("full8"), device="meta")
     assert tuple(model.layers["w_gate"].shape) == (1, 4096, 12800)
     assert tuple(model.lm_head.shape) == (4096, 49664)
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(prefill_mode="monolithic"), "item 2"),
-    (dict(temperature=0.7), "item 3"),
-    (dict(top_k=5), "item 3"),
-    (dict(radix_cache=True), "item 3")])
-def test_unported_options_raise(kw, item):
-    model = build_model(get("granite-3-8b").reduced(), preset("full8"),
-                        device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(model, **dict(KW, **kw))
 
 
 def test_tp_serving_raises():

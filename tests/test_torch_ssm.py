@@ -366,7 +366,8 @@ def test_prefill_page_from_zero_equals_prefill(models):
     nxt = torch.tensor([5])
     assert torch.equal(tm.paged_decode_step(dense, nxt)[0],
                        tm.serve_step(st, nxt)[1])
-    slot = tm.slot_from_cache(st, 0)
+    slot, kv = tm.slot_from_cache(st, 0)
+    assert kv is None
     assert torch.equal(slot["h"], dense["h"][:, 0]) and int(slot["pos"]) == 8
 
 
@@ -400,7 +401,7 @@ def test_engine_tokens_equal_reference(exact_pow2):
                      device="cpu")
     tm.load_params(ssm_params_from_jax(jax.tree.map(np.asarray,
                                                     jeng.params)))
-    eng = Engine(tm, **KW)
+    eng = Engine(tm, prefill_mode="chunked", **KW)
     assert eng.pool is None and eng.scheduler.pool is None
     got = _serve(eng, prompts)
     assert got == want
@@ -417,7 +418,7 @@ def test_engine_tokens_equal_reference(exact_pow2):
 
 def test_make_engine_serves_ssm_on_cpu():
     eng = make_engine("falcon-mamba-7b", reduced=True, device="cpu", seed=3,
-                      **KW)
+                      prefill_mode="chunked", **KW)
     a = eng.model.a
     assert isinstance(eng.model, SSMLM)
     assert (a.d_model, a.d_inner, a.ssm_state, a.vocab) == (64, 128, 4, 128)
