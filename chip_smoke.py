@@ -42,7 +42,10 @@ prints no result line:
              cq_stochastic, which no path calls, K9 selective_scan at a
              prefill page, a decode step, the train_4k length from zero
              state (each with its device time) and ragged shapes across
-             its staged tiles), with
+             its staged tiles), K9b selective_scan_bwd (the scan's
+             gradient: at ragged shapes and at the ssm_train step's
+             1 x 4096 x 8192 x 16, with its device time and the call's
+             peak memory), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
              yardstick); this phase runs without deterministic mode's
@@ -72,9 +75,9 @@ prints no result line:
   4. train   `repro_torch.launch.train.make_train_step` on granite-3-8b at
              full width, 4 of 40 layers, seed 0, full8 native, one
              TokenTask ("arith") sequence of the train_4k length (batch 1 x
-             4096 tokens): 3 steps with their loss, wall time, peak memory
-             and kernel launches (dgrad, wgrad and flash_attention > 0 in
-             every step); the step's forward / backward / optimizer split;
+             4096 tokens): 3 steps with their loss, wall time, forward /
+             backward / optimizer split, peak memory and kernel launches
+             (dgrad, wgrad and flash_attention > 0 in every step);
              K1's launches by contraction (qdense forwards, attention
              chunks); a torch.profiler breakdown of one more step (with
              K1's, K3's and K5's device time per step, K1's split into
@@ -87,10 +90,11 @@ prints no result line:
              parameter leaves, 25.6 M parameters), seed 0, full8 native,
              lr 0.05: 3 steps of make_train_step on ImageTask(224, 1000,
              32, seed=0) batches (the reference's batch of 128 cut to 32)
-             with loss, accuracy, wall time, images/s and kernel launches
+             with loss, accuracy, wall time, forward / backward /
+             optimizer split, images/s and kernel launches
              (ubn_norm, which is K4 "batch" here, and quantize > 0 in every
-             step; K4 batch's launches by (M, C), which must be the 52 of
-             RESNET50_BN), peak memory and a torch.profiler breakdown of
+             step; K4 batch's launches by (M, C), which must be the 52 a
+             step of RESNET50_BN), peak memory and a torch.profiler breakdown of
              one more step with K4 batch's device time summed over its 52
              calls; then step 1 again from the same weights through the
              plain versions, whose loss, 161 parameter leaves and 161
@@ -121,6 +125,25 @@ prints no result line:
              step and of one prefill page, each with K9's device time; then
              the same requests through monolithic prefill (K9 over each
              whole prompt), kernels against the plain versions.
+  8. ssm_train  make_train_step on falcon-mamba-7b at every published
+             width (as phase 7), 4 of 64 layers, seed 0, full8 native, one
+             1 x 4096 TokenTask ("arith") sequence: 3 steps with their
+             loss, wall time, peak memory, forward / backward / optimizer
+             split and kernel launches (selective_scan, selective_scan_bwd,
+             K1 wide, K2, K3 and K4 > 0 in every step); a torch.profiler
+             breakdown of one more step with K9's and K9b's device time;
+             then step 1 again from the same weights through the plain
+             versions on the card, whose loss, parameters and accumulator
+             must equal the kernel run's bit for bit.
+  9. dense   granite-34b, phi4-mini-3.8b, minitron-4b and chameleon-34b,
+             each at every published width, 2 layers, random weights from
+             seed 0: greedy requests of 37 and 100 tokens, 8 new tokens
+             each, through `make_engine` on the default monolithic prefill
+             (K1, K2, K4, K5 and K6 launched), tokens and the first logits
+             equal to the plain versions' run on the card; then one step
+             of make_train_step on granite-34b (2 of 88 layers, 48 query
+             heads on 1 KV head, FFN 24576) on a 1 x 4096 sequence, whose
+             loss, parameters and accumulator equal the plain run's step.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -951,8 +974,9 @@ def kernel_rows() -> None:
     # ---- K9 selective_scan: falcon-mamba-7b's d_inner 8192 x N 16 at a
     # prefill page and a decode step (carried state, the ssm phase's
     # shapes), the train_4k length from zero state (exactly the TPU
-    # kernel's function) and a ragged shape.  Bitwise: h rounds twice per
-    # step and y is the n-ordered float64 sum rounded once on both sides
+    # kernel's function, and the ssm_train phase's forward) and a ragged
+    # shape.  Bitwise: h rounds twice per step and y is the n-ordered
+    # float64 sum rounded once on both sides
     log("[kernels] K9 selective_scan (bitwise: y and h_last)")
 
     def scan_inputs(b, s_, d, n):
@@ -965,7 +989,8 @@ def kernel_rows() -> None:
     for name, shape, with_h0, phase in (
             ("selective_scan", (1, 16, 8192, 16), True, "ssm"),
             ("selective_scan_decode", (4, 1, 8192, 16), True, "ssm"),
-            ("selective_scan_train_4k", (1, 4096, 8192, 16), False, "none"),
+            ("selective_scan_train_4k", (1, 4096, 8192, 16), False,
+             ("ssm_train", "selective_scan")),
             (None, (2, 37, 1000, 4), True, None),
             (None, (1, 17, 8192, 16), True, None),
             (None, (2, 33, 300, 4), False, None)):
@@ -991,6 +1016,56 @@ def kernel_rows() -> None:
                note=f"{'x'.join(map(str, shape))}, {p['route']} route "
                     f"(tile {p['tile']}, stages {p['stages']})")
         del a_, b_, c_, h0, y, hl, yp, hp
+
+    # ---- K9b selective_scan_bwd: the scan's gradient at the ssm_train
+    # step's shape (train mode: no h0, no dh_last) and ragged shapes (S
+    # across its 8-step chunks, D across its dc tiles).  Bitwise: h
+    # recomputed with the forward's roundings, the carry and products
+    # rounded once, dc's float64 sum in one stated order on both sides
+    log("[kernels] K9b selective_scan_bwd (bitwise: da, db, dc, dh0)")
+    for name, shape, with_h0 in (
+            ("selective_scan_bwd", (1, TRAIN_SEQ, 8192, 16), False),
+            (None, (2, 37, 1000, 4), True),
+            (None, (3, 9, 65, 16), True),
+            (None, (1, 17, 8192, 16), False)):
+        a_, b_, c_, h0 = scan_inputs(*shape)
+        h0 = h0 if with_h0 else None
+        dy = f32(*shape[:3])
+        dh = None if h0 is None else f32(*h0.shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = ops.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = ref.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        err = max(max_err(x, w) for x, w in zip(got, want) if x is not None)
+        assert all((x is None and w is None) or torch.equal(x, w)
+                   for x, w in zip(got, want)), \
+            f"selective_scan_bwd {shape} differs"
+        if name is None:
+            continue
+        del want
+        # bytes: a and b read once, c, dy (and h0, dh_last) read, da and db
+        # written, dc (and dh0) written; operations: the recomputed step
+        # (2), the reverse step (4: dy*c, the add, g*h, a*g) and dc's
+        # product and sum (2) per element
+        nbytes = 4 * (4 * a_.numel() + c_.numel() + dy.numel()
+                      + c_.numel() + (3 if with_h0 else 0) * a_[:, 0].numel())
+        def call():
+            return ops.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        record(name, "src/repro_torch/csrc/selective_scan_bwd.cu",
+               "none (port-only K9b: the reference differentiates its XLA "
+               "scan, src/repro/models/ssm.py:85)", time_ms(call, 5),
+               time_ms(lambda: ref.selective_scan_bwd(a_, b_, c_, dy, h0,
+                                                      dh), 1),
+               nbytes, 8 * a_.numel(), FP32_OPS, None, err, "ssm_train",
+               device_ms=device_ms(call, 10),
+               note=f"{'x'.join(map(str, shape))}, a and b read twice, "
+                    f"peak memory of a call {peak / 1e9:.3f} GB beside "
+                    f"{4 * a_.numel() / 1e9:.3f} GB for each of a, b, da "
+                    f"and db; no PyTorch call computes it")
+        del a_, b_, c_, h0, dy, dh, got
 
 
 # ---------------------------------------------------------------------------
@@ -1466,67 +1541,15 @@ def _host_copy(tree) -> list:
     return [t.detach().to("cpu", copy=True) for t in flatten(tree)]
 
 
-def phase_train() -> dict:
+def plain_step_equal(tag: str, model, step, batch, init_params, after1,
+                     loss1: float) -> None:
+    """Step 1 again from `init_params` and a fresh optimizer state through
+    the plain versions on the card: its loss, every parameter leaf and
+    every accumulator leaf must equal the kernel run's (`loss1`, `after1`)
+    bit for bit."""
     import torch
-    from repro_torch.configs import get
-    from repro_torch.core import preset
-    from repro_torch.data import TokenTask
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import make_train_step
-    from repro_torch.models import build_model
     from repro_torch.optim import flatten, init_momentum
-    t0 = time.time()
-    cfg = preset("full8")
-    model = build_model(get("granite-3-8b").replace(n_layers=4), cfg,
-                        device="cuda").init(0)
-    a = model.a
-    task = TokenTask(a.vocab, TRAIN_SEQ, 1, kind="arith")
-    init_params = _host_copy(model.params())
-    opt = init_momentum(model.params())
-    step = make_train_step(model, cfg, lr=0.05)
-    log(f"[train] granite-3-8b at full width, {a.n_layers} of 40 layers, "
-        f"{model.n_params() / 1e9:.2f} G fp32 params, full8 native, batch "
-        f"1 x {TRAIN_SEQ} tokens (TokenTask arith), q_chunk {a.q_chunk}, "
-        f"kv_chunk {a.kv_chunk}; built in {time.time() - t0:.1f} s")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, total = [], dict.fromkeys(ops.LAUNCHES, 0)
-    after1 = None
-    for i in range(TRAIN_STEPS):
-        ops.reset_launches()
-        t0 = time.time()
-        with k1_by_contraction(total):
-            met = step(opt, task.batch(i), i)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        loss = float(met["loss"])
-        losses.append(loss)
-        counts = dict(ops.LAUNCHES)
-        for k in counts:
-            total[k] += counts[k]
-        log(f"[train] step {i + 1}: loss {loss:.6f}, wall {wall:.3f} s, "
-            f"{TRAIN_SEQ / wall:.1f} tokens/s; launches {counts}")
-        assert math.isfinite(loss), "non-finite loss"
-        for k in TRAIN_KERNELS:
-            assert counts[k] > 0, f"kernel {k} not launched in train step"
-        if i == 0:
-            after1 = (_host_copy(model.params()), _host_copy(opt.acc))
-    log(f"[train] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"[train] K1 launches in {TRAIN_STEPS} steps by contraction: "
-        f"{ {k: v for k, v in total.items() if k.startswith('qmatmul_')} }")
-    split_train(model, cfg, opt, task.batch(TRAIN_STEPS), TRAIN_STEPS,
-                "train")
-    # where a training step's time goes: device time by kernel name and
-    # the busy share of the wall; K1's split by contraction
-    with k1_by_contraction({}, ranges=True):
-        prof = with_profile(lambda: step(opt, task.batch(TRAIN_STEPS + 1),
-                                         TRAIN_STEPS + 1), "train step",
-                            {"K1 (qmm_*)": "qmm_", "K3 (bwd_*)": "bwd_",
-                             "K5 (fa_*)": "fa_"})
-    k1_split(prof, "train step")
-
-    # step 1 again from the same weights through the plain versions
     with torch.no_grad():
         for p, h in zip(flatten(model.params()), init_params):
             p.copy_(h)
@@ -1534,51 +1557,286 @@ def phase_train() -> dict:
     before = dict(ops.LAUNCHES)
     t0 = time.time()
     with ops.plain_reference():
-        ploss = float(step(opt, task.batch(0), 0)["loss"])
+        ploss = float(step(opt, batch, 0)["loss"])
     torch.cuda.synchronize()
     assert dict(ops.LAUNCHES) == before, "the plain run launched a kernel"
     same_p = [torch.equal(p.detach().cpu(), h)
               for p, h in zip(flatten(model.params()), after1[0])]
     same_a = [torch.equal(x.cpu(), h)
               for x, h in zip(flatten(opt.acc), after1[1])]
-    log(f"[train] step 1 through the plain versions: {time.time() - t0:.1f}"
-        f" s, loss {ploss:.6f} vs {losses[0]:.6f}; parameters equal "
+    log(f"[{tag}] step 1 through the plain versions: {time.time() - t0:.1f}"
+        f" s, loss {ploss:.6f} vs {loss1:.6f}; parameters equal "
         f"{sum(same_p)}/{len(same_p)}, accumulator equal "
         f"{sum(same_a)}/{len(same_a)}")
-    assert ploss == losses[0], "plain step-1 loss differs from the kernels'"
-    assert all(same_p), "plain step-1 parameters differ from the kernels'"
-    assert all(same_a), "plain step-1 accumulator differs from the kernels'"
+    assert ploss == loss1, f"{tag}: plain step-1 loss differs"
+    assert all(same_p), f"{tag}: plain step-1 parameters differ"
+    assert all(same_a), f"{tag}: plain step-1 accumulator differs"
+
+
+def phase_train() -> dict:
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    t0 = time.time()
+    cfg = preset("full8")
+    model = build_model(get("granite-3-8b").replace(n_layers=4), cfg,
+                        device="cuda").init(0)
+    a = model.a
+    task = TokenTask(a.vocab, TRAIN_SEQ, 1, kind="arith")
+    log(f"[train] granite-3-8b at full width, {a.n_layers} of 40 layers, "
+        f"{model.n_params() / 1e9:.2f} G fp32 params, full8 native, batch "
+        f"1 x {TRAIN_SEQ} tokens (TokenTask arith), q_chunk {a.q_chunk}, "
+        f"kv_chunk {a.kv_chunk}; built in {time.time() - t0:.1f} s")
+
+    def profiled(run):
+        # where a training step's time goes: device time by kernel name
+        # and the busy share of the wall; K1's split by contraction
+        with k1_by_contraction({}, ranges=True):
+            prof = with_profile(run, "train step",
+                                {"K1 (qmm_*)": "qmm_", "K3 (bwd_*)": "bwd_",
+                                 "K5 (fa_*)": "fa_"})
+        k1_split(prof, "train step")
+
+    total = train_steps("train", model, cfg,
+                        [task.batch(i) for i in range(TRAIN_STEPS + 1)],
+                        TRAIN_KERNELS, k1_by_contraction, profiled)
+    log(f"[train] K1 launches in {TRAIN_STEPS} steps by contraction: "
+        f"{ {k: v for k, v in total.items() if k.startswith('qmatmul_')} }")
+    del model
+    torch.cuda.empty_cache()
     return total
 
 
-def split_train(model, cfg, opt, batch, i: int, tag: str) -> None:
-    """Step i by its parts, host clock around synchronised work: forward
-    (model.loss), backward (loss.backward()), optimizer (CQ noise,
-    gradient quantization and the Momentum update) - the parts that
-    make_train_step runs in this order."""
+@contextlib.contextmanager
+def step_parts(model, parts: list):
+    """Time a make_train_step call by its parts while inside: the forward
+    (model.loss), the backward (up to momentum_update) and the optimizer
+    (momentum_update: CQ noise, gradient quantization and the Momentum
+    update), each ended by a synchronise, appended to `parts` as
+    (forward, backward, optimizer) seconds once the step returns."""
     import torch
-    from repro_torch.core import prng
-    from repro_torch.launch.train import SEED, _grad_tree
-    from repro_torch.optim import fixed_point_lr, momentum_update
-    torch.cuda.synchronize()
+    from repro_torch.launch import train as ttrain
+    real_loss, real_update = model.loss, ttrain.momentum_update
+    marks = []
+
+    def loss(batch):
+        torch.cuda.synchronize()
+        marks[:] = [time.time()]
+        out = real_loss(batch)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return out
+
+    def update(*args, **kw):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        real_update(*args, **kw)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        parts.append(tuple(b - a for a, b in zip(marks, marks[1:])))
+
+    model.loss, ttrain.momentum_update = loss, update
+    try:
+        yield parts
+    finally:
+        del model.loss
+        ttrain.momentum_update = real_update
+
+
+def train_steps(tag: str, model, cfg, batches, kernels, count=None,
+                profiled=None) -> dict:
+    """make_train_step over `batches` (step i on batches[i]): per step its
+    metrics, wall, peak memory, forward / backward / optimizer split and
+    launches, every kernel of `kernels` launched in every step; then step
+    1 through the plain versions (plain_step_equal).  `count(counts)`, a
+    context manager, counts further launches into the dict it is given in
+    each step (k1_by_contraction, bn_by_shape).  With `profiled`, the last
+    batch is not a timed step: `profiled(run)` is handed one more step on
+    it.  Returns the launches summed over the timed steps."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import init_momentum
+    init_params = _host_copy(model.params())
+    opt = init_momentum(model.params())
+    step = make_train_step(model, cfg, lr=0.05)
+    timed = batches[:-1] if profiled else batches
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    after1, loss1, parts, peak = None, None, [], 0
+    first = next(iter(batches[0].values()))
+    unit = ("tokens", first.size) if "tokens" in batches[0] \
+        else ("images", first.shape[0])
+    for i, batch in enumerate(timed):
+        more: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.time()
+        with step_parts(model, parts), \
+                (count(more) if count else contextlib.nullcontext()):
+            met = step(opt, batch, i)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(ops.LAUNCHES, **more)
+        for k in counts:
+            total[k] = total.get(k, 0) + counts[k]
+        met = {k: float(v) for k, v in met.items()}
+        fwd, bwd, upd = parts[-1]
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        log(f"[{tag}] step {i + 1}: "
+            + ", ".join(f"{k} {v:.6f}" for k, v in met.items())
+            + f", wall {wall:.3f} s (forward {fwd:.3f}, backward {bwd:.3f}, "
+            f"optimizer {upd:.3f}), {unit[1] / wall:.1f} {unit[0]}/s, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB; launches { {k: v for k, v in counts.items() if v} }")
+        assert math.isfinite(met["loss"]), f"{tag}: non-finite loss"
+        for k in kernels:
+            assert counts[k] > 0, f"{tag}: kernel {k} not launched in step " \
+                f"{i + 1}"
+        if i == 0:
+            after1 = (_host_copy(model.params()), _host_copy(opt.acc))
+            loss1 = met["loss"]
+    PEAK[tag] = peak
+    if profiled:
+        profiled(lambda: step(opt, batches[-1], len(timed)))
+    plain_step_equal(tag, model, step, batches[0], init_params, after1,
+                     loss1)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: train falcon-mamba-7b at full width, 4 layers; the four
+# other dense LMs at full width, 2 layers
+# ---------------------------------------------------------------------------
+
+SSM_TRAIN_STEPS = 3
+SSM_TRAIN_KERNELS = ("qmatmul", "quantize", "ubn_norm", "dgrad", "wgrad",
+                     "selective_scan", "selective_scan_bwd")
+DENSE = (("granite-34b", 88), ("phi4-mini-3.8b", 32), ("minitron-4b", 32),
+         ("chameleon-34b", 48))
+DENSE_PROMPT_LENS = (37, 100)
+DENSE_NEW = 8
+DENSE_KW = dict(max_lanes=2, page_size=16, max_ctx=128)
+DENSE_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention",
+                 "paged_attention")
+
+
+def phase_ssm_train() -> dict:
+    """falcon-mamba-7b at full width, 4 of 64 layers: 3 steps of
+    make_train_step on one 1 x 4096 sequence, a profiled step, then step 1
+    through the plain versions.  Returns the launches of the 3 steps."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    tag = "ssm_train"
     t0 = time.time()
-    model.zero_grad(set_to_none=True)
-    loss, _ = model.loss(batch)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    loss.backward()
-    torch.cuda.synchronize()
-    t2 = time.time()
-    params = model.params()
-    key = prng.fold_in(prng.prng_key(SEED), i)
-    momentum_update(cfg, params, _grad_tree(params), opt, model.labels(),
-                    prng.fold_in(key, 1), fixed_point_lr(0.05, cfg))
-    torch.cuda.synchronize()
-    t3 = time.time()
-    model.zero_grad(set_to_none=True)
-    log(f"[{tag}] step {i + 1} by parts: forward {t1 - t0:.3f} s, backward "
-        f"{t2 - t1:.3f} s, optimizer {t3 - t2:.3f} s (loss "
-        f"{float(loss.detach()):.6f})")
+    cfg = preset("full8")
+    model = build_model(get("falcon-mamba-7b").replace(n_layers=4), cfg,
+                        device="cuda").init(0)
+    task = TokenTask(model.a.vocab, TRAIN_SEQ, 1, kind="arith")
+    log(f"[{tag}] {describe(model, 64)}, full8 native, batch 1 x "
+        f"{TRAIN_SEQ} tokens (TokenTask arith); built in "
+        f"{time.time() - t0:.1f} s")
+    # where a step's time goes: device time by kernel name, K9's and K9b's
+    total = train_steps(
+        tag, model, cfg, [task.batch(i) for i in range(SSM_TRAIN_STEPS + 1)],
+        SSM_TRAIN_KERNELS, profiled=lambda run: with_profile(
+            run, "ssm train step",
+            {"K9 (sscan_staged)": "sscan_staged",
+             "K9b (sscan_bwd*)": "sscan_bwd",
+             "K1 (qmm_*)": "qmm_", "K3 (bwd_*)": "bwd_"}))
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dense() -> dict:
+    """The four dense LMs the reference registers beside granite-3-8b, at
+    full width and 2 layers: greedy serving on monolithic prefill against
+    the plain versions, then one granite-34b training step against the
+    plain run's.  Returns the launches of the serving runs and the step,
+    summed."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import make_engine
+    tag = "dense"
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for name, depth in DENSE:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        eng = make_engine(name, reduced=False, n_layers=2, device="cuda",
+                          seed=0, **DENSE_KW)
+        model, a = eng.model, eng.model.a
+        log(f"[{tag}] {describe(model, depth)}; engine {DENSE_KW} "
+            f"(monolithic prefill); built in {time.time() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+                   for n in DENSE_PROMPT_LENS]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.time()
+        for p in prompts:
+            eng.submit(p, DENSE_NEW)
+        out = eng.drain()
+        toks = [out[i] for i in range(len(prompts))]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(ops.LAUNCHES)
+        for k in counts:
+            total[k] += counts[k]
+        met = eng.metrics()
+        log(f"[{tag}] {name}: 2 requests, prompts {DENSE_PROMPT_LENS}, "
+            f"{DENSE_NEW} new tokens each: wall {wall:.3f} s, TTFT mean "
+            f"{1e3 * met['ttft_mean_s']:.1f} ms, decode "
+            f"{1e3 * met['decode_wall_s'] / max(met['decode_steps'], 1):.2f}"
+            f" ms/step; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        for k in DENSE_KERNELS:
+            assert counts[k] > 0, f"{name}: kernel {k} was never launched"
+        for t in toks:
+            assert len(t) == DENSE_NEW and all(0 <= x < a.vocab for x in t)
+        kernels_vs_plain(tag, f"{name} greedy",
+                         model, DENSE_KW, prompts, toks=toks)
+        for p in prompts:
+            tok = torch.as_tensor(p[None], device="cuda")
+            lk = model.prefill(tok, len(p) + DENSE_NEW)[1][0, :a.vocab]
+            with ops.plain_reference():
+                lp = model.prefill(tok, len(p) + DENSE_NEW)[1][0, :a.vocab]
+            dist = float((lk - lp).abs().max())
+            log(f"[{tag}] {name}: first logits of a {len(p)}-token prompt: "
+                f"max |kernel - plain| {dist:.3e}, argmax {int(lk.argmax())}"
+                f" vs {int(lp.argmax())}")
+            assert bool(torch.isfinite(lk).all()), "non-finite logits"
+            assert dist == 0.0, f"{name}: first logits differ"
+        del eng, model
+        torch.cuda.empty_cache()
+
+    # one training step of granite-34b: MQA (48 query heads on 1 KV head)
+    # through K5 and the attention's backward, K3 at 6144 <-> 24576
+    t0 = time.time()
+    cfg = preset("full8")
+    model = build_model(get("granite-34b").replace(n_layers=2), cfg,
+                        device="cuda").init(0)
+    log(f"[{tag}] train: {describe(model, 88)}, full8 native, batch 1 x "
+        f"{TRAIN_SEQ} tokens (TokenTask arith); built in "
+        f"{time.time() - t0:.1f} s")
+    batch = TokenTask(model.a.vocab, TRAIN_SEQ, 1, kind="arith").batch(0)
+    counts = train_steps(f"{tag} granite-34b train", model, cfg, [batch],
+                         TRAIN_KERNELS)
+    for k in counts:
+        total[k] += counts[k]
+    del model
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1598,7 +1856,8 @@ RESNET50_BN = {(100352, 64): 6, (100352, 256): 4, (100352, 128): 1,
 
 @contextlib.contextmanager
 def bn_by_shape(counts: dict):
-    """Count K4 "batch" launches by the (M, C) of x into `counts`."""
+    """Count K4 "batch" launches by the (M, C) of x into `counts`, under
+    the key "ubn_norm_batch_<M>x<C>"."""
     from repro_torch.kernels import ops
     real = ops.ubn_norm
 
@@ -1606,7 +1865,7 @@ def bn_by_shape(counts: dict):
         before = ops.LAUNCHES["ubn_norm"]
         y = real(x, *args, kind=kind, **kw)
         if kind == "batch":
-            key = tuple(x.shape)
+            key = "ubn_norm_batch_{}x{}".format(*x.shape)
             counts[key] = counts.get(key, 0) + ops.LAUNCHES["ubn_norm"] \
                 - before
         return y
@@ -1619,23 +1878,17 @@ def bn_by_shape(counts: dict):
 
 
 def phase_resnet() -> dict:
-    import torch
     from repro_torch.configs import get
     from repro_torch.core import preset
     from repro_torch.data import ImageTask
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import make_train_step
     from repro_torch.models import build_model
-    from repro_torch.optim import flatten, init_momentum
+    from repro_torch.optim import flatten
     t0 = time.time()
     cfg = preset("full8")
     model = build_model(get("resnet50"), cfg, device="cuda").init(0)
     a = model.a
     task = ImageTask(a.img_size, a.num_classes, RESNET_BATCH, seed=0)
-    batches = [task.batch(i) for i in range(RESNET_STEPS + 2)]
-    init_params = _host_copy(model.params())
-    opt = init_momentum(model.params())
-    step = make_train_step(model, cfg, lr=0.05)
+    batches = [task.batch(i) for i in range(RESNET_STEPS + 1)]
     n_leaves = len(flatten(model.params()))
     log(f"[resnet] resnet50 at full size ({a.block} stages "
         f"{a.stage_sizes}, {a.img_size}x{a.img_size}x3 images, "
@@ -1645,69 +1898,20 @@ def phase_resnet() -> dict:
         f"batch of 128 cut to {RESNET_BATCH} to keep the phase short); "
         f"built with its batches in {time.time() - t0:.1f} s")
     assert n_leaves == 161, n_leaves
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, total = [], dict.fromkeys(ops.LAUNCHES, 0)
-    after1 = None
-    for i in range(RESNET_STEPS):
-        shapes: dict = {}
-        ops.reset_launches()
-        t0 = time.time()
-        with bn_by_shape(shapes):
-            met = step(opt, batches[i], i)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        for (m, c), k in shapes.items():
-            key = f"ubn_norm_batch_{m}x{c}"
-            total[key] = total.get(key, 0) + k
-        if i == 0:
-            log(f"[resnet] K4 batch launches a step by (M, C): "
-                f"{ {f'{m}x{c}': k for (m, c), k in sorted(shapes.items())} }")
-            assert shapes == RESNET50_BN, "K4 batch shapes of a step differ "\
-                "from RESNET50_BN"
-        loss, acc = float(met["loss"]), float(met["acc"])
-        losses.append(loss)
-        counts = dict(ops.LAUNCHES)
-        for k in counts:
-            total[k] += counts[k]
-        log(f"[resnet] step {i + 1}: loss {loss:.6f}, acc {acc:.4f}, wall "
-            f"{wall:.3f} s, {RESNET_BATCH / wall:.1f} images/s; launches "
-            f"{counts}")
-        assert math.isfinite(loss), "non-finite loss"
-        for k in RESNET_KERNELS:
-            assert counts[k] > 0, f"kernel {k} not launched in resnet step"
-        if i == 0:
-            after1 = (_host_copy(model.params()), _host_copy(opt.acc))
-    PEAK["resnet"] = torch.cuda.max_memory_allocated()
+    total = train_steps(
+        "resnet", model, cfg, batches, RESNET_KERNELS, bn_by_shape,
+        lambda run: with_profile(run, "resnet50 train step",
+                                 {"K4 batch (ubn_batch_*, its 52 calls)":
+                                  "ubn_batch_"}))
     log(f"[resnet] peak device memory {PEAK['resnet'] / 1e9:.2f} GB")
-    split_train(model, cfg, opt, batches[RESNET_STEPS], RESNET_STEPS,
-                "resnet")
-    with_profile(lambda: step(opt, batches[RESNET_STEPS + 1],
-                              RESNET_STEPS + 1), "resnet50 train step",
-                 {"K4 batch (ubn_batch_*, its 52 calls)": "ubn_batch_"})
-
-    # step 1 again from the same weights through the plain versions
-    with torch.no_grad():
-        for p, h in zip(flatten(model.params()), init_params):
-            p.copy_(h)
-    opt = init_momentum(model.params())
-    before = dict(ops.LAUNCHES)
-    t0 = time.time()
-    with ops.plain_reference():
-        ploss = float(step(opt, batches[0], 0)["loss"])
-    torch.cuda.synchronize()
-    assert dict(ops.LAUNCHES) == before, "the plain run launched a kernel"
-    same_p = [torch.equal(p.detach().cpu(), h)
-              for p, h in zip(flatten(model.params()), after1[0])]
-    same_a = [torch.equal(x.cpu(), h)
-              for x, h in zip(flatten(opt.acc), after1[1])]
-    log(f"[resnet] step 1 through the plain versions: "
-        f"{time.time() - t0:.1f} s, loss {ploss:.6f} vs {losses[0]:.6f}; "
-        f"parameters equal {sum(same_p)}/{len(same_p)}, accumulator equal "
-        f"{sum(same_a)}/{len(same_a)}")
-    assert ploss == losses[0], "plain step-1 loss differs from the kernels'"
-    assert all(same_p), "plain step-1 parameters differ from the kernels'"
-    assert all(same_a), "plain step-1 accumulator differs from the kernels'"
+    shapes = {k: v for k, v in total.items()
+              if k.startswith("ubn_norm_batch_")}
+    want = {"ubn_norm_batch_{}x{}".format(*mc): RESNET_STEPS * n
+            for mc, n in RESNET50_BN.items()}
+    log(f"[resnet] K4 batch launches in {RESNET_STEPS} steps by (M, C): "
+        f"{shapes}")
+    assert shapes == want, "K4 batch shapes of the steps differ from " \
+        "RESNET50_BN"
     return total
 
 
@@ -2016,7 +2220,8 @@ def main() -> int:
     runs = {"serve": phase_serve(), "serve_mono": phase_serve_mono(),
             "train": phase_train(), "resnet": phase_resnet()}
     phase_ckpt()
-    runs.update(ssm=phase_ssm(), none={})
+    runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
+                dense=phase_dense(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -1,10 +1,11 @@
 """Architecture configuration schema (the fields the ported families read).
 
-Mirrors `repro.configs.base.ArchConfig` for the decoder-only LM, the
-Mamba1 SSM and the ResNet: the same field names and defaults, `dh`,
-`d_inner`, `vocab_padded` and `reduced()`, so a configuration reads the
-same in both packages.  Families that the port does not run yet (MoE,
-hybrid, enc-dec) keep no fields here.
+Mirrors `repro.configs.base.ArchConfig` for the decoder-only LMs (families
+"lm" and "vlm"), the Mamba1 SSM and the ResNet: the same field names and
+defaults, `dh`, `d_inner`, `vocab_padded` and `reduced()`, so a
+configuration reads the same in both packages.  Families that the port
+does not build yet (MoE, hybrid, enc-dec) keep no fields here, nor does
+the reference's dry-run metadata (`shapes`, `skip_notes`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm | ssm | resnet
+    family: str                  # lm | vlm | ssm | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0

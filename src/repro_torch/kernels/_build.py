@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NAMES = ("qmatmul", "quantize", "ubn", "page_gather", "paged_attention",
-         "backward", "flash_attention", "selective_scan")
+         "backward", "flash_attention", "selective_scan",
+         "selective_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 

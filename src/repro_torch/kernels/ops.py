@@ -11,7 +11,10 @@ version (`kernels/ref.py`) for a CPU tensor.
   flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
   paged_attention  K6  paged int8 decode attention over the live positions
-  selective_scan   K9  the Mamba1 recurrence with a carried state
+  selective_scan   K9  the Mamba1 recurrence with a carried state; its
+                       gradient is an autograd Function whose backward is
+  selective_scan_bwd K9b the reverse scan (port-only: the reference
+                       differentiates an XLA scan)
 
 Routing is by the tensor's device alone.  On a CUDA tensor an op launches
 its kernel or raises: no shape guard sends it elsewhere and nothing falls
@@ -22,7 +25,8 @@ that way); the serving path never enters it.
 `LAUNCHES` counts kernel launches per op: an op adds one each time it
 launches its kernel (K6 counts one per call, which is three launches
 with nothing between them; K1, K3, K4 "batch", K5 and K7 count
-one per call likewise) and never on the plain route.
+one per call likewise, and K9b one per call for its scan and its dc
+pass) and never on the plain route.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ Tensor = torch.Tensor
 
 LAUNCHES = {"qmatmul": 0, "quantize": 0, "ubn_norm": 0, "page_gather": 0,
             "paged_attention": 0, "dgrad": 0, "wgrad": 0,
-            "flash_attention": 0, "cq_stochastic": 0, "selective_scan": 0}
+            "flash_attention": 0, "cq_stochastic": 0, "selective_scan": 0,
+            "selective_scan_bwd": 0}
 
 _PLAIN = False
 
@@ -67,6 +72,8 @@ _SIGS = {
         c_int, c_int, c_int, _P],
     ("flash_attention", "fa_pcode_check"): [_P, _P, _P],
     ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 7 + [_P],
+    ("selective_scan_bwd", "sscan_bwd_launch"): [_P] * 11 + [c_int] * 4
+    + [_P],
 }
 _FNS: dict = {}
 
@@ -975,27 +982,63 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
     state, or None for zeros (the TPU kernel's function).  Returns
     (y (B, S, D) f32, h_last (B, D, N) f32); on the card both are views of
     one allocation.  The kernel takes N in SCAN_STATES and B < 65536; other
-    shapes raise ValueError."""
-    if not _on_kernel(a):
-        return ref.selective_scan(a, b, c, h0)
+    shapes raise ValueError.  Differentiable through `_SelectiveScan`,
+    whose backward is `selective_scan_bwd` (K9b on the card)."""
+    return _SelectiveScan.apply(a, b, c, h0)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """K9 forward (unchanged: the same bits and plan), K9b backward.  Saves
+    a, b, c and h0; the backward recomputes every h_t from them."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, c, h0)
+        return _scan_forward(a, b, c, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, b, c, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = a.new_zeros(a.shape[:3])
+        da, db, dc, dh0 = selective_scan_bwd(a, b, c, dy, h0, dh_last)
+        return da, db, dc, dh0
+
+
+def _scan_checks(op: str, a: Tensor, b: Tensor, c: Tensor,
+                 h0: Tensor | None, **more) -> None:
+    """The operand checks K9 and K9b share; `more` holds further (B, D, N)
+    or (B, S, D) operands by name."""
     _need(a.dim() == 4 and a.dtype == torch.float32 and b.dtype == a.dtype
-          and c.dtype == a.dtype, "selective_scan takes (B, S, D, N) f32 a "
-          "and b and (B, S, N) f32 c")
+          and c.dtype == a.dtype, "{} takes (B, S, D, N) f32 a and b and "
+          "(B, S, N) f32 c", op)
     bsz, s, d, n = a.shape
     _need(b.shape == a.shape and c.shape == (bsz, s, n),
-          "selective_scan shapes a {}, b {}, c {}", tuple(a.shape),
-          tuple(b.shape), tuple(c.shape))
-    _need(n in SCAN_STATES, "selective_scan kernel is built for N in {} (a "
-          "thread holds 4 states), got N = {}", SCAN_STATES, n)
-    _need(0 < bsz < 65536 and d > 0, "selective_scan: B = {}, D = {} out of "
-          "the kernel's grid", bsz, d)
+          "{} shapes a {}, b {}, c {}", op, tuple(a.shape), tuple(b.shape),
+          tuple(c.shape))
+    _need(n in SCAN_STATES, "{} kernel is built for N in {} (a thread holds "
+          "4 states), got N = {}", op, SCAN_STATES, n)
+    _need(0 < bsz < 65536 and d > 0, "{}: B = {}, D = {} out of the "
+          "kernel's grid", op, bsz, d)
     _need(b.device == a.device and c.device == a.device,
-          "selective_scan operands on different devices")
+          "{} operands on different devices", op)
+    for name, t in dict(more, h0=h0).items():
+        if t is None:
+            continue
+        want = (bsz, s, d) if name == "dy" else (bsz, d, n)
+        _need(t.shape == want and t.dtype == torch.float32
+              and t.device == a.device, "{} {} {} is not {} f32", op, name,
+              tuple(t.shape), want)
+
+
+def _scan_forward(a: Tensor, b: Tensor, c: Tensor,
+                  h0: Tensor | None) -> tuple[Tensor, Tensor]:
+    if not _on_kernel(a):
+        return ref.selective_scan(a, b, c, h0)
+    _scan_checks("selective_scan", a, b, c, h0)
+    bsz, s, d, n = a.shape
     if h0 is not None:
-        _need(h0.shape == (bsz, d, n) and h0.dtype == torch.float32
-              and h0.device == a.device,
-              "selective_scan h0 {} is not ({}, {}, {}) f32", tuple(h0.shape),
-              bsz, d, n)
         h0 = _aligned(h0)
     ac, bc, cc = _aligned(a), _aligned(b), _aligned(c)
     key = (bsz, s, d, n, _sm_count(a.device))
@@ -1014,6 +1057,42 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
             _stream(ac))
     LAUNCHES["selective_scan"] += 1
     return y, h_last
+
+
+def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                       h0: Tensor | None = None,
+                       dh_last: Tensor | None = None):
+    """The gradient of `selective_scan` (K9b): (da, db (B, S, D, N),
+    dc (B, S, N), dh0 (B, D, N) or None without h0) from the forward's
+    operands, dy (B, S, D) and dh_last (B, D, N) or None.  The numerics
+    and the order of dc's sum are `ref.selective_scan_bwd`'s.
+
+    On the card: one kernel launch runs the forward once more, leaving the
+    state before every chunk of 8 steps in da's first step of that chunk,
+    then walks the chunks backwards, recomputing each chunk's h from its
+    checkpoint before da overwrites it, and writes each block's float64 dc
+    partials; a second launch sums the partials in block order.
+    Takes the shapes K9 takes; others raise ValueError."""
+    if not _on_kernel(a):
+        return ref.selective_scan_bwd(a, b, c, dy, h0, dh_last)
+    _scan_checks("selective_scan_bwd", a, b, c, h0, dy=dy, dh_last=dh_last)
+    bsz, s, d, n = a.shape
+    ac, bc, cc = _aligned(a), _aligned(b), _aligned(c)
+    h0c = None if h0 is None else _aligned(h0)
+    dhc = None if dh_last is None else _aligned(dh_last)
+    dyc = dy.contiguous()
+    w, q = ref.scan_dc_groups(n)
+    tiles = -(-d // (w * q))
+    da, db = torch.empty_like(ac), torch.empty_like(ac)
+    part = torch.empty((bsz, s, tiles, n), dtype=torch.float64,
+                       device=a.device)
+    dc = torch.empty((bsz, s, n), dtype=torch.float32, device=a.device)
+    dh0 = None if h0 is None else torch.empty_like(h0c)
+    _launch("selective_scan_bwd", "sscan_bwd_launch", _ptr(ac), _ptr(bc),
+            _ptr(cc), _ptr(h0c), _ptr(dyc), _ptr(dhc), _ptr(da), _ptr(db),
+            _ptr(part), _ptr(dc), _ptr(dh0), bsz, s, d, n, _stream(ac))
+    LAUNCHES["selective_scan_bwd"] += 1
+    return da, db, dc, dh0
 
 
 OPS = tuple(LAUNCHES)

@@ -371,17 +371,99 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
     rounded once to fp32.  The loop over t computes h only, into a
     (B, S, D, N) buffer; y then comes from one n-ordered float64 pass."""
     bsz, s, d, n = a.shape
-    h = (torch.zeros((bsz, d, n), dtype=torch.float32, device=a.device)
-         if h0 is None else h0.float())
+    hs, h = _scan_states(a, b, h0)
+    acc = None
+    for j in range(n):
+        p = hs[..., j].double() * c[:, :, None, j].double()
+        acc = p if acc is None else acc + p
+    y = (acc.to(a.dtype) if acc is not None
+         else torch.zeros((bsz, s, d), dtype=a.dtype, device=a.device))
+    return y, h
+
+
+def _scan_states(a: Tensor, b: Tensor, h0: Tensor | None):
+    """Every h_t of the recurrence, (B, S, D, N), and h_last, with the
+    forward's two roundings per step.  In a's dtype (fp32 on every path;
+    float64 for a finite-difference check)."""
+    bsz, s, d, n = a.shape
+    h = (torch.zeros((bsz, d, n), dtype=a.dtype, device=a.device)
+         if h0 is None else h0.to(a.dtype))
     hs = torch.empty_like(a)
     for t in range(s):
         h = a[:, t] * h
         h = h + b[:, t]
         hs[:, t] = h
-    acc = None
-    for j in range(n):
-        p = hs[..., j].double() * c[:, :, None, j].double()
-        acc = p if acc is None else acc + p
-    y = (acc.float() if acc is not None
-         else torch.zeros((bsz, s, d), dtype=torch.float32, device=a.device))
-    return y, h
+    return hs, h
+
+
+def scan_dc_groups(n: int) -> tuple[int, int]:
+    """(channels in a group, groups in a tile) of the backward's dc sum:
+    the channels one warp of K9b holds (32 lanes of N / 4 states) and the
+    four warps of its block."""
+    return 128 // n, 4
+
+
+def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
+                       h0: Tensor | None = None,
+                       dh_last: Tensor | None = None):
+    """The gradient of `selective_scan` (K9b's function).
+
+    a, b: (B, S, D, N); c: (B, S, N); dy: (B, S, D) the gradient of y;
+    h0: (B, D, N) or None (zeros); dh_last: (B, D, N) the gradient of
+    h_last, or None (zeros).  Returns (da, db (B, S, D, N), dc (B, S, N),
+    dh0 (B, D, N), or None without h0).
+
+    With g_t the gradient of h_t, from t = S-1 down to 0:
+        g_t  = a_{t+1} g_{t+1} + dy_t (x) c_t    (the carry starts at dh_last)
+        db_t = g_t,   da_t = g_t h_{t-1},   dh0 = a_0 g_0
+        dc_t[n] = sum_d dy_t[d] h_t[d, n]
+    Numerics, which the kernel matches bit for bit:
+      * h_t is the forward's, recomputed with its two roundings a step;
+      * dy_t[d] * c_t[n] rounds once, then the carry a_{t+1} * g_{t+1}
+        (rounded once, or dh_last, or +0) is added, rounding once;
+        da_t = g_t * h_{t-1} and the next carry a_t * g_t round once each
+        (no fused multiply-add anywhere);
+      * dc: the float64 products dy_t[d] * h_t[d, n] are exact.  Channels
+        are padded with +0 products to whole tiles of 4 groups of
+        `scan_dc_groups(N)[0]` channels; each group is summed in d order,
+        a tile's four group sums in order, the tiles' sums in d order, all
+        in float64, then rounded once to fp32."""
+    bsz, s, d, n = a.shape
+    hs, _ = _scan_states(a, b, h0)
+    carry = (torch.zeros((bsz, d, n), dtype=a.dtype, device=a.device)
+             if dh_last is None else dh_last.to(a.dtype))
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(s - 1, -1, -1):
+        g = carry + dy[:, t, :, None] * c[:, t, None, :]
+        db[:, t] = g
+        hp = hs[:, t - 1] if t > 0 else (
+            torch.zeros_like(g) if h0 is None else h0.to(a.dtype))
+        da[:, t] = g * hp
+        carry = a[:, t] * g
+    return da, db, _scan_dc(dy, hs), (None if h0 is None else carry)
+
+
+def _scan_dc(dy: Tensor, hs: Tensor) -> Tensor:
+    """dc in the order `selective_scan_bwd` states."""
+    bsz, s, d, n = hs.shape
+    w, q = scan_dc_groups(n)
+    tiles = -(-d // (w * q))
+    pad = tiles * w * q - d
+    if pad:
+        hs = torch.cat([hs, hs.new_zeros((bsz, s, pad, n))], 2)
+        dy = torch.cat([dy, dy.new_zeros((bsz, s, pad))], 2)
+    hv = hs.reshape(bsz, s, tiles, q, w, n)
+    dv = dy.reshape(bsz, s, tiles, q, w)
+    grp = None
+    for j in range(w):
+        p = dv[..., j, None].double() * hv[..., j, :].double()
+        grp = p if grp is None else grp + p          # (B, S, tiles, q, N)
+    if grp is None:
+        return torch.zeros((bsz, s, n), dtype=hs.dtype, device=hs.device)
+    tile = grp[:, :, :, 0]
+    for i in range(1, q):
+        tile = tile + grp[:, :, :, i]
+    tot = tile[:, :, 0]
+    for i in range(1, tiles):
+        tot = tot + tile[:, :, i]
+    return tot.to(hs.dtype)

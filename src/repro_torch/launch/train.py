@@ -13,14 +13,16 @@ the reference, so the bits are a pure function of the step index.
 
     python -m repro_torch.launch.train --arch granite-3-8b --reduced \
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch falcon-mamba-7b --reduced \
+        --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch resnet50 --reduced \
         --mode native --steps 3 --batch 4 --device cpu
     python -m repro_torch.launch.train ... --ckpt-dir DIR --save-every 2
     python -m repro_torch.launch.train ... --ckpt-dir DIR --resume
 
-The LM trains on TokenTask ("arith"); a ResNet on the synthetic ImageTask
-at its config's image size and classes, or on npz shards under
-`--data-dir` (data/imagenet.py).  With `--ckpt-dir` the CLI saves
+The LMs (dense and SSM) train on TokenTask ("arith"); a ResNet on the
+synthetic ImageTask at its config's image size and classes, or on npz
+shards under `--data-dir` (data/imagenet.py).  With `--ckpt-dir` the CLI saves
 (parameters, MomentumState) after every `--save-every` steps
 (checkpoint/manager.py, the reference's format); with `--resume` it
 restores the latest checkpoint there and continues from its step, which
@@ -45,7 +47,6 @@ from repro_torch.core import prng
 from repro_torch.core.qconfig import preset
 from repro_torch.data import ImageTask, NpzImageTask, TokenTask
 from repro_torch.models import build_model
-from repro_torch.models.ssm_lm import TRAINING
 from repro_torch.optim import (dr_bits_schedule, fixed_point_lr, flatten,
                                init_momentum, momentum_update,
                                parse_boundaries, tree_map)
@@ -59,11 +60,12 @@ SHARDED = ("is not ported yet: the sharded step, its gradient wire and the "
 def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
                     mom: float = 0.75, dr_bits: int | None = None,
                     n_micro: int = 1):
-    """The training step for `model` (an LMTransformer or a ResNet: a
-    module holding its parameters, with `loss(batch) -> (loss, metrics)`,
-    `params()` and `labels()`): step(opt_state, batch, step_idx) -> the
-    loss's metrics ({"loss"}, and "acc" for the ResNet) as 0-d tensors,
-    updating the model's parameters and opt_state.acc IN PLACE.
+    """The training step for `model` (an LMTransformer, an SSMLM or a
+    ResNet: a module holding its parameters, with `loss(batch) -> (loss,
+    metrics)`, `params()` and `labels()`): step(opt_state, batch,
+    step_idx) -> the loss's metrics ({"loss"}, and "acc" for the ResNet)
+    as 0-d tensors, updating the model's parameters and opt_state.acc IN
+    PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
     base).  n_micro > 1 splits the batch's leading dim into n_micro equal
@@ -71,12 +73,9 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
     so activation memory scales down; BN statistics per microbatch) and
     takes the mean of their gradients, summed in fp32 from zeros in
     microbatch order and divided by n_micro, as the reference does; the
-    metrics are then {"loss"}, the mean of the microbatch losses.  An
-    SSMLM raises NotImplementedError: its scan has no backward yet."""
+    metrics are then {"loss"}, the mean of the microbatch losses."""
     if n_micro < 1:
         raise ValueError(f"n_micro={n_micro} must be >= 1")
-    if model.a.family == "ssm":
-        raise NotImplementedError(TRAINING)
     lrq = fixed_point_lr(lr, qcfg)
     labels = model.labels() if labels_tree is None else labels_tree
 

@@ -15,7 +15,9 @@ the same function associated differently, so the port's y differs from
 the reference's by fp32 reassociation (tests/test_torch_ssm.py states the
 normwise bound).  In exchange the port's chunk and decode modes agree
 with each other bit for bit: a scan continued from its h_last equals one
-longer scan.
+longer scan.  Train mode differentiates end to end: the scan's gradient is
+K9b (`ops.selective_scan`'s autograd Function), and the quantizers (qdense,
+qact, qrmsnorm, qbn_param, qweight's STE) are autograd Functions too.
 
 The depthwise causal convolution is an explicit fp32 sum over the d_conv
 taps in tap order (the reference's is an XLA convolution in chunk mode and

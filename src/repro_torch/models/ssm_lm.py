@@ -1,9 +1,10 @@
 """Pure-SSM LM (falcon-mamba-7b): stacked Mamba1 blocks, O(1) decode state.
 
-Port of `repro.models.ssm_lm.SSMLM` for serving: the parallel prefill
-(`prefill`, train mode from zero state), the per-token step
-(`serve_step`) and the decode-state slot API the engine drives
-(`decode_state_spec`, `init_slots`, `slot_from_cache`,
+Port of `repro.models.ssm_lm.SSMLM`: the training loss (`loss`, the
+backbone in train mode, differentiated by autograd: the scan's gradient is
+K9b), the parallel prefill (`prefill`, train mode from zero state), the
+per-token step (`serve_step`) and the decode-state slot API the engine
+drives (`decode_state_spec`, `init_slots`, `slot_from_cache`,
 `paged_decode_step`, `prefill_page`).  There is no paged KV: the whole
 recurrent state (conv window and scan state per layer) sits in dense
 per-lane slots, and every method returns new state rather than updating
@@ -13,8 +14,8 @@ Weights keep the reference's layouts: stacked per-layer tensors (L, ...)
 in `layers` (ln, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log,
 D_skip, out_proj), `embed` (Vp, d), `final_norm` (d,), `lm_head` (d, Vp).
 The embedding and lm_head are exempt from quantization (an fp32 gather and
-an fp32 matmul, TF32 off).  Training needs the scan's backward and is not
-ported: `loss` raises (ROADMAP Queue 1 item 4).
+an fp32 matmul, TF32 off).  The parameters require grad; the serving
+entry points run under no_grad.
 """
 from __future__ import annotations
 
@@ -30,9 +31,6 @@ from . import layers as L
 from . import ssm as S
 
 Tensor = torch.Tensor
-
-TRAINING = ("SSM training is not ported yet (it needs the selective scan's "
-            "backward): ROADMAP Queue 1 item 4")
 
 
 class SSMLM(nn.Module):
@@ -50,8 +48,7 @@ class SSMLM(nn.Module):
 
         def param(shape):
             return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                            device=self.device),
-                                requires_grad=False)
+                                            device=self.device))
 
         self.layers = nn.ParameterDict({
             k: param((a.n_layers,) + s)
@@ -69,8 +66,8 @@ class SSMLM(nn.Module):
         embedding and head, ones for the final norm).  Same distributions
         as the reference's `init`, not the same bits."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        for i in range(self.a.n_layers):
-            S.mamba1_init_(self.q, self.a, self._layer(i), gen)
+        for p in self._layer_views():
+            S.mamba1_init_(self.q, self.a, p, gen)
         self.embed.normal_(generator=gen).mul_(0.02)
         self.lm_head.normal_(generator=gen).mul_(0.02)
         self.final_norm.fill_(1.0)
@@ -89,27 +86,51 @@ class SSMLM(nn.Module):
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def params(self) -> dict:
+        """The parameter tree in the reference's layout (live tensors)."""
+        return {"embed": self.embed, "final_norm": self.final_norm,
+                "layers": dict(self.layers), "lm_head": self.lm_head}
+
     def labels(self) -> dict:
         return {"embed": "exempt", "layers": S.mamba1_labels(),
                 "final_norm": "gamma", "lm_head": "exempt"}
 
-    def loss(self, batch: dict):
-        raise NotImplementedError(TRAINING)
+    # ---------------- training ----------------
+
+    def loss(self, batch: dict) -> tuple[Tensor, dict]:
+        """Mean next-token cross entropy of {"tokens", "labels"} (B, S):
+        the embedding, every layer in train mode, the logits, then
+        logsumexp minus the label's logit.  Returns (loss, {"loss"}), as
+        the reference's loss does."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = self.embed[tokens]                        # exempt first layer
+        x, _ = self._backbone(x, "train", None)
+        logits = self._logits(x)
+        lse = torch.logsumexp(logits, dim=-1)
+        loss = torch.mean(lse - L.target_logit(logits, labels))
+        return loss, {"loss": loss.detach()}
 
     # ---------------- forward ----------------
 
     def _layer(self, i: int) -> dict:
-        return {k: p[i] for k, p in self.layers.items()}
+        return self._layer_views()[i]
+
+    def _layer_views(self) -> list[dict]:
+        """Per-layer views of the stacked parameters, made by ONE unbind
+        per tensor, so the backward assembles each stacked gradient once."""
+        per = {k: p.unbind(0) for k, p in self.layers.items()}
+        return [{k: v[i] for k, v in per.items()}
+                for i in range(self.a.n_layers)]
 
     def _backbone(self, x: Tensor, mode: str, state: dict | None):
         """Every layer in `mode`; returns (x, {"conv", "h"} stacked (L, ...)).
         `state` holds the stacked per-layer states ("chunk" / "decode")."""
         convs, hs = [], []
-        for i in range(self.a.n_layers):
+        for i, p in enumerate(self._layer_views()):
             st = (None if state is None
                   else {"conv": state["conv"][i], "h": state["h"][i]})
-            x, ns = S.mamba1_block(self.q, self.a, self._layer(i), x, mode,
-                                   st)
+            x, ns = S.mamba1_block(self.q, self.a, p, x, mode, st)
             convs.append(ns["conv"])
             hs.append(ns["h"])
         return x, {"conv": torch.stack(convs), "h": torch.stack(hs)}

@@ -1,4 +1,6 @@
-"""Decoder-only dense LM (granite-3-8b): training loss and paged serving.
+"""Decoder-only dense LM (granite-3-8b, granite-34b, phi4-mini-3.8b,
+minitron-4b, and chameleon-34b's early-fusion VLM on token ids): training
+loss and paged serving.
 
 Port of `repro.models.transformer.LMTransformer`: `train` mode (the loss
 of the training step: chunked causal attention through the flash kernel,
@@ -37,7 +39,7 @@ LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
 class LMTransformer(nn.Module):
     def __init__(self, acfg: ArchConfig, qcfg: QConfig, device="cuda"):
         super().__init__()
-        if acfg.family != "lm":
+        if acfg.family not in ("lm", "vlm"):
             raise NotImplementedError(
                 f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
                 "item 4)")

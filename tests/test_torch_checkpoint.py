@@ -9,7 +9,9 @@ the models on the CPU.  Tolerances:
      scales.
   Keys: the port's (params, MomentumState) key list equals the reference's
      `_flatten_with_paths` key list of (params, MomentumState(acc, step)),
-     order included, for the reduced granite-3-8b and resnet50.
+     order included, for the reduced granite-3-8b, resnet50 and
+     falcon-mamba-7b (whose conv_b is a "beta" leaf and dt_bias, A_log
+     and D_skip exempt ones).
   Cross-package restore (2 reference steps under exact_pow2, then its
      CheckpointManager's step-2 checkpoint): restores in the port to the
      reference's arrays, equal; the port's own checkpoint after 2 more
@@ -27,7 +29,7 @@ the models on the CPU.  Tolerances:
      reference's step-2 checkpoint against the reference's own steps 3
      and 4, within the bounds of the train-slice tests: every loss within
      2e-3 relative, and after step 4 the hidden k_WU-grid codes within
-     full8's 5-step bound (the LM: 95% differing, 8192 codes apart; the
+     full8's 5-step bound (the LMs: 95% differing, 8192 codes apart; the
      ResNet: 95%, 2^14).  The step-1 bound of the LM's slice does not
      carry over: from the reference's step-2 state the LM's step 3
      differs in 15.4% of the codes, by at most 468, which are the
@@ -66,7 +68,10 @@ from repro_torch.optim import MomentumState, flatten, init_momentum
 
 from torch_parity import exact_pow2_patched
 
-ARCHS = ("granite-3-8b", "resnet50")
+ARCHS = ("granite-3-8b", "resnet50", "falcon-mamba-7b")
+# a leaf key each tree must hold (the SSM's conv_b is its "beta" leaf)
+A_KEY = {"granite-3-8b": "1/acc/layers/wq", "resnet50": "0/stages/0/0/conv1",
+         "falcon-mamba-7b": "1/acc/layers/conv_b"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -233,7 +238,7 @@ def test_port_continues_reference_checkpoint(arch, continuation, reference):
               f"{rel:.3e} (bound 2e-3), codes differing {share:.5f}, max "
               f"distance {dist:.0f}")
         assert rel <= 2e-3
-    bound = (8192 if arch == "granite-3-8b" else 2 ** 14)
+    bound = (2 ** 14 if arch == "resnet50" else 8192)
     assert share <= 0.95 and dist <= bound, (share, dist)
 
 
@@ -253,8 +258,7 @@ def test_keys_match_reference(arch):
         tm.params())))]
     assert got == want
     assert want[-1] == "1/step"
-    assert ("0/stages/0/0/conv1" if arch == "resnet50" else
-            "1/acc/layers/wq") in want
+    assert A_KEY[arch] in want
 
 
 # --------------------------------------------------------------------------

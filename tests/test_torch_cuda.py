@@ -12,7 +12,9 @@ batch columns), K5 and K6 because both sides take their sums in float64
 division, sqrt and exp in float64, each rounded once to fp32 (K5's
 per-score probability codes come from exact thresholds of that exp,
 checked over every fp32 input); K9 because both sides round h twice per
-step and sum y in float64 in n order.
+step and sum y in float64 in n order; K9b because both sides recompute h
+so, round each product and sum of the reverse recurrence once and add
+dc's float64 products in one stated order.
 Without a card each test skips.
 """
 import numpy as np
@@ -511,6 +513,81 @@ def test_cuda_selective_scan_views_and_repeats(cuda, s, n):
     assert torch.equal(y, yp) and torch.equal(h, hp)
     y, h = ops.selective_scan(a[:, :0], b[:, :0], c[:, :0], h0)
     assert y.shape == (2, 0, 96) and torch.equal(h, h0)
+
+
+def _bwd_inputs(g, shape, dev):
+    a, b, c, h0 = _scan_inputs(g, shape, dev)
+    dy = torch.randn(shape[:3], generator=g, device=dev)
+    dh = torch.randn(shape[:1] + shape[2:], generator=g, device=dev)
+    return a, b, c, h0, dy, dh
+
+
+def _bwd_equal(got, want) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_h0,with_dh", [
+    ((1, 4096, 8192, 16), False, False),  # train_4k: the ssm_train step's
+    ((1, 16, 8192, 16), True, True),      # a prefill page
+    ((4, 1, 8192, 16), True, True),       # B > 1, one step
+    ((2, 37, 1000, 4), True, False),      # ragged S (chunks of 8), D, N 4
+    ((2, 37, 1000, 4), False, True),
+    ((3, 9, 65, 16), True, True),         # one step past a chunk, D 65
+    ((1, 17, 300, 16), False, True),
+    ((2, 33, 128, 4), False, False),      # the reduced SSM's width
+    ((1, 4097, 512, 16), True, True),
+    ((64, 3, 2048, 16), True, False)])    # more blocks than stay resident
+def test_cuda_selective_scan_bwd_bitwise(cuda, shape, with_h0, with_dh):
+    """K9b equals its plain version bit for bit: h recomputed with the
+    forward's roundings, the carry and products rounded once, dc's float64
+    sum in the stated order (per-block partials, then the blocks in
+    order), with and without h0 and dh_last."""
+    g = torch.Generator(device=cuda).manual_seed(11 + shape[1])
+    a, b, c, h0, dy, dh = _bwd_inputs(g, shape, cuda)
+    h0 = h0 if with_h0 else None
+    dh = dh if with_dh else None
+    got = ops.selective_scan_bwd(a, b, c, dy, h0, dh)
+    want = ref.selective_scan_bwd(a, b, c, dy, h0, dh)
+    assert (got[3] is None) == (h0 is None)
+    assert all(torch.isfinite(x).all() for x in got if x is not None)
+    assert _bwd_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+def test_cuda_selective_scan_bwd_repeats_and_checks(cuda, n):
+    """Repeated calls give the same bits and count one launch each;
+    autograd through ops.selective_scan runs K9b (and the forward's K9
+    once); views are copied; S = 0 passes dh_last through; an N the
+    kernel lacks raises."""
+    g = torch.Generator(device=cuda).manual_seed(20 + n)
+    a, b, c, h0, dy, dh = _bwd_inputs(g, (2, 45, 200, n), cuda)
+    first = ops.selective_scan_bwd(a, b, c, dy, h0, dh)
+    for _ in range(3):
+        before = ops.LAUNCHES["selective_scan_bwd"]
+        again = ops.selective_scan_bwd(a, b, c, dy, h0, dh)
+        assert ops.LAUNCHES["selective_scan_bwd"] == before + 1
+        assert _bwd_equal(again, first)
+    ar, br, cr, hr = (t.clone().requires_grad_() for t in (a, b, c, h0))
+    before = dict(ops.LAUNCHES)
+    y, h = ops.selective_scan(ar, br, cr, hr)
+    torch.autograd.backward((y, h), (dy, dh))
+    assert ops.LAUNCHES["selective_scan"] == before["selective_scan"] + 1
+    assert ops.LAUNCHES["selective_scan_bwd"] == \
+        before["selective_scan_bwd"] + 1
+    assert _bwd_equal((ar.grad, br.grad, cr.grad, hr.grad), first)
+    dyt = torch.randn((2, 200, 45), generator=g, device=cuda).transpose(1, 2)
+    assert _bwd_equal(ops.selective_scan_bwd(a, b, c, dyt, h0, dh),
+                      ref.selective_scan_bwd(a, b, c, dyt, h0, dh))
+    z = ops.selective_scan_bwd(a[:, :0], b[:, :0], c[:, :0], dy[:, :0], h0,
+                               dh)
+    assert z[0].shape == (2, 0, 200, n) and torch.equal(z[3], dh)
+    a8, b8, c8, h8 = _scan_inputs(g, (1, 4, 32, 8), cuda)
+    with pytest.raises(ValueError, match="N = 8"):
+        ops.selective_scan_bwd(a8, b8, c8, torch.zeros(1, 4, 32,
+                                                       device=cuda), h8)
 
 
 # --------------------------------------------------------------------------

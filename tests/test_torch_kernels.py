@@ -588,18 +588,24 @@ def test_cpu_tensors_take_the_plain_route():
                       1.0)
     ops.selective_scan(torch.ones(1, 2, 3, 4), torch.ones(1, 2, 3, 4),
                        torch.ones(1, 2, 4))
+    ops.selective_scan_bwd(torch.ones(1, 2, 3, 4), torch.ones(1, 2, 3, 4),
+                           torch.ones(1, 2, 4), torch.ones(1, 2, 3))
     assert ops.LAUNCHES == dict.fromkeys(ops.OPS, 0)
     assert set(ops.OPS) == {"qmatmul", "quantize", "ubn_norm",
                             "page_gather", "paged_attention", "dgrad",
                             "wgrad", "flash_attention", "cq_stochastic",
-                            "selective_scan"}
+                            "selective_scan", "selective_scan_bwd"}
 
 
 def test_every_kernel_has_a_source():
+    """Each source names the TPU kernel it replaces, or, for the port-only
+    K9b (the scan's gradient, which the reference takes by autodiff of an
+    XLA scan), says that it replaces none."""
     from repro_torch.kernels import _build
     for name in _build.NAMES:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces repro/kernels/" in src
+        assert ("Replaces no TPU kernel" if name == "selective_scan_bwd"
+                else "Replaces repro/kernels/") in src
         assert "sm_90a" in " ".join(_build.FLAGS)
         assert re.search(r'extern "C" int \w+_launch', src)
 

@@ -59,7 +59,6 @@ from repro_torch.convert import ssm_params_from_jax
 from repro_torch.core import preset
 from repro_torch.core.qconfig import QConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.launch.train import make_train_step
 from repro_torch.models import SSMLM, build_model
 from repro_torch.models import ssm as TS
 from repro_torch.serving import Engine, make_engine
@@ -431,14 +430,6 @@ def test_make_engine_serves_ssm_on_cpu():
 # --------------------------------------------------------------------------
 # (h) what is not ported, and the full-width layout
 # --------------------------------------------------------------------------
-
-
-def test_ssm_training_raises(models):
-    tm = models[4]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tm.loss({"tokens": np.zeros((1, 4)), "labels": np.zeros((1, 4))})
-    with pytest.raises(NotImplementedError, match="scan's backward"):
-        make_train_step(tm, tm.q)
 
 
 def test_unported_ssm_options_raise(models):
