@@ -144,6 +144,24 @@ prints no result line:
              of make_train_step on granite-34b (2 of 88 layers, 48 query
              heads on 1 KV head, FFN 24576) on a 1 x 4096 sequence, whose
              loss, parameters and accumulator equal the plain run's step.
+ 10. moe     the MoE LMs at every published width: granite-moe-1b-a400m
+             (32 experts top-8, d 1024, FFN 512) at full depth, 24 layers,
+             and moonshot-v1-16b-a3b (64 experts top-6, d 2048, FFN 1408)
+             at 2 of 48 layers, random weights from seed 0: greedy
+             requests of 37 and 100 tokens, 8 new tokens each, on 4 lanes
+             through `make_engine` on monolithic prefill (K1 batched over
+             the experts, K2, K4, K5 and K6 launched) and then on chunked
+             prefill (page 16: capacity 5, K1's narrow route), tokens
+             equal to the plain versions' runs and the first logits at
+             distance 0; launches per decode step (dropless: capacity 32
+             on granite), TTFT, decode ms a step and peak memory; then one
+             make_train_step on a 1 x 4096 sequence (capacity 1280 on
+             granite, 480 on moonshot), with its forward / backward /
+             optimizer split, launches, the share of dropped (token,
+             choice) pairs, a torch.profiler breakdown of one more step
+             (K1's expert contractions, the router, the dispatch and the
+             combine), and step 1 through the plain versions, whose loss,
+             parameters and accumulator equal the kernel run's.
 
 It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
@@ -178,8 +196,12 @@ PHASE_OF: dict[str, tuple] = {}
 PEAK: dict[str, int] = {}
 
 
+T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, stamped with the seconds since start."""
+    print(f"[{time.time() - T0:7.1f}] {msg}", flush=True)
 
 
 def bound_ms(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
@@ -260,7 +282,16 @@ K1_BY_SPEC = {"mk,kn->mn": "qmatmul_qdense",
               "bskgd,btkd->bskgt": "qmatmul_attn_scores",
               "bskgt,btkd->bskgd": "qmatmul_attn_out",
               "bskgd,bskgt->btkd": "qmatmul_attn_dk",
-              "bskgt,bskgd->btkd": "qmatmul_attn_dv"}
+              "bskgt,bskgd->btkd": "qmatmul_attn_dv",
+              # the MoE's expert products (models/moe.py): gate and up, down,
+              # and their backward specs (dx / dw of gate and up, dh / dw
+              # of down)
+              "ecd,edf->ecf": "qmatmul_moe_up",
+              "ecf,efd->ecd": "qmatmul_moe_down",
+              "ecf,edf->ecd": "qmatmul_moe_up_dx",
+              "ecd,ecf->edf": "qmatmul_moe_up_dw",
+              "ecd,efd->ecf": "qmatmul_moe_down_dh",
+              "ecf,ecd->efd": "qmatmul_moe_down_dw"}
 
 
 @contextlib.contextmanager
@@ -318,6 +349,48 @@ def attention_operands(i8) -> dict:
     finally:
         ops.qmatmul = real
     return dict(zip(specs, seen))
+
+
+# the MoE rows of the kernels line: (experts, capacity, d_model, d_ff),
+# the spec and the moe phase's launch key (model:run:contraction)
+MOE_ROWS = {
+    "moe_up": ((32, 1280, 1024, 512), "ecd,edf->ecf",
+               "granite:train:qmatmul_moe_up"),
+    "moe_down": ((32, 1280, 1024, 512), "ecf,efd->ecd",
+                 "granite:train:qmatmul_moe_down"),
+    "moe_up_dw": ((32, 1280, 1024, 512), "ecd,ecf->edf",
+                  "granite:train:qmatmul_moe_up_dw"),
+    "moe_down_dh": ((32, 1280, 1024, 512), "ecd,efd->ecf",
+                    "granite:train:qmatmul_moe_down_dh"),
+    "moe_up_decode": ((32, 32, 1024, 512), "ecd,edf->ecf",
+                      "granite:decode:qmatmul_moe_up"),
+    "moe_down_decode": ((32, 32, 1024, 512), "ecf,efd->ecd",
+                        "granite:decode:qmatmul_moe_down"),
+    "moe_up_moonshot": ((64, 480, 2048, 1408), "ecd,edf->ecf",
+                        "moonshot:train:qmatmul_moe_up"),
+    "moe_down_moonshot": ((64, 480, 2048, 1408), "ecf,efd->ecd",
+                          "moonshot:train:qmatmul_moe_down")}
+
+
+def moe_operands(i8) -> dict:
+    """The operands _int_contract hands K1 for the MoE_ROWS contractions,
+    captured from its calls: name -> (a, b, launch key)."""
+    import importlib
+    from repro_torch.kernels import ops
+    qd = importlib.import_module("repro_torch.core.qdense")
+    seen, real = [], ops.qmatmul
+    ops.qmatmul = lambda x, y, *a, **kw: seen.append((x, y)) or real(
+        x, y, *a, **kw)
+    try:
+        for (e, c, d, f), spec, _ in MOE_ROWS.values():
+            size = {"e": e, "c": c, "d": d, "f": f}
+            sa, sb = spec.split("->")[0].split(",")
+            qd._int_contract(spec, i8(*(size[i] for i in sa)),
+                             i8(*(size[i] for i in sb)))
+    finally:
+        ops.qmatmul = real
+    return {name: (x, y, row[2])
+            for (name, row), (x, y) in zip(MOE_ROWS.items(), seen)}
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +537,20 @@ def kernel_rows() -> None:
                ("train", f"qmatmul_attn_{name}"),
                device_ms=device_ms(lambda: ops.qmatmul(x, y)),
                note=f"batch {z} x {m}x{k}x{n} on views")
+    # the MoE's expert contractions, batched over the experts, on the
+    # views _int_contract passes (granite-moe at train_4k and a 4-lane
+    # decode step, moonshot at train_4k); no PyTorch call takes a batched
+    # int8 product
+    for name, (x, y, key) in moe_operands(i8).items():
+        z, (m, k), n = x.shape[0], x.shape[-2:], y.shape[-1]
+        record(f"qmatmul_{name}", "src/repro_torch/csrc/qmatmul.cu",
+               "src/repro/kernels/qmatmul.py:107",
+               time_ms(lambda: ops.qmatmul(x, y)),
+               time_ms(lambda: ref.qmatmul(x, y), 3),
+               x.numel() + y.numel() + 4 * z * m * n, 2 * z * m * k * n,
+               INT8_OPS, None, max_err(ops.qmatmul(x, y), ref.qmatmul(x, y)),
+               ("moe", key), device_ms=device_ms(lambda: ops.qmatmul(x, y)),
+               note=f"{z} experts x {m}x{k}x{n}; launches: {key}")
 
     # ---- K3 dgrad / wgrad: every qdense of the training step, M = 4096
     # tokens; the three prologue modes (full8 = flag, e2_16 = affine k=16)
@@ -666,7 +753,11 @@ def kernel_rows() -> None:
            "src/repro/kernels/quantize.py:40",
            time_ms(lambda: ops.quantize(w, inv)),
            time_ms(lambda: ref.quantize(w, inv), 5),
-           5 * w.numel(), 3 * w.numel(), FP32_OPS, None, 0)
+           5 * w.numel(), 3 * w.numel(), FP32_OPS,
+           time_ms(lambda: torch.quantize_per_tensor(w, 1.0 / 128.0, 0,
+                                                     torch.qint8)), 0,
+           note="library: torch.quantize_per_tensor to qint8, which clamps "
+                "to [-128, 127] where K2 clamps to [-127, 127]")
 
     # ---- K4 ubn_norm (rms, layer): rows of a decode step (4), a prefill
     # page (16) and the training shape (4096), on both routes (a row over a
@@ -1840,6 +1931,295 @@ def phase_dense() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the MoE LMs at full width
+# ---------------------------------------------------------------------------
+
+# (name, short name, published depth, the depth served and trained):
+# granite-moe at full depth; moonshot at 2 of 48 layers (0.57 G parameters
+# a layer: its 28 G at full depth do not fit one card in fp32, let alone
+# with the step's gradient and accumulator)
+MOE = (("granite-moe-1b-a400m", "granite", 24, 24),
+       ("moonshot-v1-16b-a3b", "moonshot", 48, 2))
+MOE_PROMPT_LENS = (37, 100)
+MOE_NEW = 8
+MOE_KW = dict(max_lanes=4, page_size=16, max_ctx=128)
+MOE_CHUNK_KERNELS = ("qmatmul", "quantize", "ubn_norm", "page_gather",
+                     "paged_attention")
+# the MoE glue's profiler ranges: the router (its product, sort and
+# softmax), the routing (slots, inverse map) and the two autograd
+# Functions, forward and backward
+MOE_RANGES = {"router": "MoE router", "route": "MoE route",
+              "_Dispatch": "MoE dispatch", "_Combine": "MoE combine"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Run the MoE glue in profiler ranges (MOE_RANGES) while inside."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe as M
+    undo = []
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    for name, label in MOE_RANGES.items():
+        obj = getattr(M, name)
+        if isinstance(obj, type):           # forward and backward
+            for meth in ("forward", "backward"):
+                real = obj.__dict__[meth]
+                setattr(obj, meth, staticmethod(ranged(real.__func__,
+                                                       label)))
+                undo.append((obj, meth, real))
+        else:
+            setattr(M, name, ranged(obj, label))
+            undo.append((M, name, obj))
+    try:
+        yield
+    finally:
+        for owner, name, real in reversed(undo):
+            setattr(owner, name, real)
+
+
+def moe_profile(run, what: str) -> None:
+    """torch.profiler over one call of `run` (a step) with K1's
+    contractions and the MoE glue in ranges: the card's busy share, the
+    kernels that took the most time, K1's, K3's and K5's time, and the
+    device ms by range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with k1_by_contraction({}, ranges=True), moe_ranges(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = device_events(prof)
+    kernels = [e for e in events if not e[0].startswith(SPANS)]
+    busy = sum(d for _, _, d in kernels) / 1e6
+    if not kernels:
+        log(f"[profile] {what}: the profiler saw no device time: not "
+            f"measured")
+        return
+    log(f"[profile] {what} (profiler on): wall {1e3 * wall:.3f} ms, device "
+        f"busy {busy:.3f} ms, busy share {busy / 1e3 / wall:.3f}")
+    by_name: dict = {}
+    for name, _, d in kernels:
+        n, ns = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, ns + d)
+    for name, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {ns / 1e6:9.3f} ms  {n:5d} calls  {name[:70]}")
+    for label, prefix in (("K1 (qmm_*)", "qmm_"), ("K3 (bwd_*)", "bwd_"),
+                          ("K5 (fa_*)", "fa_")):
+        sel = [(n, ns) for name, (n, ns) in by_name.items()
+               if name.removeprefix("void ").startswith(prefix)]
+        log(f"[profile] {what}: {label} {sum(ns for _, ns in sel) / 1e6:.3f}"
+            f" ms in {sum(n for n, _ in sel)} launches")
+    k1_split(prof, what)
+    split = span_split(events, "MoE ")
+    if not split:
+        log(f"[profile] {what}: MoE ranges: not measured (no range on the "
+            f"card's timeline)")
+        return
+    log(f"[profile] {what}: device ms by range "
+        + ", ".join(f"{name.removeprefix('MoE ')} {ns / 1e6:.3f} ({k} "
+                    f"kernels in {n} calls)"
+                    for name, (n, k, ns) in sorted(split.items())))
+
+
+@contextlib.contextmanager
+def moe_drops(stats: dict):
+    """Count the (token, choice) pairs routing keeps and drops while
+    inside, into stats["pairs"] and stats["dropped"] (tensors)."""
+    from repro_torch.models import moe as M
+    real = M.route
+
+    def spy(idx, gates, n_experts, cap):
+        r = real(idx, gates, n_experts, cap)
+        stats["pairs"] = stats.get("pairs", 0) + idx.numel()
+        stats["dropped"] = stats.get("dropped", 0) \
+            + (r["slot"] == n_experts * cap).sum()
+        return r
+
+    M.route = spy
+    try:
+        yield stats
+    finally:
+        M.route = real
+
+
+def count_decode_k1(eng, counts: dict) -> None:
+    """K1's launches inside `eng`'s decode steps by contraction, into
+    `counts`."""
+    inner = eng._decode
+
+    def counted():
+        with k1_by_contraction(counts):
+            return inner()
+
+    eng._decode = counted
+
+
+def moe_serve(tag: str, name: str, short: str, full: int, depth: int,
+              launches: dict) -> None:
+    """Greedy requests through the MoE engine on monolithic prefill and on
+    chunked prefill, each against the plain versions' run; launches into
+    `launches` (model:run:contraction for K1's expert products)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import make_engine
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    eng = make_engine(name, reduced=False, n_layers=depth, device="cuda",
+                      seed=0, **MOE_KW)
+    model, a = eng.model, eng.model.a
+    log(f"[{tag}] {describe(model, full)}; {a.moe_experts} "
+        f"experts top-{a.moe_topk}, capacity factor {a.capacity_factor}; "
+        f"engine {MOE_KW} (monolithic prefill); built in "
+        f"{time.time() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+               for n in MOE_PROMPT_LENS]
+    decode = count_decode(eng)
+    k1_dec: dict = {}
+    count_decode_k1(eng, k1_dec)
+    k1_all: dict = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    with k1_by_contraction(k1_all):
+        for p in prompts:
+            eng.submit(p, MOE_NEW)
+        out = eng.drain()
+    toks = [out[i] for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(ops.LAUNCHES)
+    met = eng.metrics()
+    steps = max(met["decode_steps"], 1)
+    log(f"[{tag}] {name}: {len(prompts)} requests, prompts "
+        f"{MOE_PROMPT_LENS}, {MOE_NEW} new tokens each: wall {wall:.3f} s, "
+        f"TTFT mean {1e3 * met['ttft_mean_s']:.1f} ms, decode "
+        f"{1e3 * met['decode_wall_s'] / steps:.2f} ms/step over "
+        f"{met['decode_steps']} steps; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"[{tag}] {name}: launches per decode step "
+        f"{ {k: v / steps for k, v in decode.items() if v} }; K1 by "
+        f"contraction in decode steps {k1_dec}, in the run {k1_all}")
+    for k in DENSE_KERNELS:
+        assert counts[k] > 0, f"{name}: kernel {k} was never launched"
+    assert k1_all.get("qmatmul_moe_up", 0) > 0 \
+        and k1_dec.get("qmatmul_moe_down", 0) > 0, \
+        f"{name}: the batched expert K1 was never launched"
+    for t in toks:
+        assert len(t) == MOE_NEW and all(0 <= x < a.vocab for x in t)
+    for k, v in k1_dec.items():
+        launches[f"{short}:decode:{k}"] = v
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    kernels_vs_plain(tag, f"{name} greedy (monolithic)", model, MOE_KW,
+                     prompts, toks=toks)
+    for p in prompts:
+        tok = torch.as_tensor(p[None], device="cuda")
+        lk = model.prefill(tok, len(p) + MOE_NEW)[1][0, :a.vocab]
+        with ops.plain_reference():
+            lp = model.prefill(tok, len(p) + MOE_NEW)[1][0, :a.vocab]
+        dist = float((lk - lp).abs().max())
+        log(f"[{tag}] {name}: first logits of a {len(p)}-token prompt "
+            f"(monolithic): max |kernel - plain| {dist:.3e}, argmax "
+            f"{int(lk.argmax())} vs {int(lp.argmax())}")
+        assert bool(torch.isfinite(lk).all()), "non-finite logits"
+        assert dist == 0.0, f"{name}: first logits differ"
+    # chunked prefill: a 16-token page routes with capacity
+    # ceil(16 * k / E * 1.25) (5 on granite: K1's narrow route)
+    kw = dict(MOE_KW, prefill_mode="chunked")
+    before = dict(ops.LAUNCHES)
+    k1_chunk: dict = {}
+    with k1_by_contraction(k1_chunk):
+        ctoks = kernels_vs_plain(tag, f"{name} greedy (chunked)", model, kw,
+                                 prompts, MOE_CHUNK_KERNELS)
+    same = np.mean([x == y for t, u in zip(toks, ctoks)
+                    for x, y in zip(t, u)])
+    log(f"[{tag}] {name}: chunked prefill tokens equal to monolithic "
+        f"prefill's {same:.3f} (not required: each page's amax spans the "
+        f"page); K1 by "
+        f"contraction over the kernels' and plain runs {k1_chunk}")
+    for k, v in ops.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v - before[k]
+    lk = first_logits(model, prompts[1])
+    with ops.plain_reference():
+        lp = first_logits(model, prompts[1])
+    dist = float((lk - lp).abs().max())
+    log(f"[{tag}] {name}: first logits of a prefill page (chunked): max "
+        f"|kernel - plain| {dist:.3e}")
+    assert bool(torch.isfinite(lk).all()), "non-finite logits"
+    assert dist == 0.0, f"{name}: chunked first logits differ"
+    del eng, model
+    torch.cuda.empty_cache()
+
+
+def moe_train(tag: str, name: str, short: str, full: int, depth: int,
+              launches: dict) -> None:
+    """One make_train_step on a 1 x TRAIN_SEQ sequence, its dropped pairs,
+    a profiled step and step 1 through the plain versions."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    t0 = time.time()
+    cfg = preset("full8")
+    model = build_model(get(name).replace(n_layers=depth), cfg,
+                        device="cuda").init(0)
+    a = model.a
+    task = TokenTask(a.vocab, TRAIN_SEQ, 1, kind="arith")
+    batches = [task.batch(0), task.batch(1)]
+    cap = math.ceil(TRAIN_SEQ * a.moe_topk / a.moe_experts
+                    * a.capacity_factor)
+    log(f"[{tag}] train: {describe(model, full)}, full8 native, "
+        f"batch 1 x {TRAIN_SEQ} tokens (TokenTask arith), expert capacity "
+        f"{cap}; built in {time.time() - t0:.1f} s")
+
+    total = train_steps(
+        f"{tag} {short} train", model, cfg, batches, TRAIN_KERNELS,
+        k1_by_contraction,
+        lambda run: moe_profile(run, f"{short} MoE train step"))
+    assert total.get("qmatmul_moe_up", 0) > 0 \
+        and total.get("qmatmul_moe_down_dw", 0) > 0, \
+        f"{name}: the batched expert K1 was never launched in training"
+    stats: dict = {}
+    with torch.no_grad(), moe_drops(stats):
+        model.loss(batches[0])
+    dropped = int(stats["dropped"])
+    log(f"[{tag}] {short} train: dropped (token, choice) pairs at "
+        f"train_4k {dropped} of {stats['pairs']} "
+        f"({dropped / stats['pairs']:.4f}) over {depth} layers, capacity "
+        f"{cap} a expert")
+    for k, v in total.items():
+        if k.startswith("qmatmul_"):
+            launches[f"{short}:train:{k}"] = v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_moe() -> dict:
+    """granite-moe-1b-a400m (full depth) and moonshot-v1-16b-a3b (2
+    layers) at full width: served and trained against the plain versions.
+    Returns the launches: per op summed, and K1's expert contractions by
+    model:run:contraction."""
+    launches: dict = {}
+    for spec in MOE:
+        moe_serve("moe", *spec, launches)
+        moe_train("moe", *spec, launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: train the paper's ResNet-50 at full size
 # ---------------------------------------------------------------------------
 
@@ -2120,46 +2500,67 @@ def with_profile(fn, what: str, groups: dict | None = None):
     return prof
 
 
-def k1_split(prof, what: str) -> None:
-    """K1's device time (its qmm_* kernels) by the "K1 <key>" range of
-    k1_by_contraction that each ran in: a kernel belongs to the range whose
-    span on the card's timeline holds its start."""
-    import bisect
+def device_events(prof) -> list:
+    """(name, start ns, duration ns) of every event on the card's timeline
+    (kernels, copies, fills and the profiler ranges' spans), from the
+    profiler's raw results: over the 10^5 and more events of a 24-layer
+    step this takes seconds, where building its FunctionEvents (what
+    key_averages and events() read) takes minutes."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
-    spans, kernels = [], []
-    for e in prof.events():
-        if e.device_type != cuda:
+    return [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+SPANS = ("K1 ", "MoE ")
+
+
+def span_split(events: list, prefix: str, match: str = "") -> dict:
+    """Device time of the kernels (whose name holds `match`) that start
+    inside each range named `prefix`...: range -> (calls, kernels, ns).  A
+    kernel belongs to the range whose span on the card's timeline holds
+    its start."""
+    import bisect
+    spans = sorted((t0, t0 + d, name) for name, t0, d in events
+                   if name.startswith(prefix))
+    starts = [sp[0] for sp in spans]
+    out = {}
+    for _, _, name in spans:
+        n, k, ns = out.get(name, (0, 0, 0))
+        out[name] = (n + 1, k, ns)
+    for name, t0, d in events:
+        if name.startswith(SPANS) or match not in name:
             continue
-        if e.name.startswith("K1 "):
-            spans.append((e.time_range.start, e.time_range.end, e.name[3:]))
-        elif "qmm_" in e.name:
-            kernels.append((e.time_range.start, e.time_range.elapsed_us()))
-    if not spans:
+        i = bisect.bisect_right(starts, t0) - 1
+        if i >= 0 and t0 < spans[i][1]:
+            n, k, ns = out[spans[i][2]]
+            out[spans[i][2]] = (n, k + 1, ns + d)
+    return out
+
+
+def k1_split(prof, what: str) -> None:
+    """K1's device time (its qmm_* kernels) by the "K1 <key>" range of
+    k1_by_contraction that each ran in (span_split)."""
+    events = device_events(prof)
+    split = span_split(events, "K1 ", "qmm_")
+    if not split:
         log(f"[profile] {what}: K1 by contraction: not measured (no range "
             f"on the card's timeline)")
         return
-    spans.sort()
-    starts = [sp[0] for sp in spans]
-    sums: dict = {}
-    for key in (sp[2] for sp in spans):
-        n, us = sums.get(key, (0, 0.0))
-        sums[key] = (n + 1, us)
-    outside = 0.0
-    for t0, us in kernels:
-        i = bisect.bisect_right(starts, t0) - 1
-        if i >= 0 and t0 < spans[i][1]:
-            n, total = sums[spans[i][2]]
-            sums[spans[i][2]] = (n, total + us)
-        else:
-            outside += us
-    attn = sum(us for k, (_, us) in sums.items() if "attn" in k)
+    sums = {name.removeprefix("K1 "): (n, ns / 1e6)
+            for name, (n, _, ns) in split.items()}
+    inside = sum(ms for _, ms in sums.values())
+    outside = sum(d for name, _, d in events
+                  if "qmm_" in name and not name.startswith(SPANS)) / 1e6 \
+        - inside
+    attn = sum(ms for k, (_, ms) in sums.items() if "attn" in k)
     log(f"[profile] {what}: K1 device ms by contraction "
-        + ", ".join(f"{k} {us / 1e3:.3f} in {n} calls"
-                    for k, (n, us) in sorted(sums.items()))
-        + f"; qdense {sums.get('qmatmul_qdense', (0, 0.0))[1] / 1e3:.3f} ms, "
-        f"attention chunks {attn / 1e3:.3f} ms, outside the ranges "
-        f"{outside / 1e3:.3f} ms")
+        + ", ".join(f"{k} {ms:.3f} in {n} calls"
+                    for k, (n, ms) in sorted(sums.items()))
+        + f"; qdense {sums.get('qmatmul_qdense', (0, 0.0))[1]:.3f} ms, "
+        f"attention chunks {attn:.3f} ms, outside the ranges "
+        f"{outside:.3f} ms")
 
 
 def report_profile(prof, wall_us: float, steps: int, what: str,
@@ -2221,7 +2622,7 @@ def main() -> int:
             "train": phase_train(), "resnet": phase_resnet()}
     phase_ckpt()
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
-                dense=phase_dense(), none={})
+                dense=phase_dense(), moe=phase_moe(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

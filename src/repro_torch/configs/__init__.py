@@ -4,21 +4,25 @@ from .chameleon_34b import CFG as chameleon_34b
 from .falcon_mamba_7b import CFG as falcon_mamba_7b
 from .granite_34b import CFG as granite_34b
 from .granite_3_8b import CFG as granite_3_8b
+from .granite_moe_1b_a400m import CFG as granite_moe_1b_a400m
 from .minitron_4b import CFG as minitron_4b
+from .moonshot_v1_16b_a3b import CFG as moonshot_v1_16b_a3b
 from .phi4_mini_3_8b import CFG as phi4_mini_3_8b
 from .resnets import RESNET18, RESNET34, RESNET50
 
 ARCHS = {c.name: c for c in [granite_3_8b, granite_34b, phi4_mini_3_8b,
-                              minitron_4b, chameleon_34b, falcon_mamba_7b,
-                              RESNET18, RESNET34, RESNET50]}
+                              minitron_4b, chameleon_34b,
+                              granite_moe_1b_a400m, moonshot_v1_16b_a3b,
+                              falcon_mamba_7b, RESNET18, RESNET34,
+                              RESNET50]}
 
 
 def get(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}); "
-            "Mamba2, the hybrid, MoE and enc-dec families are ROADMAP Queue "
-            "1 item 4")
+            "Mamba2, the hybrid and enc-dec families are ROADMAP Queue 1 "
+            "item 4")
     return ARCHS[name]
 
 

@@ -1,11 +1,11 @@
 """Architecture configuration schema (the fields the ported families read).
 
 Mirrors `repro.configs.base.ArchConfig` for the decoder-only LMs (families
-"lm" and "vlm"), the Mamba1 SSM and the ResNet: the same field names and
-defaults, `dh`, `d_inner`, `vocab_padded` and `reduced()`, so a
-configuration reads the same in both packages.  Families that the port
-does not build yet (MoE, hybrid, enc-dec) keep no fields here, nor does
-the reference's dry-run metadata (`shapes`, `skip_notes`).
+"lm" and "vlm"), the MoE LMs ("moe"), the Mamba1 SSM and the ResNet: the
+same field names and defaults, `dh`, `d_inner`, `vocab_padded` and
+`reduced()`, so a configuration reads the same in both packages.  Families
+that the port does not build yet (hybrid, enc-dec) keep no fields here,
+nor does the reference's dry-run metadata (`shapes`, `skip_notes`).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm | vlm | ssm | resnet
+    family: str                  # lm | vlm | moe | ssm | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -27,6 +27,11 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     act: str = "silu"
     rope_theta: float = 1e4
+    # MoE: experts, experts per token, and the capacity factor of the
+    # dispatch (cap = ceil(T * topk / experts * capacity_factor))
+    moe_experts: int = 0
+    moe_topk: int = 0
+    capacity_factor: float = 1.25
     # attention chunking of the training forward: the quantization chunks
     # of the flash kernel (each per-chunk decomposition's amax spans one)
     q_chunk: int = 1024
@@ -69,8 +74,9 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
         2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16;
-        an SSM state of 4; a ResNet keeps one block in each of its first
-        two stages, 10 classes and 16 px images)."""
+        4 experts, top-2, for an MoE; an SSM state of 4; a ResNet keeps
+        one block in each of its first two stages, 10 classes and 16 px
+        images)."""
         if self.family == "resnet":
             return self.replace(name=self.name + "-smoke", stage_sizes=(1, 1),
                                 num_classes=10, img_size=16)
@@ -79,6 +85,8 @@ class ArchConfig:
             n_kv=min(self.n_kv, 2) if self.n_kv else 0,
             d_ff=96 if self.d_ff else 0, vocab=min(self.vocab, 128),
             head_dim=16, q_chunk=16, kv_chunk=16)
+        if self.moe_experts:
+            kw.update(moe_experts=4, moe_topk=2)
         if self.ssm_state:
             kw.update(ssm_state=4, headdim=8)
         return self.replace(name=self.name + "-smoke", **kw)

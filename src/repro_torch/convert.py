@@ -1,13 +1,14 @@
 """Carry the reference package's weights and optimizer state into the port.
 
-`params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`,
-`ssm_params_from_jax(tree)` that of its `SSMLM.init` and
+`params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`
+(dense or MoE), `ssm_params_from_jax(tree)` that of its `SSMLM.init` and
 `resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
 leaf converted to numpy (the caller does that, so this module needs no
 JAX), and returns the same tree as torch tensors, ready for the port's
 `load_params`.  Both packages keep one layout (stacked (L, ...) layer
-weights for the LM and the SSM; HWIO convolutions, (in, classes) fc and the list of
-stages of block dicts for the ResNet), so the conversion is a copy.
+weights for the LM, its `moe` subtree and the SSM; HWIO convolutions,
+(in, classes) fc and the list of stages of block dicts for the ResNet),
+so the conversion is a copy.
 
 On the card there is no JAX: the models' `init` draws weights there from a
 torch.Generator by the same formulas, which gives the same distribution
@@ -29,10 +30,12 @@ def _tensors(tree, device):
 
 
 def params_from_jax(tree: dict, device="cpu") -> dict:
-    """{"embed", "layers": {ln1, wq, ...}, "final_norm", "lm_head"} of
-    numpy arrays -> the same tree of fp32 torch tensors on `device`."""
-    return _tensors({"embed": tree["embed"],
-                     "layers": {k: tree["layers"][k] for k in LAYER_KEYS},
+    """{"embed", "layers": {ln1, wq, ..., and w_gate, w_up, w_down or the
+    MoE's "moe" {router, wg, wu, wd}}, "final_norm", "lm_head"} of numpy
+    arrays -> the same tree of fp32 torch tensors on `device`."""
+    layers = {k: v for k, v in tree["layers"].items()
+              if k in LAYER_KEYS or k == "moe"}
+    return _tensors({"embed": tree["embed"], "layers": layers,
                      "final_norm": tree["final_norm"],
                      "lm_head": tree["lm_head"]}, device)
 
@@ -56,7 +59,8 @@ def resnet_params_from_jax(tree: dict, device="cpu") -> dict:
 
 
 def momentum_from_jax(acc: dict, step: int = 0, device="cpu"):
-    """The reference's MomentumState.acc tree (numpy leaves, the LM's or
-    the ResNet's) -> the port's MomentumState, so both packages can start
-    from one optimizer state."""
+    """The reference's MomentumState.acc tree (numpy leaves, shaped like
+    any of the trees above, an MoE LM's "moe" subtree included) -> the
+    port's MomentumState, so both packages can start from one optimizer
+    state."""
     return MomentumState(acc=_tensors(acc, device), step=int(step))

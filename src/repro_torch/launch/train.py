@@ -15,12 +15,14 @@ the reference, so the bits are a pure function of the step index.
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch falcon-mamba-7b --reduced \
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch granite-moe-1b-a400m \
+        --reduced --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch resnet50 --reduced \
         --mode native --steps 3 --batch 4 --device cpu
     python -m repro_torch.launch.train ... --ckpt-dir DIR --save-every 2
     python -m repro_torch.launch.train ... --ckpt-dir DIR --resume
 
-The LMs (dense and SSM) train on TokenTask ("arith"); a ResNet on the
+The LMs (dense, MoE and SSM) train on TokenTask ("arith"); a ResNet on the
 synthetic ImageTask at its config's image size and classes, or on npz
 shards under `--data-dir` (data/imagenet.py).  With `--ckpt-dir` the CLI saves
 (parameters, MomentumState) after every `--save-every` steps
@@ -60,12 +62,12 @@ SHARDED = ("is not ported yet: the sharded step, its gradient wire and the "
 def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
                     mom: float = 0.75, dr_bits: int | None = None,
                     n_micro: int = 1):
-    """The training step for `model` (an LMTransformer, an SSMLM or a
-    ResNet: a module holding its parameters, with `loss(batch) -> (loss,
-    metrics)`, `params()` and `labels()`): step(opt_state, batch,
-    step_idx) -> the loss's metrics ({"loss"}, and "acc" for the ResNet)
-    as 0-d tensors, updating the model's parameters and opt_state.acc IN
-    PLACE.
+    """The training step for `model` (an LMTransformer, dense or MoE, an
+    SSMLM or a ResNet: a module holding its parameters, with
+    `loss(batch) -> (loss, metrics)`, `params()` and `labels()`):
+    step(opt_state, batch, step_idx) -> the loss's metrics ({"loss"}, and
+    "acc" for the ResNet) as 0-d tensors, updating the model's parameters
+    and opt_state.acc IN PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
     base).  n_micro > 1 splits the batch's leading dim into n_micro equal

@@ -1,16 +1,16 @@
 """Model families of the port: the dense LM (and chameleon's early-fusion
-VLM, whose image tokens are vocabulary ids), the Mamba1 SSM LM and the
-paper's ResNet."""
+VLM, whose image tokens are vocabulary ids), the MoE LM, the Mamba1 SSM LM
+and the paper's ResNet."""
 from .resnet import ResNet
 from .ssm_lm import SSMLM
 from .transformer import LMTransformer
 
-_FAMILIES = {"lm": LMTransformer, "vlm": LMTransformer, "ssm": SSMLM,
-             "resnet": ResNet}
+_FAMILIES = {"lm": LMTransformer, "vlm": LMTransformer, "moe": LMTransformer,
+             "ssm": SSMLM, "resnet": ResNet}
 
 
 def build_model(acfg, qcfg, device="cuda"):
-    """The model for `acfg` by its family ("lm" and "vlm" ->
+    """The model for `acfg` by its family ("lm", "vlm" and "moe" ->
     LMTransformer, "ssm" -> SSMLM, "resnet" -> ResNet; the reference's
     models/registry.py); other families raise."""
     if acfg.family not in _FAMILIES:

@@ -1,6 +1,7 @@
-"""Decoder-only dense LM (granite-3-8b, granite-34b, phi4-mini-3.8b,
-minitron-4b, and chameleon-34b's early-fusion VLM on token ids): training
-loss and paged serving.
+"""Decoder-only LM (granite-3-8b, granite-34b, phi4-mini-3.8b, minitron-4b,
+chameleon-34b's early-fusion VLM on token ids, and the MoE LMs
+granite-moe-1b-a400m and moonshot-v1-16b-a3b): training loss and paged
+serving.
 
 Port of `repro.models.transformer.LMTransformer`: `train` mode (the loss
 of the training step: chunked causal attention through the flash kernel,
@@ -12,9 +13,11 @@ the decode-state slot API the engine uses (`paged_decode_step`,
 `prefill_page`, `slot_from_cache`) or directly (`prefill`, `serve_step`).
 
 Weights keep the reference's layouts: stacked per-layer tensors (L, ...)
-in `layers` (ln1, wq, wk, wv, wo, ln2, w_gate, w_up, w_down), `embed`
-(Vp, d), `final_norm` (d,), `lm_head` (d, Vp).  The embedding and lm_head
-are exempt from quantization (the paper's first/last layer rule); every
+in `layers` (ln1, wq, wk, wv, wo, ln2, w_gate, w_up, w_down; an MoE LM
+has `moe` {router (L, d, E), wg, wu (L, E, d, f), wd (L, E, f, d)} in
+place of the last three, models/moe.py), `embed` (Vp, d), `final_norm`
+(d,), `lm_head` (d, Vp).  The embedding and lm_head are exempt from
+quantization (the paper's first/last layer rule); every
 hidden matmul, norm and activation goes through the WAGEUBN ops.  The
 parameters require grad; the serving entry points run under no_grad.
 """
@@ -29,6 +32,7 @@ from repro_torch.core.qconfig import QConfig
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import moe as MOE
 
 Tensor = torch.Tensor
 
@@ -39,7 +43,7 @@ LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
 class LMTransformer(nn.Module):
     def __init__(self, acfg: ArchConfig, qcfg: QConfig, device="cuda"):
         super().__init__()
-        if acfg.family not in ("lm", "vlm"):
+        if acfg.family not in ("lm", "vlm", "moe"):
             raise NotImplementedError(
                 f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
                 "item 4)")
@@ -51,15 +55,20 @@ class LMTransformer(nn.Module):
         nl, vp = a.n_layers, a.vocab_padded
         shapes = {"ln1": (nl, d), "wq": (nl, d, h * dh),
                   "wk": (nl, d, kv * dh), "wv": (nl, d, kv * dh),
-                  "wo": (nl, h * dh, d), "ln2": (nl, d),
-                  "w_gate": (nl, d, f), "w_up": (nl, d, f),
-                  "w_down": (nl, f, d)}
+                  "wo": (nl, h * dh, d), "ln2": (nl, d)}
+        if not a.moe_experts:
+            shapes.update(w_gate=(nl, d, f), w_up=(nl, d, f),
+                          w_down=(nl, f, d))
 
         def param(shape):
             return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                             device=self.device))
 
         self.layers = nn.ParameterDict({k: param(s) for k, s in shapes.items()})
+        # the experts' stacked tree ("moe" in the layers of the reference's)
+        self.moe = nn.ParameterDict(
+            {k: param(s) for k, s in MOE.moe_shapes(a, nl).items()}) \
+            if a.moe_experts else None
         self.embed = param((vp, d))
         self.final_norm = param((d,))
         self.lm_head = param((d, vp))
@@ -70,8 +79,8 @@ class LMTransformer(nn.Module):
     def init(self, seed: int = 0) -> "LMTransformer":
         """Random weights from a torch.Generator by the reference's init
         formulas (winit for hidden weights, N(0, 0.02^2) for the exempt
-        embedding and head, ones for the norm gains).  Same distributions as
-        the reference's `init`, not the same bits."""
+        embedding, head and router, ones for the norm gains).  Same
+        distributions as the reference's `init`, not the same bits."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for k, p in self.layers.items():
             if k in ("ln1", "ln2"):
@@ -79,6 +88,8 @@ class LMTransformer(nn.Module):
                 continue
             for i in range(p.shape[0]):      # (L, fan_in, fan_out), in place
                 L.winit_(self.q, p[i], p.shape[1], gen)
+        if self.moe is not None:
+            MOE.init_moe_params_(self.q, self.moe, gen)
         self.embed.normal_(generator=gen).mul_(0.02)
         self.lm_head.normal_(generator=gen).mul_(0.02)
         self.final_norm.fill_(1.0)
@@ -88,8 +99,10 @@ class LMTransformer(nn.Module):
     def load_params(self, params: dict) -> "LMTransformer":
         """Copy a {"embed", "layers": {...}, "final_norm", "lm_head"} tree of
         tensors or arrays in the reference layout into this module."""
-        for k in LAYER_KEYS:
-            self.layers[k].copy_(torch.as_tensor(params["layers"][k]))
+        for k, p in self.layers.items():
+            p.copy_(torch.as_tensor(params["layers"][k]))
+        for k, p in (self.moe or {}).items():
+            p.copy_(torch.as_tensor(params["layers"]["moe"][k]))
         for k in ("embed", "final_norm", "lm_head"):
             getattr(self, k).copy_(torch.as_tensor(params[k]))
         return self
@@ -100,14 +113,23 @@ class LMTransformer(nn.Module):
     # ---------------- forward ----------------
 
     def _layer(self, i: int) -> dict:
-        return {k: p[i] for k, p in self.layers.items()}
+        p = {k: w[i] for k, w in self.layers.items()}
+        if self.moe is not None:
+            p["moe"] = {k: w[i] for k, w in self.moe.items()}
+        return p
 
     def _layer_views(self) -> list[dict]:
         """Per-layer views of the stacked parameters, made by ONE unbind
         per tensor, so the backward assembles each stacked gradient once."""
         per = {k: p.unbind(0) for k, p in self.layers.items()}
-        return [{k: v[i] for k, v in per.items()}
-                for i in range(self.a.n_layers)]
+        moe = {k: p.unbind(0) for k, p in (self.moe or {}).items()}
+        views = []
+        for i in range(self.a.n_layers):
+            v = {k: w[i] for k, w in per.items()}
+            if moe:
+                v["moe"] = {k: w[i] for k, w in moe.items()}
+            views.append(v)
+        return views
 
     def _attn(self, p, x, pos, mode, cache, emit=None):
         """One attention sublayer.  In train mode, `emit` (a list) receives
@@ -170,6 +192,8 @@ class LMTransformer(nn.Module):
     def _ffn(self, p, x):
         a, q = self.a, self.q
         h = qact(q, "none", L.norm(q, a.norm, x, p["ln2"]))
+        if a.moe_experts:       # decode (one token a lane) is dropless
+            return x + MOE.moe_ffn(q, a, h, p["moe"])
         return x + L.swiglu(q, h, p["w_gate"], p["w_up"], p["w_down"], a.act)
 
     def _backbone(self, x, pos, mode, view):
@@ -215,14 +239,19 @@ class LMTransformer(nn.Module):
 
     def params(self) -> dict:
         """The parameter tree in the reference's layout (live tensors)."""
+        layers = dict(self.layers)
+        if self.moe is not None:
+            layers["moe"] = dict(self.moe)
         return {"embed": self.embed, "final_norm": self.final_norm,
-                "layers": dict(self.layers), "lm_head": self.lm_head}
+                "layers": layers, "lm_head": self.lm_head}
 
     def labels(self) -> dict:
         """Optimizer label per leaf: "w" (CQ), "gamma" (15-bit), "exempt"
         (first/last layer, vanilla momentum)."""
         layer = {k: ("gamma" if k in ("ln1", "ln2") else "w")
-                 for k in LAYER_KEYS}
+                 for k in self.layers}
+        if self.moe is not None:
+            layer["moe"] = MOE.moe_labels()
         return {"embed": "exempt", "final_norm": "gamma", "layers": layer,
                 "lm_head": "exempt"}
 

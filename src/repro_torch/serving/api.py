@@ -18,8 +18,11 @@ prefix cache.  `poisson_traffic` is an open-loop generator with mixed
 prompt/generation lengths, `shared_prefix_traffic` biases a fraction of
 prompts onto common page-aligned prefixes (what the radix cache exploits),
 `run_load` replays traffic against the engine's clock, and `naive_serve`
-is the sequential one-request-at-a-time baseline.  The engine runs on the
-card unless `device="cpu"` is passed.  Tensor-parallel serving and the
+is the sequential one-request-at-a-time baseline.  Every LM the port
+builds serves through them: the dense LMs, the MoE LMs
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b; decode routes dropless) and
+falcon-mamba-7b.  The engine runs on the card unless `device="cpu"` is
+passed.  Tensor-parallel serving and the
 replica router are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations

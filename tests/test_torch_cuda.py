@@ -840,3 +840,36 @@ def test_cuda_fp32_division_and_sqrt_match_float64(cuda):
     and sqrt rounded once that the plain versions take: 2^28 random pairs,
     every pair of the edge values, every fp32 sqrt input."""
     assert ops.fp32_rounding_mismatches(cuda) == [0, 0, 0]
+
+
+# the MoE's expert contractions (models/moe.py): the gate / up product and
+# its two backward specs, the down product and its two, at (experts,
+# capacity, d_model, d_ff) of granite-moe-1b-a400m at train_4k (cap =
+# ceil(4096 * 8 / 32 * 1.25) = 1280), its 4-lane decode step (dropless:
+# cap = 4 * 8 = 32), a 16-token prefill page (cap 5, K1's narrow route) and
+# moonshot-v1-16b-a3b at train_4k (cap = ceil(4096 * 6 / 64 * 1.25) = 480)
+MOE_SPECS = ("ecd,edf->ecf", "ecf,edf->ecd", "ecd,ecf->edf",
+             "ecf,efd->ecd", "ecd,efd->ecf", "ecf,ecd->efd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(32, 1280, 1024, 512),
+                                     (32, 32, 1024, 512),
+                                     (32, 5, 1024, 512),
+                                     (64, 480, 2048, 1408)])
+@pytest.mark.parametrize("spec", MOE_SPECS)
+def test_cuda_qmatmul_moe_expert_shapes(cuda, e, c, d, f, spec):
+    """K1 batched over the experts through _int_contract, on the views it
+    passes (the backward specs read transposed operands): equal to
+    ref.qmatmul."""
+    from repro_torch.core.qdense import _int_contract
+    g = torch.Generator(device=cuda).manual_seed(17)
+    size = {"e": e, "c": c, "d": d, "f": f}
+    sa, sb = spec.split("->")[0].split(",")
+    x = _i8(g, tuple(size[i] for i in sa), cuda)
+    y = _i8(g, tuple(size[i] for i in sb), cuda)
+    got = _int_contract(spec, x, y)
+    with ops.plain_reference():
+        want = _int_contract(spec, x, y)
+    assert got.shape == tuple(size[i] for i in spec.split("->")[1])
+    assert torch.equal(got, want), (spec, e, c, d, f)

@@ -78,9 +78,9 @@ def test_full_width_layouts_at_cut_depth(name):
 
 
 def test_unported_families_still_raise():
-    """moe, hybrid and enc-dec keep item 4's refusal in the model and the
-    config registry."""
-    for family in ("moe", "hybrid", "encdec"):
+    """hybrid and enc-dec keep item 4's refusal in the model and the
+    config registry (MoE is ported: tests/test_torch_moe.py)."""
+    for family in ("hybrid", "encdec"):
         acfg = get("granite-34b").reduced().replace(family=family)
         with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             build_model(acfg, preset("full8"), device="meta")

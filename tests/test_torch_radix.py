@@ -4,8 +4,9 @@ tests/test_radix.py (and the pool cases of tests/test_serving.py) run on
 against the reference's engine.
 
 Pool refcount invariants, radix lookup/insert/eviction/dedup semantics,
-bounded-skip admission, bitwise cache-on/off exactness (granite-3-8b, the
-paged family the port has; also after preemption-recompute), and a
+bounded-skip admission, bitwise cache-on/off exactness (granite-3-8b and
+granite-moe-1b-a400m, the paged families the port has; also after
+preemption-recompute), and a
 refcount + defrag chaos run.  Against the reference (weights carried
 across with `params_from_jax`, under `exact_pow2`): the tokens and the
 prefix hit rate are EQUAL.
@@ -241,7 +242,7 @@ PROMPTS = [SHARED,
            np.arange(40, 48, dtype=np.int32)]        # page-aligned
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "granite-moe-1b-a400m"])
 def test_chunked_radix_cache_bitwise_exact(arch):
     """Acceptance: greedy outputs with the radix cache on are bit-identical
     to cache off, per family — page-scoped quantization makes cached pages
