@@ -162,8 +162,27 @@ prints no result line:
              (K1's expert contractions, the router, the dispatch and the
              combine), and step 1 through the plain versions, whose loss,
              parameters and accumulator equal the kernel run's.
+ 11. modes   the reference's sim and fp32 numeric modes: the table of the
+             reference's examples/quickstart.py on granite-3-8b at full
+             width, 2 of 40 layers, from one init (full8's): 3 steps on
+             one 1 x 4096 arith sequence in each of fp32, e2_16 native,
+             full8 sim and full8 native, the four loss curves side by
+             side with each mode's step walls and peak memory, and full8
+             sim's distance from full8 native after step 1 (reported);
+             sim serving of the serve phase's requests at 4 layers on
+             monolithic and chunked prefill (launches per decode step:
+             K7 and K2), tokens and first logits equal to the plain
+             versions', first logits beside native's (reported);
+             ResNet-50 2 steps of batch 32 in sim and in fp32;
+             falcon-mamba-7b (4 of 64 layers) 3 fp32 steps on ssm_train's
+             sequence beside ssm_train's full8 losses; one granite-moe
+             sim step (2 of 24 layers).  Every sim and fp32 run equals its
+             plain replay bit for bit (step-1 loss, parameters and
+             accumulator; tokens and logits) and launches none of K1, K3,
+             K4, K5 and K6; the sim runs launch K2.
 
-It ends with a line `{"kernels": [...]}`, then the card line, then
+`python3 chip_smoke.py PHASE ...` (e.g. `modes`) runs the build and the
+named phases alone and prints no result lines.  It ends with a line `{"kernels": [...]}`, then the card line, then
 `{"ok": true, "device": {...}}` as the last line.  Needs one card.
 """
 from __future__ import annotations
@@ -194,6 +213,8 @@ PHASE_OF: dict[str, tuple] = {}
 # peak device memory in bytes by phase (the ckpt phase prints the resnet
 # phase's beside its microbatched run's)
 PEAK: dict[str, int] = {}
+# train_steps' record of each run by tag (the modes phase compares runs)
+RUNS: dict[str, dict] = {}
 
 
 T0 = time.time()
@@ -1737,15 +1758,17 @@ def step_parts(model, parts: list):
 
 
 def train_steps(tag: str, model, cfg, batches, kernels, count=None,
-                profiled=None) -> dict:
+                profiled=None, plain: bool = True) -> dict:
     """make_train_step over `batches` (step i on batches[i]): per step its
     metrics, wall, peak memory, forward / backward / optimizer split and
     launches, every kernel of `kernels` launched in every step; then step
-    1 through the plain versions (plain_step_equal).  `count(counts)`, a
-    context manager, counts further launches into the dict it is given in
-    each step (k1_by_contraction, bn_by_shape).  With `profiled`, the last
-    batch is not a timed step: `profiled(run)` is handed one more step on
-    it.  Returns the launches summed over the timed steps."""
+    1 through the plain versions (plain_step_equal) unless `plain` is
+    False.  `count(counts)`, a context manager, counts further launches
+    into the dict it is given in each step (k1_by_contraction,
+    bn_by_shape).  With `profiled`, the last batch is not a timed step:
+    `profiled(run)` is handed one more step on it.  Returns the launches
+    summed over the timed steps; RUNS[tag] keeps the losses, walls, peak
+    memory and the parameters after step 1 (on the host)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import make_train_step
@@ -1756,6 +1779,7 @@ def train_steps(tag: str, model, cfg, batches, kernels, count=None,
     timed = batches[:-1] if profiled else batches
     total = dict.fromkeys(ops.LAUNCHES, 0)
     after1, loss1, parts, peak = None, None, [], 0
+    run = RUNS[tag] = {"losses": [], "walls": []}
     first = next(iter(batches[0].values()))
     unit = ("tokens", first.size) if "tokens" in batches[0] \
         else ("images", first.shape[0])
@@ -1774,6 +1798,8 @@ def train_steps(tag: str, model, cfg, batches, kernels, count=None,
         for k in counts:
             total[k] = total.get(k, 0) + counts[k]
         met = {k: float(v) for k, v in met.items()}
+        run["losses"].append(met["loss"])
+        run["walls"].append(wall)
         fwd, bwd, upd = parts[-1]
         peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"[{tag}] step {i + 1}: "
@@ -1789,11 +1815,13 @@ def train_steps(tag: str, model, cfg, batches, kernels, count=None,
         if i == 0:
             after1 = (_host_copy(model.params()), _host_copy(opt.acc))
             loss1 = met["loss"]
-    PEAK[tag] = peak
+    PEAK[tag] = run["peak"] = peak
+    run["after1"] = after1[0]
     if profiled:
         profiled(lambda: step(opt, batches[-1], len(timed)))
-    plain_step_equal(tag, model, step, batches[0], init_params, after1,
-                     loss1)
+    if plain:
+        plain_step_equal(tag, model, step, batches[0], init_params, after1,
+                         loss1)
     return total
 
 
@@ -2592,6 +2620,235 @@ def report_profile(prof, wall_us: float, steps: int, what: str,
             f"{sum(e.count for e in sel) // steps} launches each")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sim and fp32 numeric modes
+# ---------------------------------------------------------------------------
+
+MODES_DEPTH = 2           # granite-3-8b layers of the quickstart table
+MODES_STEPS = 3
+# the rows of the reference's examples/quickstart.py table: (label, preset,
+# mode); the fp32 preset is fp32 whatever the mode
+QUICKSTART = (("fp32", "fp32", None), ("e2_16 native", "e2_16", "native"),
+              ("full8 sim", "full8", "sim"),
+              ("full8 native", "full8", "native"))
+# the kernels that only native mode runs
+NATIVE_ONLY = ("qmatmul", "dgrad", "wgrad", "ubn_norm", "flash_attention",
+               "paged_attention")
+MODES_RESNET_STEPS = 2
+
+
+def _load(model, host: list) -> None:
+    import torch
+    from repro_torch.optim import flatten
+    with torch.no_grad():
+        for p, h in zip(flatten(model.params()), host):
+            p.copy_(h)
+
+
+def off_native(tag: str, launches: dict, sim: bool) -> None:
+    """A sim or fp32 run launched none of K1, K3, K4, K5 and K6; a sim run
+    launched K2."""
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[modes] {tag}: kernels launched {ran}")
+    for k in NATIVE_ONLY:
+        assert not launches.get(k), f"{tag}: the native kernel {k} launched"
+    if sim:
+        assert launches.get("quantize", 0) > 0, f"{tag}: K2 never launched"
+
+
+def hidden_codes(labels: list, leaves: list) -> np.ndarray:
+    """The hidden ("w") leaves' k_WU-grid codes (2^-23 units)."""
+    return np.concatenate([
+        h.numpy().astype(np.float64).ravel() * 2 ** 23
+        for h, lab in zip(leaves, labels) if lab == "w"])
+
+
+def modes_quickstart(out: dict) -> None:
+    """granite-3-8b at full width, MODES_DEPTH layers, from one init: 3 steps
+    of each QUICKSTART row on one 1 x 4096 arith sequence; the sim and fp32
+    rows against the plain versions."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten
+    t0 = time.time()
+    acfg = get("granite-3-8b").replace(n_layers=MODES_DEPTH)
+    model = build_model(acfg, preset("full8"), device="cuda").init(0)
+    weights = _host_copy(model.params())
+    log(f"[modes] quickstart: {describe(model, 40)}, batch 1 x {TRAIN_SEQ} "
+        f"tokens (TokenTask arith), {MODES_STEPS} steps a row from the "
+        f"same initial weights (full8's init); built in "
+        f"{time.time() - t0:.1f} s")
+    del model
+    task = TokenTask(acfg.vocab, TRAIN_SEQ, 1, kind="arith")
+    batches = [task.batch(i) for i in range(MODES_STEPS)]
+    for label, name, mode in QUICKSTART:
+        cfg = preset(name, mode)
+        model = build_model(acfg, cfg, device="cuda")
+        _load(model, weights)
+        tag = f"modes {label}"
+        total = train_steps(tag, model, cfg, batches,
+                            ("quantize",) if cfg.mode == "sim" else (),
+                            plain=not cfg.native)
+        if not cfg.native:
+            off_native(tag, total, cfg.mode == "sim")
+        out[f"quickstart {label}"] = total
+        del model
+        torch.cuda.empty_cache()
+    rows = [RUNS[f"modes {label}"] for label, _, _ in QUICKSTART]
+    log("[modes] quickstart table (loss by step; the reference's "
+        "examples/quickstart.py rows):")
+    log("  step  " + "".join(f"{label:>16}" for label, _, _ in QUICKSTART))
+    for i in range(MODES_STEPS):
+        log(f"  {i + 1:4d}  " + "".join(f"{r['losses'][i]:16.6f}"
+                                        for r in rows))
+    log("  wall  " + "".join(
+        f"{min(r['walls']):8.3f}-{max(r['walls']):.3f} s" for r in rows))
+    log("  peak  " + "".join(f"{r['peak'] / 1e9:13.2f} GB" for r in rows))
+    # sim against native after step 1 (reported, not held)
+    labels = flatten(build_model(acfg, preset("full8"),
+                                 device="meta").labels())
+    d = np.abs(hidden_codes(labels, RUNS["modes full8 sim"]["after1"])
+               - hidden_codes(labels, RUNS["modes full8 native"]["after1"]))
+    log(f"[modes] full8 sim against full8 native after step 1: hidden codes "
+        f"differing {np.mean(d > 0):.6f}, max distance {d.max():.0f} codes; "
+        f"step-1 loss {rows[2]['losses'][0]:.6f} vs "
+        f"{rows[3]['losses'][0]:.6f}")
+
+
+def modes_serve(out: dict) -> None:
+    """granite-3-8b at full width, 4 layers, in sim mode: the serve phase's
+    requests on monolithic and chunked prefill against the plain versions,
+    first logits against the plain versions and against native mode."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, make_engine
+    t0 = time.time()
+    model = make_engine("granite-3-8b", mode="sim", reduced=False,
+                        n_layers=4, device="cuda", seed=0).model
+    a = model.a
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    log(f"[modes] serve: {describe(model, 40)}, full8 sim; built in "
+        f"{time.time() - t0:.1f} s")
+    for prefill in ("monolithic", "chunked"):
+        kw = dict(ENGINE_KW, prefill_mode=prefill)
+        eng = Engine(model, **kw)
+        decode = count_decode(eng)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.time()
+        toks = _serve(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ran = dict(ops.LAUNCHES)
+        met = eng.metrics()
+        steps = max(met["decode_steps"], 1)
+        per_step = {k: v / steps for k, v in decode.items() if v}
+        log(f"[modes] sim serve {prefill}: wall {wall:.3f} s, decode "
+            f"{1e3 * met['decode_wall_s'] / steps:.2f} ms a step over "
+            f"{met['decode_steps']} steps, TTFT mean "
+            f"{1e3 * met['ttft_mean_s']:.1f} ms; launches per decode step "
+            f"{per_step}")
+        off_native(f"sim serve {prefill}", ran, True)
+        assert decode["page_gather"] > 0 and decode["quantize"] > 0, \
+            "sim decode steps must gather pages (K7) and write KV (K2)"
+        out[f"serve {prefill}"] = dict(ran, **{
+            f"{k}_decode": v for k, v in decode.items()})
+        kernels_vs_plain("modes", f"sim serve {prefill}", model, kw, prompts,
+                         toks=toks)
+    lk = first_logits(model, prompts[0])
+    with ops.plain_reference():
+        lp = first_logits(model, prompts[0])
+    dist = float((lk - lp).abs().max())
+    log(f"[modes] sim first logits: max |kernels - plain| {dist:.3e}")
+    assert bool(torch.isfinite(lk).all()), "non-finite sim logits"
+    assert dist == 0.0, "the sim logits differ from the plain versions'"
+    native = build_model(a, preset("full8"), device="cuda")
+    native.load_state_dict(model.state_dict())
+    ln = first_logits(native, prompts[0])
+    d = float((lk - ln).abs().max())
+    log(f"[modes] sim against native first logits (reported, not held): "
+        f"max |sim - native| {d:.3e} ({d / float(ln.abs().max()):.3e} of "
+        f"max |logit|), argmax {int(lk.argmax())} vs {int(ln.argmax())}")
+    del model, native
+    torch.cuda.empty_cache()
+
+
+def modes_others(out: dict) -> None:
+    """ResNet-50 2 steps of batch 32 in sim and in fp32; falcon-mamba-7b
+    (4 of 64 layers) 3 fp32 steps on ssm_train's sequence; one
+    granite-moe-1b-a400m sim step (2 of 24 layers); each against the
+    plain versions."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import ImageTask, TokenTask
+    from repro_torch.models import build_model
+    for mode in ("sim", "fp32"):
+        cfg = preset("full8", mode)
+        model, _ = _resnet(cfg)
+        a = model.a
+        task = ImageTask(a.img_size, a.num_classes, RESNET_BATCH, seed=0)
+        tag = f"modes resnet50 {mode}"
+        log(f"[{tag}] resnet50 at full size, batch {RESNET_BATCH}, "
+            f"{MODES_RESNET_STEPS} steps")
+        total = train_steps(tag, model, cfg, [
+            task.batch(i) for i in range(MODES_RESNET_STEPS)],
+            ("quantize",) if mode == "sim" else ())
+        off_native(tag, total, mode == "sim")
+        out[f"resnet50 {mode}"] = total
+        del model
+        torch.cuda.empty_cache()
+
+    cfg = preset("fp32")
+    model = build_model(get("falcon-mamba-7b").replace(n_layers=4), cfg,
+                        device="cuda").init(0)
+    tag = "modes ssm fp32"
+    log(f"[{tag}] {describe(model, 64)}, fp32 (init(0) off the k_WU grid), "
+        f"ssm_train's 1 x {TRAIN_SEQ} arith sequence")
+    task = TokenTask(model.a.vocab, TRAIN_SEQ, 1, kind="arith")
+    total = train_steps(tag, model, cfg,
+                        [task.batch(i) for i in range(SSM_TRAIN_STEPS)],
+                        ("selective_scan", "selective_scan_bwd"))
+    off_native(tag, total, False)
+    out["ssm fp32"] = total
+    native = RUNS.get("ssm_train", {}).get("losses", [])
+    log(f"[modes] ssm_train losses, full8 native {native} against the fp32 "
+        f"baseline {RUNS[tag]['losses']}")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = preset("full8", "sim")
+    model = build_model(get("granite-moe-1b-a400m").replace(n_layers=2), cfg,
+                        device="cuda").init(0)
+    tag = "modes moe sim"
+    log(f"[{tag}] {describe(model, 24)}, full8 sim, 1 x {TRAIN_SEQ} tokens")
+    task = TokenTask(model.a.vocab, TRAIN_SEQ, 1, kind="arith")
+    total = train_steps(tag, model, cfg, [task.batch(0)], ("quantize",))
+    off_native(tag, total, True)
+    out["moe sim"] = total
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_modes() -> dict:
+    """The reference's other numeric modes on the card.  Returns the
+    launches by run."""
+    out: dict = {}
+    t0 = time.time()
+    modes_quickstart(out)
+    modes_serve(out)
+    modes_others(out)
+    log(f"[modes] phase {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2617,12 +2874,18 @@ def main() -> int:
     torch.use_deterministic_algorithms(True, warn_only=True)
     t0 = time.time()
     card = phase_build()
+    if sys.argv[1:]:    # named phases alone (a short check); no result
+        for name in sys.argv[1:]:
+            globals()[f"phase_{name}"]()
+        log(f"[done] {time.time() - t0:.1f} s (phases {sys.argv[1:]} only)")
+        return 0
     phase_kernels()
     runs = {"serve": phase_serve(), "serve_mono": phase_serve_mono(),
             "train": phase_train(), "resnet": phase_resnet()}
     phase_ckpt()
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
-                dense=phase_dense(), moe=phase_moe(), none={})
+                dense=phase_dense(), moe=phase_moe(), modes=phase_modes(),
+                none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

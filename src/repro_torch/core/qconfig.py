@@ -14,16 +14,31 @@ Per-path quantizers are `QuantSpec`s resolved through the registry
 are the reference's deprecated string aliases, reconciled with the specs in
 `__post_init__` exactly as the reference does.
 
-The port runs native mode only (int8/int16 payloads, integer dots).
-`fuse_kernels` (default True, as in the reference) picks the paged decode
+Three numeric modes, as in the reference:
+
+  native  int8/int16 QTensor payloads with pow2 scales, integer dots (K1,
+          K3), the fused norm (K4) and attention (K5, K6) kernels;
+  sim     the same quantizers, their grid values carried in fp32: the
+          matmuls are fp32 einsums of the grid values (exact wherever
+          every partial sum is), the norms and attention the unfused
+          bodies;
+  fp32    every quantizer the identity: the vanilla float baseline the
+          paper compares against.
+
+The default mode is "native", where the reference's is "sim": a bare
+`QConfig()` or `preset(name)` is what every caller of the port builds its
+kernel paths from, and a sim default would quietly take each of them off
+K1, K3, K4, K5 and K6.  Pass `mode="sim"` for the reference's default.
+
+`fuse_kernels` (default True, as in the reference) picks native decode
 attention's route: the fused paged_attention kernel (K6), or
 gather-then-attend (page_gather, K7, then `decode_attention`, whose dots
 run on K1), the same bits either way.  Unlike the reference's, it leaves
-the other ops alone: the attention forward of training and of monolithic
-prefill always runs the flash kernel (K5), the norms K4 and the backward
-dots K3.  Presets: `full8` and `e2_16` (the paper's two
-versions) and the bit-width lanes `w4a8`, `a4` and `g16`; `fp32` raises
-NotImplementedError naming its ROADMAP item.
+the other native ops alone: the attention forward of training and of
+monolithic prefill always runs the flash kernel (K5), the norms K4 and the
+backward dots K3.  Presets: `full8` and `e2_16` (the paper's two
+versions), `fp32` (mode fp32) and the bit-width lanes `w4a8`, `a4` and
+`g16`.
 """
 from __future__ import annotations
 
@@ -36,14 +51,14 @@ from .qtensor import QuantSpec, legacy_kind, spec_from_alias
 _WIDTH_TO_SPEC = {"k_w": "w", "k_a": "a", "k_e1": "e1", "k_e2": "e2",
                   "k_gc": "g"}
 
-UNPORTED = ("is not ported yet: the other numeric modes (sim, fp32) are "
-            "ROADMAP Queue 1 item 7")
+MODES = ("fp32", "sim", "native")
 
 
 @dataclass(frozen=True)
 class QConfig:
-    # "native": QTensor int8/int16 payloads + pow2 scales, integer dots.
-    # "sim" and "fp32" raise in validate().
+    # "fp32" (vanilla), "sim" (grid values carried in fp32) or "native"
+    # (QTensor int8/int16 payloads + pow2 scales, integer dots); the
+    # default differs from the reference's "sim" (see the module docstring)
     mode: str = "native"
 
     # --- forward-path widths ---
@@ -151,8 +166,8 @@ class QConfig:
         return dataclasses.replace(self, **kw)
 
     def validate(self) -> None:
-        if self.mode != "native":
-            raise NotImplementedError(f"mode={self.mode!r} {UNPORTED}")
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r} (one of {MODES})")
         if self.scan_dtype != "f32":
             raise NotImplementedError(
                 f"scan_dtype={self.scan_dtype!r} is not ported yet (the scan "
@@ -173,6 +188,7 @@ _DEFAULT_SPECS = {sf: QConfig.__dataclass_fields__[sf].default
 
 FULL8 = QConfig()                                   # paper full 8-bit version
 E2_16 = QConfig(e2_kind="sq16", k_e2=16)            # paper 16-bit E2 version
+FP32 = QConfig(mode="fp32")                         # vanilla baseline
 
 # the bit-width lanes (DESIGN.md §14): each re-widths one registry spec
 # through __post_init__, the same quantizer kind at another k
@@ -180,17 +196,15 @@ W4A8 = QConfig(k_w=4)      # 4-bit weights: clip@4 on the fixed 2^-3 grid
 A4 = QConfig(k_a=4)        # 4-bit activations: scaled@4 (pow2-amax scale)
 G16 = QConfig(k_gw=16)     # wide CQ range: dr = 2^15 on int16 payloads
 
-PRESETS = {"full8": FULL8, "e2_16": E2_16, "w4a8": W4A8, "a4": A4,
-           "g16": G16}
-# the reference's other preset, not ported yet (its mode is fp32)
-UNPORTED_PRESETS = ("fp32",)
+PRESETS = {"full8": FULL8, "e2_16": E2_16, "fp32": FP32, "w4a8": W4A8,
+           "a4": A4, "g16": G16}
 
 
 def preset(name: str, mode: str | None = None) -> QConfig:
-    if name in UNPORTED_PRESETS:
-        raise NotImplementedError(f"preset {name!r} {UNPORTED}")
+    """PRESETS[name], in `mode` when given (else the preset's own: native,
+    but fp32 for "fp32")."""
     if name not in PRESETS:
-        raise ValueError(f"unknown preset {name!r} (ported: "
+        raise ValueError(f"unknown preset {name!r} (one of "
                          f"{sorted(PRESETS)})")
     cfg = PRESETS[name]
     if mode is not None:

@@ -2,32 +2,39 @@
 
 Port of `repro.core.qdense`.  The paper's dataflow (Fig. 5 / Algorithms
 1-2) runs through `torch.autograd.Function`s where the reference has
-`jax.custom_vjp`s:
+`jax.custom_vjp`s.  Each op has the reference's three modes (qconfig.py):
+native on integer payloads, sim on the quantizers' grid values carried in
+fp32, fp32 with every quantizer the identity.
 
   qweight   Q_W through cfg.w (fixed 2^(1-k_W) scale, no amax pass), STE to
-            the fp32 master (paper Eq. 1)
-  qact      activation + Q_A -> QTensor with a differentiable carrier;
-            backward applies Q_E1 (shift quantization, e0) and then the
+            the fp32 master (paper Eq. 1): native the int8 payload, sim
+            its grid value
+  qact      activation + Q_A (native: a QTensor with a differentiable
+            carrier; sim: the grid value; fp32: the activation); backward
+            applies Q_E1 (shift quantization, e0; not in fp32) and then the
             activation derivative (e1), exactly Algorithm 2
   qprobs    attention probabilities onto the k_A grid (STE)
   qbn_param Q for norm operands (STE)
-  qeinsum   every matmul on integer payloads.  Forward: QTensor operands
-            feed their payloads as they are; raw fp32 operands are
-            decomposed once.  It saves the int payloads, not the fp32
+  qeinsum   every matmul.  Native, on integer payloads.  Forward: QTensor
+            operands feed their payloads as they are; raw fp32 operands
+            are decomposed once.  It saves the int payloads, not the fp32
             carriers.  Backward: Q_E2 on the incoming error (e3), then both
             integer dots of Alg. 2.  For the canonical 2-D spec with
             single-plane int8 residuals, Q_E2 is fused into the dgrad/wgrad
             kernels (K3): one amax here, the error payload never stored.
             Otherwise quantizer.quantize(g) and integer contractions through
-            the batched qmatmul kernel (K1).
+            the batched qmatmul kernel (K1).  sim and fp32: the einsum of
+            the fp32 carriers, and on the way back (after Q_E2 in sim) the
+            two fp32 einsums, as the reference's `jnp.einsum`s outside any
+            Pallas kernel; on the card they raise if cuBLAS's TF32 is on.
   qdense    x @ Q_W(w)
   qconv     the ResNet's convolution on the fp32 grid carriers (NHWC
             activations, HWIO weights, JAX's "SAME" padding); backward:
-            Q_E2 on the incoming error (e3), then the convolution's input
-            and weight gradients.  As in the reference, whose convolution
-            is `lax.conv_general_dilated` outside any Pallas kernel, the
-            convolution itself is cuDNN's (`F.conv2d`), in full fp32: on
-            the card it raises if cuDNN's TF32 is on.
+            Q_E2 on the incoming error (e3; not in fp32), then the
+            convolution's input and weight gradients.  As in the reference,
+            whose convolution is `lax.conv_general_dilated` outside any
+            Pallas kernel, the convolution itself is cuDNN's (`F.conv2d`),
+            in full fp32: on the card it raises if cuDNN's TF32 is on.
 """
 from __future__ import annotations
 
@@ -51,22 +58,46 @@ Tensor = torch.Tensor
 # --------------------------------------------------------------------------
 
 
+# Q_W's and Q_A's quantizers: their payload decomposition holds their grid
+# value for every input (both saturate to the payload's range)
+_PAYLOAD_EXACT = ("clip", "scaled")
+
+
+def _grid(quantizer, x: Tensor) -> Tensor:
+    """Sim mode's grid value of a forward quantizer: its payload
+    decomposition dequantized (the quantize kernel, K2, for k <= 8, as the
+    reference's `Quantizer.__call__` decomposes), equal to the reference's
+    formula `quantizer(x)` but for the sign of a zero; formula-only
+    quantizers give `quantizer(x)`."""
+    if quantizer.name in _PAYLOAD_EXACT:
+        return quantizer.quantize(x).dequantize()
+    return quantizer(x)
+
+
 def qweight(cfg: QConfig, w: Tensor):
-    """Q_W (Eq. 10): the int8 payload of the fp32 master weight, decomposed
-    on every forward (as the reference does; caching it is later work),
-    with a carrier whose gradient reaches the master unchanged (STE)."""
-    if not cfg.quant_w:
+    """Q_W (Eq. 10) of the fp32 master weight, decomposed on every forward
+    (as the reference does; caching it is later work), with a gradient that
+    reaches the master unchanged (STE): native the int8 payload (a QTensor
+    with a carrier), sim its fp32 grid value, fp32 the master itself."""
+    if not cfg.quantize or not cfg.quant_w:
         return w
-    return quantize_ste(cfg.w.make(), w)
+    quantizer = cfg.w.make()
+    if cfg.native:
+        return quantize_ste(quantizer, w)
+    return qf.ste(lambda t: _grid(quantizer, t), w)
 
 
 def qbn_param(cfg: QConfig, p: Tensor, k: int) -> Tensor:
     """Q for norm operands (gamma/beta/mu/sigma, Eq. 13), STE."""
+    if not cfg.quantize:
+        return p
     return qf.ste(get_quantizer("direct", k), p)
 
 
 def qprobs(cfg: QConfig, p: Tensor) -> Tensor:
     """Attention probabilities onto the k_A grid (in [0,1], exact range)."""
+    if not cfg.quantize:
+        return p
     return qf.ste(get_quantizer("direct", cfg.k_a), p)
 
 
@@ -85,10 +116,21 @@ _ACT = {"silu": (_silu, _dsilu),
         "none": (lambda x: x, None)}
 
 
+def _act_backward(ctx, g):
+    """Q_E1 (not in fp32), then the activation derivative: Alg. 2."""
+    cfg = ctx.cfg
+    if cfg.quantize and cfg.quant_e1:
+        g = cfg.e1.make()(g)          # Q_E1: e0 = SQ(e4^{l+1})   (Eq. 15)
+    if ctx.dfn is not None:
+        (x,) = ctx.saved_tensors
+        g = g * ctx.dfn(x)            # e1 = e0 * dACT            (Alg. 2)
+    return g
+
+
 class _QAct(torch.autograd.Function):
-    """activation + Q_A forward; Q_E1 then the activation derivative
-    backward.  Outputs (carrier, payload, scale); only the carrier is
-    differentiable."""
+    """Native activation + Q_A forward; Q_E1 then the activation
+    derivative backward.  Outputs (carrier, payload, scale); only the
+    carrier is differentiable."""
 
     @staticmethod
     def forward(ctx, x, cfg, act):
@@ -103,19 +145,42 @@ class _QAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _gd, _gs):
-        cfg = ctx.cfg
-        if cfg.quant_e1:
-            g = cfg.e1.make()(g)      # Q_E1: e0 = SQ(e4^{l+1})   (Eq. 15)
+        return _act_backward(ctx, g), None, None
+
+
+def _float_act(cfg: QConfig, act: str, x: Tensor) -> Tensor:
+    """sim: the grid value of Q_A(act(x)); fp32: act(x)."""
+    y = _ACT[act][0](x)
+    if cfg.quantize and cfg.quant_a:
+        return _grid(cfg.a.make(), y)
+    return y
+
+
+class _FloatAct(torch.autograd.Function):
+    """sim / fp32 activation (`_float_act`); backward as `_QAct`'s."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, act):
+        ctx.cfg, ctx.dfn = cfg, _ACT[act][1]
         if ctx.dfn is not None:
-            (x,) = ctx.saved_tensors
-            g = g * ctx.dfn(x)        # e1 = e0 * dACT            (Alg. 2)
-        return g, None, None
+            ctx.save_for_backward(x)
+        return _float_act(cfg, act, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _act_backward(ctx, g), None, None
 
 
 def qact(cfg: QConfig, act: str, x):
-    """activation + Q_A -> QTensor (the int8 payload is what downstream
-    dots consume; its carrier is the differentiable fp32 view)."""
+    """activation + Q_A.  Native: a QTensor (the int8 payload is what
+    downstream dots consume; its carrier is the differentiable fp32 view).
+    sim and fp32: an fp32 tensor, the grid value (sim) or the activation
+    (fp32)."""
     x = qt_carrier(x)
+    if not cfg.native:
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _FloatAct.apply(x, cfg, act)
+        return _float_act(cfg, act, x)
     if not cfg.quant_a:
         return _ACT[act][0](x)
     if not (torch.is_grad_enabled() and x.requires_grad):
@@ -290,6 +355,36 @@ class _QEinsum(torch.autograd.Function):
         return da, db, None, None, None, None, None
 
 
+def _fp32_matmul(t: Tensor) -> None:
+    """sim and fp32 products run in full fp32 or not at all."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "qeinsum: torch.backends.cuda.matmul.allow_tf32 is on; the sim "
+            "and fp32 products must run in full fp32")
+
+
+class _FloatEinsum(torch.autograd.Function):
+    """sim / fp32: the einsum of the fp32 carriers; backward Q_E2 on the
+    error (sim only), then both fp32 einsums."""
+
+    @staticmethod
+    def forward(ctx, a, b, cfg, spec, e_kind):
+        _fp32_matmul(a)
+        ctx.cfg, ctx.spec, ctx.e_kind = cfg, spec, e_kind
+        ctx.save_for_backward(a, b)
+        return torch.einsum(spec, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        if ctx.cfg.quantize:          # e3 = Q_E2(e2)
+            g = _error_quantizer(ctx.cfg, ctx.e_kind)(g)
+        da_spec, db_spec = _bwd_specs(ctx.spec)
+        da = torch.einsum(da_spec, g, b) if ctx.needs_input_grad[0] else None
+        db = torch.einsum(db_spec, a, g) if ctx.needs_input_grad[1] else None
+        return da, db, None, None, None
+
+
 def _grad_input(x):
     """What the gradient of an operand lands on: a QTensor's carrier (None
     for a payload without one, e.g. the KV cache), or the tensor itself."""
@@ -302,10 +397,14 @@ def qeinsum(cfg: QConfig, spec: str, e_kind, b_weight: bool, a, b) -> Tensor:
     """y = einsum(spec, a, b) with WAGEUBN forward/backward quantization.
 
     `a`/`b`: fp32 grid carriers or QTensors (whose payloads feed the
-    integer dots directly).  `e_kind` selects Q_E2: a QuantSpec, a
-    registered/legacy name ("flag8" | "sq16" | "sq8" | "none"), or
-    "default" (cfg.e2).  `b_weight` marks b as a Q_W weight (k_W-wide grid
-    decomposition for raw arrays)."""
+    integer dots directly in native mode; sim and fp32 take their fp32
+    views).  `e_kind` selects Q_E2: a QuantSpec, a registered/legacy name
+    ("flag8" | "sq16" | "sq8" | "none"), or "default" (cfg.e2).
+    `b_weight` marks b as a Q_W weight (k_W-wide grid decomposition for
+    raw arrays, native)."""
+    if not cfg.native:
+        return _FloatEinsum.apply(qt_carrier(a), qt_carrier(b), cfg, spec,
+                                  e_kind)
     qa = _fwd_quantize(cfg, a, False)
     qb = _fwd_quantize(cfg, b, b_weight)
     return _QEinsum.apply(_grad_input(a), _grad_input(b), cfg, spec, e_kind,
@@ -365,11 +464,16 @@ def conv_valid(xp: Tensor, w: Tensor, stride: int) -> Tensor:
 
 def _conv_error(cfg: QConfig, g: Tensor) -> Tensor:
     """Q_E2 on the convolution's incoming error, as the reference's
-    `_qconv_bwd`: single-plane affine formats of k <= 8 decompose through
-    the quantize kernel (K2) and are consumed as their grid value; the flag
-    format (full8) and wide formats (sq16, e2_16) take the one-pass
-    formula.  Both give the same grid value (the registry's invariant)."""
+    `_qconv_bwd`: none in fp32; the formula in sim; in native, single-plane
+    affine formats of k <= 8 decompose through the quantize kernel (K2)
+    and are consumed as their grid value, while the flag format (full8)
+    and wide formats (sq16, e2_16) take the one-pass formula.  Both give
+    the same grid value (the registry's invariant)."""
+    if not cfg.quantize:
+        return g
     quantizer = _error_quantizer(cfg, "default")
+    if not cfg.native:
+        return quantizer(g)
     plan = quantizer.fused_plan(g)
     if plan is not None and plan[0] == "affine" and plan[2] <= 8 \
             and quantizer.name != "none":

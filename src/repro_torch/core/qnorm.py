@@ -1,7 +1,7 @@
 """Quantized normalization (paper Eq. 11-13), fused forward through UBN.
 
-Port of `repro.core.qnorm`.  The forward of every norm is the ubn_norm
-kernel (K4): statistics, normalize, and the five direct quantizations
+Port of `repro.core.qnorm`.  In native mode the forward of every norm is
+the ubn_norm kernel (K4): statistics, normalize, and the five direct quantizations
 Q(mu), Q(sigma), Q_BN, Q(gamma), Q(beta) (per row for RMSNorm and
 LayerNorm, per channel over the whole batch for BN).  The backward, as in
 the reference, is autograd of the unfused body (`_qbatchnorm_unfused`,
@@ -9,7 +9,10 @@ the reference, is autograd of the unfused body (`_qbatchnorm_unfused`,
 every quantizer there is a straight-through direct quantizer, so autograd
 through the body IS the paper's quantized backward evaluated on grid
 values.  Q_E2 on the outgoing error is applied by the adjacent qeinsum or
-qconv.  `batchnorm` is the unquantized BN of the ResNet's exempt stem.
+qconv.  sim mode (and native with `quant_bn` off) runs the unfused body
+forward too, as the reference's does; in fp32 mode every quantizer of the
+body is the identity, so it is plain BN.  `batchnorm` is that plain BN,
+the ResNet's exempt stem's.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch
 from repro_torch.kernels import ops
 
 from . import qfuncs as qf
-from .qconfig import QConfig
+from .qconfig import FP32, QConfig
 from .qtensor import get_quantizer, qt_carrier
 
 Tensor = torch.Tensor
@@ -28,7 +31,7 @@ EPS_Q = 2.0 ** -8  # epsilon_q: small fixed-point value (Eq. 12)
 
 def _qs(cfg: QConfig, t: Tensor, k: int) -> Tensor:
     """Direct-quantize with STE when BN quantization is on."""
-    if not cfg.quant_bn:
+    if not cfg.quantize or not cfg.quant_bn:
         return t
     return qf.ste(get_quantizer("direct", k), t)
 
@@ -81,11 +84,6 @@ def _qlayernorm_unfused(cfg: QConfig, x: Tensor, gamma: Tensor,
 _UNFUSED = {"batch": _qbatchnorm_unfused, "rms": _qrmsnorm_unfused,
             "layer": _qlayernorm_unfused}
 
-# BN with every quantizer off and gradients through mean and variance: the
-# reference's qbatchnorm(FP32, ...) of the exempt stem
-_UNQUANTIZED = QConfig(quant_bn=False)
-
-
 def _ubn_widths(cfg: QConfig) -> dict:
     return dict(k_mu=cfg.k_mu, k_sigma=cfg.k_sigma, k_bn=cfg.k_bn,
                 k_gamma=cfg.k_gamma, k_beta=cfg.k_beta, eps=EPS_Q)
@@ -117,7 +115,7 @@ class _FusedNorm(torch.autograd.Function):
 
 def _norm(cfg: QConfig, kind: str, x, gamma, beta):
     x = qt_carrier(x)
-    if not cfg.quant_bn:
+    if not (cfg.native and cfg.quant_bn):
         args = (x, gamma) if kind == "rms" else (x, gamma, beta)
         return _UNFUSED[kind](cfg, *args)
     return _FusedNorm.apply(x, gamma, beta, cfg, kind)
@@ -131,8 +129,8 @@ def qbatchnorm(cfg: QConfig, x, gamma: Tensor, beta: Tensor) -> Tensor:
 def batchnorm(x, gamma: Tensor, beta: Tensor) -> Tensor:
     """Plain fp32 BN (statistics over all axes but the last, eps_q added
     to sigma), autograd through mean and variance: the exempt ResNet
-    stem's BN."""
-    return _qbatchnorm_unfused(_UNQUANTIZED, qt_carrier(x), gamma, beta)
+    stem's BN, the reference's qbatchnorm(FP32, ...)."""
+    return _qbatchnorm_unfused(FP32, qt_carrier(x), gamma, beta)
 
 
 def qrmsnorm(cfg: QConfig, x, gamma: Tensor) -> Tensor:

@@ -1,4 +1,4 @@
-"""Train-step builder + the CLI training driver (single device, native).
+"""The training step and its command-line entry point (single device).
 
 Port of `repro.launch.train.make_train_step` and its CLI.  One step is the
 full WAGEUBN loop: the quantized forward (`model.loss`), the quantized
@@ -9,7 +9,12 @@ body's backward, the UBN kernel's forward with the unfused body's
 backward), then CQ/Q gradient quantization, quantized Momentum and the
 fixed-point update (`optim/momentum.py`).  The stochastic-rounding key is
 fold_in(PRNGKey(17), step), then fold_in(., 1) for the optimizer, as in
-the reference, so the bits are a pure function of the step index.
+the reference, so the bits are a pure function of the step index.  The
+step is the same in every numeric mode (`--mode native|sim|fp32`, native
+by default, core/qconfig.py): sim takes the quantizers' grid values
+through fp32 products, the unfused norm and attention bodies; fp32
+(`--mode fp32`, or `--preset fp32`, which ignores `--mode` as the
+reference's CLI does) is the vanilla float baseline with plain Momentum.
 
     python -m repro_torch.launch.train --arch granite-3-8b --reduced \
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
@@ -19,6 +24,10 @@ the reference, so the bits are a pure function of the step index.
         --reduced --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch resnet50 --reduced \
         --mode native --steps 3 --batch 4 --device cpu
+    python -m repro_torch.launch.train --arch granite-3-8b --reduced \
+        --mode sim --steps 3 --batch 2 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch granite-3-8b --reduced \
+        --preset fp32 --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train ... --ckpt-dir DIR --save-every 2
     python -m repro_torch.launch.train ... --ckpt-dir DIR --resume
 
@@ -33,8 +42,7 @@ bits depend on the step index alone.  `make_train_step(..., n_micro=N)`
 accumulates the gradients of N microbatches, as the reference's does.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the sim and fp32 modes (--mode, --preset fp32), the sharded step and the
-elastic runtime (--dp, --tp, --elastic, ...).
+the sharded step and the elastic runtime (--dp, --tp, --elastic, ...).
 """
 from __future__ import annotations
 
@@ -199,12 +207,13 @@ def main(argv=None):
     acfg = get_arch(args.arch)
     if args.reduced:
         acfg = acfg.reduced()
-    qcfg = preset(args.preset, args.mode)
+    # --preset fp32 ignores --mode, as the reference's CLI does
+    qcfg = preset(args.preset, args.mode if args.preset != "fp32" else None)
     task, acfg, shape = _task(acfg, args)
     model = build_model(acfg, qcfg, device=args.device).init(0)
     opt = init_momentum(model.params())
     bounds = parse_boundaries(args.dr_boundaries)
-    print(f"[train] {acfg.name} {args.preset}/{args.mode} on {model.device}: "
+    print(f"[train] {acfg.name} {args.preset}/{qcfg.mode} on {model.device}: "
           f"{sum(t.numel() for t in flatten(model.params())) / 1e6:.2f} M "
           f"params, batch {args.batch} x {shape}")
     ckpt, start = None, 0

@@ -1,6 +1,7 @@
 """Model building blocks: RoPE, chunked online-softmax attention for
-training and monolithic prefill (the fused flash kernel forward, autograd
-of the plain chunked body backward), int8 attention for serving (chunked
+training and monolithic prefill (native: the fused flash kernel forward,
+autograd of the plain chunked body backward; sim and fp32: the plain
+chunked body), int8-KV attention for serving (chunked
 prefill pages, and decode against the pages fused or gathered, or against
 a dense cache), the int8 KV writes, SwiGLU, the norm and the loss's target
 gather.
@@ -40,11 +41,14 @@ NEG_INF = -1e9
 
 def winit_(cfg: QConfig, w: Tensor, fan_in: int,
            generator: torch.Generator) -> Tensor:
-    """In place: w <- clip(Q(normal / sqrt(fan_in), k_WU), +-(1 - d(k_WU))).
+    """In place: w <- clip(Q(normal / sqrt(fan_in), k_WU), +-(1 - d(k_WU)))
+    (fp32 mode: normal / sqrt(fan_in), off the grid).
 
     The reference's `winit` formula, drawn from a torch.Generator: the same
     distribution as the reference's jax.random weights, not the same bits."""
     w.normal_(generator=generator).div_(math.sqrt(fan_in))
+    if not cfg.quantize:
+        return w
     s = 2.0 ** (cfg.k_wu - 1)
     lim = 1.0 - 2.0 ** (1 - cfg.k_wu)
     return w.mul_(s).round_().div_(s).clamp_(-lim, lim)
@@ -108,15 +112,15 @@ def chunked_attention(cfg: QConfig, q, k, v, *, causal: bool,
     """Memory-efficient online-softmax attention (flash style).
 
     q: (B, S, H, dh) on the activation grid; k/v: (B, T, KV, dh).  Returns
-    (B, S, H, dh), the normalized output on the activation grid.  int8
-    payload operands (what qact makes) take the fused route: the flash
-    kernel (K5) forward, autograd of `_chunked_core` backward; raw fp32
-    operands take `_chunked_core` whole.  The
+    (B, S, H, dh), the normalized output on the activation grid.  Native
+    int8 payload operands (what qact makes there) take the fused route: the
+    flash kernel (K5) forward, autograd of `_chunked_core` backward; sim and
+    fp32 (fp32 operands) take `_chunked_core` whole.  The
     reference also asks a TPU VMEM budget (`flash_attention_fits`) here; a
     Hopper block's memory does not grow with the chunk, so the port does
     not: the two routes give the same numbers by the reference's contract.
     """
-    if all(map(_payload8, (q, k, v))):
+    if cfg.native and all(map(_payload8, (q, k, v))):
         out = _FlashFused.apply(q.carrier, k.carrier, v.carrier, cfg, causal,
                                 min(q_chunk, q.shape[1]),
                                 min(kv_chunk, k.shape[1]), q, k, v, q_pos,
@@ -251,22 +255,23 @@ def decode_attention(cfg: QConfig, q, k, v, *, q_pos: Tensor,
     return qact(cfg, "none", out)
 
 
-def paged_decode_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
+def paged_decode_attention(cfg: QConfig, q, k_pages: Tensor,
                            v_pages: Tensor, table: Tensor, k_scale, v_scale,
                            *, q_pos: Tensor, t_valid) -> QTensor:
     """Single-step attention against the PAGED int8 KV cache (one layer).
     q: (B, 1, H, dh) QTensor; k_pages/v_pages: (P, page, KV, dh) int8;
     table: (B, NB).
 
-    With `cfg.fuse_kernels` and a single-token int8 query the fused
-    two-pass paged_attention kernel (K6) streams the lanes' pages, so the
-    gathered KV never exists.  Otherwise the unfused route gathers each
-    pool (one page_gather, K7, per pool, as the reference does) and runs
-    `decode_attention`: the same numbers.  (The reference also asks a TPU
+    In native mode with `cfg.fuse_kernels` and a single-token int8 query
+    the fused two-pass paged_attention kernel (K6) streams the lanes'
+    pages, so the gathered KV never exists.  Otherwise (sim and fp32 too)
+    the unfused route gathers each pool (one page_gather, K7, per pool, as
+    the reference does) and runs `decode_attention`: in native mode the
+    same numbers.  (The reference also asks a TPU
     VMEM budget, `paged_attention_fits`; K6 sweeps any context, so the port
     does not.)"""
     b, s, h, dh = q.shape
-    if cfg.fuse_kernels and s == 1 and _payload8(q):
+    if cfg.native and cfg.fuse_kernels and s == 1 and _payload8(q):
         out = ops.paged_attention(
             q.data.reshape(b, h, dh), k_pages, v_pages, table, q_pos,
             t_valid, q.scale, k_scale, v_scale, sm_scale=1.0 / math.sqrt(dh),
@@ -319,10 +324,15 @@ def paged_prefill_attention(cfg: QConfig, q: QTensor, k_pages: Tensor,
 # --------------------------------------------------------------------------
 
 
-def kv_quantize(x: QTensor, step) -> Tensor:
-    """Payload on the int8 cache grid: a pow2 requantize of the QTensor's
-    payload saturating to int8 (no amax pass)."""
-    return x.requantize(step, k=8)
+def kv_quantize(x, step) -> Tensor:
+    """Payload on the int8 cache grid.  A QTensor (native) requantizes
+    payload to payload, a pow2 shift saturating to int8 (no amax pass); an
+    fp32 tensor (sim, fp32) is decomposed onto the grid by the quantize
+    kernel (K2), clip(round(x / step), +-127) as the reference writes it
+    (`step` is a power of two, so x * (1 / step) is the same value)."""
+    if isinstance(x, QTensor):
+        return x.requantize(step, k=8)
+    return ops.quantize(x, 1.0 / step, lim=127.0)
 
 
 def kv_qtensor(x8: Tensor, step) -> QTensor:

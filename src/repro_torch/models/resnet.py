@@ -4,8 +4,8 @@ Port of `repro.models.resnet.ResNet`.  The first convolution (the stem,
 with its BN) and the final fully connected layer are exempt from
 quantization (paper §IV-A).  Every hidden convolution goes through qconv
 (Q_W weights, Q_E2 errors), every BN through qbatchnorm (Eq. 12, the K4
-"batch" kernel forward), every ReLU through qact (Q_A forward, Q_E1
-backward).
+"batch" kernel forward in native mode, the unfused body in sim and
+fp32), every ReLU through qact (Q_A forward, Q_E1 backward).
 
 Parameters keep the reference's tree and layouts, so both packages hold
 the same element at the same flat index (CQ draws its threefry bits by

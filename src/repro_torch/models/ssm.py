@@ -2,9 +2,10 @@
 
 Port of the Mamba1 part of `repro.models.ssm` (Mamba2 belongs to the hybrid
 family, not ported yet).  Every projection is a WAGEUBN int8 matmul
-(`qdense`: K1 and K2), the norm is `qrmsnorm` (K4), and the recurrence
-runs in fp32 over 16-bit-gridded dt, B and C (`qbn_param` with k_BN), as
-in the reference.
+(`qdense`: K1 and K2 in native mode; fp32 products of the grid values in
+sim, of the values in fp32), the norm is `qrmsnorm` (K4 in native mode),
+and the recurrence runs in fp32 over 16-bit-gridded dt, B and C
+(`qbn_param` with k_BN; ungridded in fp32), as in the reference.
 
 One op defines the recurrence on every path: `ops.selective_scan` (K9 on
 the card) in all three modes, from zero state in "train" and from the

@@ -4,8 +4,8 @@ granite-moe-1b-a400m and moonshot-v1-16b-a3b): training loss and paged
 serving.
 
 Port of `repro.models.transformer.LMTransformer`: `train` mode (the loss
-of the training step: chunked causal attention through the flash kernel,
-backward by autograd) and the serving modes: monolithic `prefill` (train
+of the training step: chunked causal attention, through the flash kernel
+in native mode, backward by autograd) and the serving modes: monolithic `prefill` (train
 mode over the whole prompt, emitting the int8 KV into a dense cache),
 `chunk` (chunked prefill, one lane, one page of tokens) and `decode` (one
 token per lane, against the paged pool or a dense cache), driven through

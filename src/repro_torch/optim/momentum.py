@@ -65,7 +65,10 @@ def init_momentum(params: dict) -> MomentumState:
 
 
 def fixed_point_lr(lr: float, cfg: QConfig) -> float:
-    """Learning rate on the k_lr-bit grid (e.g. 0.05 -> 26*2^-9)."""
+    """Learning rate on the k_lr-bit grid (e.g. 0.05 -> 26*2^-9); as given
+    in fp32 mode."""
+    if not cfg.quantize:
+        return lr
     s = 2.0 ** (cfg.k_lr - 1)
     return max(round(lr * s), 1.0) / s
 
@@ -100,14 +103,17 @@ def _grad_quantizer(cfg: QConfig, dr_bits: int):
 
 
 def _mom_coeff(cfg: QConfig, mom: float) -> float:
+    if not cfg.quantize:
+        return mom
     s = 2.0 ** (cfg.k_mom - 1)
     return round(mom * s) / s          # e.g. 0.75 = 3 * 2^-2 (3-bit)
 
 
 def _plain_path(cfg: QConfig, lab) -> bool:
-    """Vanilla-momentum leaves: exempt leaves, or Table II runs with both
-    the G and U quantizers off."""
-    return lab == "exempt" or not (cfg.quant_g or cfg.quant_u)
+    """Vanilla-momentum leaves: every leaf in fp32 mode, exempt leaves, or
+    Table II runs with both the G and U quantizers off."""
+    return (not cfg.quantize or lab == "exempt"
+            or not (cfg.quant_g or cfg.quant_u))
 
 
 def quantize_grad_leaf(cfg: QConfig, g: Tensor, lab, key,

@@ -10,7 +10,8 @@
                               prompt_lens=(8, 16, 24), gen_lens=(4, 8))
     results, metrics = run_load(engine, traffic)
 
-Port of `repro.serving.api` at tp=1 (native mode).  The engine serves
+Port of `repro.serving.api` at tp=1, in each numeric mode (`mode="native"`
+by default, "sim" or "fp32"; core/qconfig.py).  The engine serves
 through monolithic prefill by default, greedy unless `temperature` > 0,
 with the fused decode attention unless `fuse_kernels=False`;
 `prefill_mode="chunked"` and `radix_cache=True` give chunked prefill and the
@@ -45,8 +46,9 @@ def make_engine(arch: str, *, mode: str = "native", preset_name: str = "full8",
                 fuse_kernels: bool = True, **engine_kw) -> Engine:
     """Build (arch config, model with random weights, Engine) in one call.
 
-    `reduced` takes the tiny CPU-test config; `n_layers` cuts the depth and
-    keeps every width.  Weights come from `seed` by the reference's init
+    `mode` and `preset_name` pick the QConfig (`preset(preset_name,
+    mode)`); `reduced` takes the tiny CPU-test config; `n_layers` cuts the
+    depth and keeps every width.  Weights come from `seed` by the reference's init
     formulas (same distributions, not the same bits as `repro`'s).
     `fuse_kernels=False` pins the unfused gather-then-attend decode route
     (the same bits).  The engine's model is `engine.model`."""

@@ -17,7 +17,8 @@ kernels on a CUDA device, and the sampler.
 Per-step flow (Engine.step):
   1. admit queued requests into free lanes.  Monolithic prefill (the
      default): the whole prompt runs at once through the model's train-mode
-     layers (`prefill`, attention on the flash kernel K5), its int8 KV is
+     layers (`prefill`, attention on the flash kernel K5 in native mode,
+     the plain chunked body in sim and fp32), its int8 KV is
      scattered into the request's pages and the first token sampled, so the
      request joins this very step's decode batch.  Chunked prefill: pages
      for the prompt plus the first decode page are claimed now (radix hits
@@ -30,9 +31,9 @@ Per-step flow (Engine.step):
   3. paged only: allocate decode pages at page boundaries; on exhaustion
      evict least-recently-used radix subtrees, then preempt the
      longest-context request (recompute preemption)
-  4. one decode step over all DECODE lanes (fused paged attention, K6, or
-     gather-then-attend, K7 + K1, as `cfg.fuse_kernels` says); sample and
-     append the tokens
+  4. one decode step over all DECODE lanes (native: fused paged attention,
+     K6, or gather-then-attend, K7 + K1, as `cfg.fuse_kernels` says; sim
+     and fp32: K7, then fp32 products); sample and append the tokens
   5. retire finished requests, unref their pages
 
 Sampling is greedy at temperature 0, else softmax sampling at
@@ -123,7 +124,9 @@ class Engine:
       watchdog: StepWatchdog timing each decode step; clock: time source.
 
     The decode attention's route (fused K6 or gather-then-attend) is the
-    model's `q.fuse_kernels`.  Raises ValueError if the pool cannot hold
+    model's `q.fuse_kernels` in native mode, gather-then-attend in sim and
+    fp32 (`fused_decode_active`).  Every mode writes int8 KV pages, as the
+    reference does.  Raises ValueError if the pool cannot hold
     one max-context request, on an unknown prefill_mode, or for a radix
     cache without chunked prefill or a paged family.
     """
@@ -696,8 +699,10 @@ class Engine:
 
 def fused_decode_active(engine: Engine) -> bool:
     """Whether the engine's decode steps stream KV pages through the fused
-    paged-attention kernel (K6) rather than gather-then-attend (K7 + K1).
-    Answered from the route `models.layers.paged_decode_attention` takes:
-    fused iff the family is paged and the model's `q.fuse_kernels` is on
-    (its decode query is always a single-token int8 payload)."""
-    return engine.paged and engine.model.q.fuse_kernels
+    paged-attention kernel (K6) rather than gather-then-attend (K7, then
+    K1 in native mode or fp32 products in sim and fp32).  Answered from the
+    route `models.layers.paged_decode_attention` takes: fused iff the
+    family is paged, the model's mode is native (the decode query is then
+    a single-token int8 payload) and its `q.fuse_kernels` is on."""
+    q = engine.model.q
+    return engine.paged and q.native and q.fuse_kernels

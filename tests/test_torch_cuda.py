@@ -415,6 +415,28 @@ def test_cuda_qconv_refuses_tf32(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_sim_and_fp32_products_refuse_tf32(cuda):
+    """sim and fp32 qeinsum products run in full fp32 or not at all."""
+    from repro_torch.core import preset
+    from repro_torch.core.qdense import qeinsum
+    a = torch.ones((4, 8), device=cuda)
+    b = torch.ones((8, 2), device=cuda)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for mode in ("sim", "fp32"):
+            cfg = preset("full8", mode)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                qeinsum(cfg, "mk,kn->mn", "default", True, a, b)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            assert torch.equal(qeinsum(cfg, "mk,kn->mn", "default", True,
+                                       a, b), torch.full((4, 2), 8.0,
+                                                         device=cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [4, 16])
 def test_cuda_qmatmul_ssm_shapes(cuda, m):
     """K1 at falcon-mamba-7b's projections: in_proj (4096 -> 16384),

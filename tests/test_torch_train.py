@@ -466,12 +466,9 @@ def test_train_cli_save_and_resume(capsys, tmp_path):
     assert "step     0 loss" in capsys.readouterr().out
 
 
-# the ids the cases had before the ported options' cases went (argv2-4,
+# the ids the cases had before the ported options' cases went (argv0-5,
 # argv9-10), so each remaining case keeps its name
 @pytest.mark.parametrize("argv,item", [
-    pytest.param(["--mode", "sim"], "item 7", id="argv0-item 7"),
-    pytest.param(["--mode", "fp32"], "item 7", id="argv1-item 7"),
-    pytest.param(["--preset", "fp32"], "item 7", id="argv5-item 7"),
     pytest.param(["--dp", "2"], "item 5", id="argv6-item 5"),
     pytest.param(["--tp", "2"], "item 5", id="argv7-item 5"),
     pytest.param(["--elastic"], "item 5", id="argv8-item 5")])
