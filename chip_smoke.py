@@ -22,7 +22,8 @@ prints no result line:
              layer, M 1 to 4096 on both routes, N 4096, 8192 and ragged,
              timed at 4, 16 and 4096 rows with its device time, beside
              the exhaustive check of the fp32 division and sqrt it
-             shares with K6) and by columns ("batch", every BN shape of
+             shares with K6; kind "layer" at the enc-dec's 4096 x 1024
+             and 4 x 1024, F.layer_norm beside) and by columns ("batch", every BN shape of
              a ResNet-50 step at batch 32 on both routes, a row each with
              its device time and F.batch_norm beside, a ragged M and an
              unaligned view), K5
@@ -33,7 +34,10 @@ prints no result line:
              and at monolithic prefill's shapes (prompts of 100, 37, 256,
              64 and 1500 tokens: below 512 one kv chunk of T, ragged
              where T is no multiple of 64), timed at 100 tokens beside
-             SDPA in bf16, K7 page_gather with one pool (4 lanes x 128
+             SDPA in bf16, and non-causal at the enc-dec's encoder (1 x
+             4096 over 4096) and cross (1024 queries over 4096 frames)
+             shapes, 16/16 heads of 64, every tile visited, SDPA bf16
+             beside, K7 page_gather with one pool (4 lanes x 128
              pages, the unfused decode route's call) and with K and V in
              one launch, head-major (wall time beside device time), K6
              paged_attention at 4 lanes over 512 positions and 16 lanes
@@ -180,6 +184,23 @@ prints no result line:
              plain replay bit for bit (step-1 loss, parameters and
              accumulator; tokens and logits) and launches none of K1, K3,
              K4, K5 and K6; the sim runs launch K2.
+ 12. encdec  seamless-m4t-large-v2 (the enc-dec: d 1024, 16 heads of 64 on
+             16 KV heads, FFN 8192 with gelu, LayerNorm, vocab 256206) at
+             full width and depth (24 encoder + 24 decoder layers, 1.63 G
+             parameters), random weights from seed 0: 4 requests of 4096
+             seeded N(0, 1) frames through `EncDec.prefill` (t_self
+             1024) and 32 greedy `serve_step`s each from token 0, with the
+             prefill wall, decode ms a step, tokens/s and the launches a
+             decode step (no K6, no K7; K4 kind "layer" at 4 rows); the
+             same through the plain versions, whose tokens and first
+             logits must be equal bit for bit; then 3 make_train_step
+             steps on 1 x 4096 frames and 1024 TokenTask ("arith")
+             target tokens, with the step's split, peak memory, launches (K4 "layer" at
+             4096 and 1024 rows, K5 on the encoder's, the decoder's and
+             the cross shapes), K5's visited tiles on one forward (every
+             tile of the non-causal calls), and step 1 through the plain
+             versions, whose loss, parameters and accumulator must equal
+             the kernel run's.
 
 `python3 chip_smoke.py PHASE ...` (e.g. `modes`) runs the build and the
 named phases alone and prints no result lines.  It ends with a line `{"kernels": [...]}`, then the card line, then
@@ -828,6 +849,8 @@ def kernel_rows() -> None:
                     f"a row; library F.{kind}_norm, device "
                     f"{device_ms(lib):.4f} ms")
 
+    encdec_kernel_rows(i8, f32, sms)
+
     # ---- K4 ubn_norm (batch): ResNet-50's BNs at batch 32 flatten NHWC to
     # (N*H*W, C): every shape of a step (RESNET50_BN), on both routes (a
     # strip over a cluster, x read once, at four of them; two passes at the
@@ -1178,6 +1201,77 @@ def kernel_rows() -> None:
                     f"{4 * a_.numel() / 1e9:.3f} GB for each of a, b, da "
                     f"and db; no PyTorch call computes it")
         del a_, b_, c_, h0, dy, dh, got
+
+
+def encdec_kernel_rows(i8, f32, sms: int) -> None:
+    """The enc-dec phase's K4 and K5 shapes (seamless-m4t-large-v2: d
+    1024, 16 heads of 64 on 16 KV heads): K4 kind "layer" at the training
+    step's 4096 rows and a 4-lane decode step's 4 rows, F.layer_norm
+    beside; K5 non-causal at the encoder's 1 x 4096 over 4096 and the
+    cross-attention's 1024 queries over 4096 frames, SDPA bf16 beside,
+    each with the tiles it visits (all of them: no tile is masked)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    log("[kernels] enc-dec shapes: K4 layer at N 1024, K5 non-causal with "
+        "16/16 heads of 64 (bitwise)")
+    n = 1024
+    gam, bet = 1.0 + 0.1 * f32(n), 0.1 * f32(n)
+    for name, m, key in (("ubn_norm_layer_train", 4096,
+                          "ubn_norm_layer_4096x1024"),
+                         ("ubn_norm_layer_decode", 4,
+                          "ubn_norm_layer_4x1024")):
+        x = f32(m, n) * 2
+        call = lambda: ops.ubn_norm(x, gam, bet, kind="layer")  # noqa: E731
+        plain = lambda: ref.ubn_norm(x, gam, bet, kind="layer")  # noqa: E731
+        lib = lambda: F.layer_norm(x, (n,), gam, bet, 2.0 ** -8)  # noqa
+        assert torch.equal(call(), plain()), f"ubn_norm layer {m}x{n} differs"
+        record(name, "src/repro_torch/csrc/ubn.cu",
+               "src/repro/kernels/ubn.py:110", time_ms(call), time_ms(plain),
+               8 * x.numel() + 8 * n, 8 * x.numel(), FP32_OPS, time_ms(lib),
+               max_err(call(), plain()), ("encdec", key),
+               device_ms=device_ms(call),
+               note=f"{m}x{n} layer, {ops.ubn_cluster(m, sms)} block(s) a "
+                    f"row; library F.layer_norm, device "
+                    f"{device_ms(lib):.4f} ms")
+    h, dh = 16, 64
+    scs = [torch.tensor(v, device=dev) for v in (2.0 ** -6, 2.0 ** -7,
+                                                  2.0 ** -7)]
+    sdpa = F.scaled_dot_product_attention
+    for name, s_, t in (("flash_attention_encoder", 4096, 4096),
+                        ("flash_attention_cross", 1024, 4096)):
+        q8, k8, v8 = i8(1, s_, h, dh), i8(1, t, h, dh), i8(1, t, h, dh)
+        qp = torch.arange(s_, device=dev, dtype=torch.int32)
+        kp = torch.arange(t, device=dev, dtype=torch.int32)
+        args = (q8, k8, v8, qp, kp, torch.ones_like(kp), *scs)
+        kw = dict(causal=False, sm_scale=dh ** -0.5, q_chunk=1024,
+                  kv_chunk=512)
+        got, want = ops.flash_attention(*args, **kw), \
+            ref.flash_attention(*args, **kw)
+        assert torch.equal(got, want), f"{name} differs"
+        visits = torch.zeros(2, dtype=torch.int64, device=dev)
+        ops.flash_attention(*args, **kw, visits=visits)
+        tiles = h * (s_ // 128) * (t // 64)
+        st_v, mn_v = visits.tolist()
+        log(f"  {name} (1 x {s_} over {t}, non-causal): tiles visited "
+            f"{st_v} / {tiles} (stats launch), {mn_v} / {tiles} (main)")
+        assert st_v == mn_v == tiles, f"{name}: a non-causal tile skipped"
+        qb, kb_, vb = ((x.float() * c).to(torch.bfloat16).transpose(1, 2)
+                       for x, c in zip((q8, k8, v8), scs))
+        record(name, "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/paged_attention.py:304",
+               time_ms(lambda: ops.flash_attention(*args, **kw), 5),
+               time_ms(lambda: ref.flash_attention(*args, **kw), 2),
+               q8.numel() + k8.numel() + v8.numel() + 4 * got.numel(),
+               2 * 2 * s_ * t * h * dh, INT8_OPS,
+               time_ms(lambda: sdpa(qb, kb_, vb), 5), max_err(got, want),
+               ("encdec", name),
+               device_ms=device_ms(lambda: ops.flash_attention(*args, **kw),
+                                   20),
+               note=f"1 x {s_} over {t}, non-causal, 16/16 heads of 64, "
+                    f"every tile visited; library SDPA bf16 non-causal")
+        del q8, k8, v8, got, want
 
 
 # ---------------------------------------------------------------------------
@@ -2849,6 +2943,256 @@ def phase_modes() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the enc-dec (seamless-m4t-large-v2) at full width and depth
+# ---------------------------------------------------------------------------
+
+ENCDEC = "seamless-m4t-large-v2"
+ENCDEC_LANES = 4
+ENCDEC_SRC = TRAIN_SEQ    # frames a request (train_4k); t_self = S // 4
+ENCDEC_NEW = 32           # greedy tokens a request
+ENCDEC_START = 0          # the fixed start token of every request
+ENCDEC_TRAIN_STEPS = 3
+ENCDEC_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention")
+# device time by kernel family: the substring of its kernels' names
+KERNEL_NAMES = {"K1": "qmm_", "K2": "quantize_kernel", "K3": "bwd_",
+                "K4": "ubn_", "K5": "fa_"}
+
+
+def device_split(fn, what: str) -> None:
+    """One call of `fn` under a CUDA-only torch.profiler: its wall, the
+    card's busy time and share, and the device ms of K1-K5 (KERNEL_NAMES)
+    and of the rest, from the profiler's raw events (device_events: a
+    48-layer step makes too many for FunctionEvents)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.time() - t0)
+    events = device_events(prof)
+    if not events:
+        log(f"[profile] {what}: the profiler saw no device time: not "
+            f"measured")
+        return
+    by = dict.fromkeys(list(KERNEL_NAMES) + ["other"], 0.0)
+    for name, _, d in events:
+        key = next((k for k, m in KERNEL_NAMES.items() if m in name),
+                   "other")
+        by[key] += d / 1e6
+    busy = sum(by.values())
+    log(f"[profile] {what} (profiler on): wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms, busy share {busy / wall:.3f}; device ms "
+        + ", ".join(f"{k} {v:.1f}" for k, v in by.items())
+        + f" over {len(events)} device events")
+
+
+@contextlib.contextmanager
+def encdec_counts(counts: dict, visits: dict | None = None):
+    """While inside, count K4's launches by (kind, rows x width) into
+    `counts` ("ubn_norm_layer_4096x1024", ...) and K5's by call ("..._
+    encoder": non-causal over its own positions, "..._cross": non-causal
+    over other positions, "..._decoder": causal).  With `visits`, each K5
+    call also gathers its visited tiles: kind -> [stats launch, main
+    launch, tiles in all], read once at the end (no sync per call)."""
+    import torch
+    from repro_torch.kernels import ops
+    real_fa, real_ubn = ops.flash_attention, ops.ubn_norm
+    dev_visits: dict = {}
+
+    def add(key):
+        counts[key] = counts.get(key, 0) + 1
+
+    def fa(q8, k8, v8, *args, causal, **kw):
+        b, s_, h, _ = q8.shape
+        t, kv = k8.shape[1], k8.shape[2]
+        kind = "decoder" if causal else ("encoder" if s_ == t else "cross")
+        before = ops.LAUNCHES["flash_attention"]
+        if visits is not None:
+            kw["visits"] = torch.zeros(2, dtype=torch.int64,
+                                       device=q8.device)
+        out = real_fa(q8, k8, v8, *args, causal=causal, **kw)
+        if ops.LAUNCHES["flash_attention"] > before:
+            add(f"flash_attention_{kind}")
+            if visits is not None:
+                acc = dev_visits.setdefault(kind, [0, 0])
+                acc[0] = acc[0] + kw["visits"]
+                acc[1] += b * kv * -(-s_ * (h // kv) // 128) * -(-t // 64)
+        return out
+
+    def ubn(x, *args, kind="rms", **kw):
+        before = ops.LAUNCHES["ubn_norm"]
+        out = real_ubn(x, *args, kind=kind, **kw)
+        if ops.LAUNCHES["ubn_norm"] > before:
+            add(f"ubn_norm_{kind}_{x.shape[0]}x{x.shape[1]}")
+        return out
+
+    ops.flash_attention, ops.ubn_norm = fa, ubn
+    try:
+        yield counts
+    finally:
+        ops.flash_attention, ops.ubn_norm = real_fa, real_ubn
+        for kind, (v, tiles) in dev_visits.items():
+            visits[kind] = v.tolist() + [tiles]
+
+
+def encdec_serve(model, launches: dict) -> None:
+    """ENCDEC_LANES requests of ENCDEC_SRC seeded N(0, 1) frames: prefill,
+    then ENCDEC_NEW greedy serve_steps from ENCDEC_START; launches a
+    decode step; the same through the plain versions, whose tokens and
+    first logits must be equal bit for bit."""
+    import torch
+    from repro_torch.kernels import ops
+    a = model.a
+    t_self = ENCDEC_SRC // a.tgt_ratio
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = torch.randn((ENCDEC_LANES, ENCDEC_SRC, a.d_model), generator=g,
+                         device="cuda")
+
+    def run(count: dict | None = None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cache = model.prefill(frames, t_self)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        before = dict(ops.LAUNCHES)
+        tok = torch.full((ENCDEC_LANES,), ENCDEC_START, dtype=torch.int32,
+                         device="cuda")
+        toks, first = [], None
+        with encdec_counts(count) if count is not None \
+                else contextlib.nullcontext():
+            for _ in range(ENCDEC_NEW):
+                cache, lg = model.serve_step(cache, tok)
+                first = lg[:, :a.vocab].cpu() if first is None else first
+                tok = lg[:, :a.vocab].argmax(-1).to(torch.int32)
+                toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        decode = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+        return (torch.stack(toks, 1).cpu(), first, t1 - t0, t2 - t1,
+                decode, cache)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    pre: dict = {}
+    with encdec_counts(pre):
+        model.prefill(frames, t_self)          # warm: K5's scratch, cuBLAS
+    prefill_launches = dict(ops.LAUNCHES)
+    dec: dict = {}
+    toks, first, pre_wall, dec_wall, decode, cache = run(dec)
+    assert [int(p) for p in cache["pos"]] == [ENCDEC_NEW] * ENCDEC_LANES
+    last = toks[:, -1].to(device="cuda", dtype=torch.int32)
+    device_split(lambda: model.serve_step(cache, last),
+                 "enc-dec decode step")
+    del cache
+    device_split(lambda: model.prefill(frames, t_self), "enc-dec prefill")
+    steps = ENCDEC_NEW
+    log(f"[encdec] serve: {ENCDEC_LANES} requests of {ENCDEC_SRC} frames "
+        f"(seeded N(0, 1)), t_self {t_self}, {ENCDEC_NEW} greedy tokens "
+        f"each from token {ENCDEC_START}: prefill {pre_wall:.3f} s, decode "
+        f"{1e3 * dec_wall / steps:.2f} ms a step, "
+        f"{ENCDEC_LANES * steps / dec_wall:.1f} tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[encdec] serve: launches in a prefill "
+        f"{ {k: v for k, v in prefill_launches.items() if v} }, by shape "
+        f"{pre}")
+    log(f"[encdec] serve: launches per decode step "
+        f"{ {k: v / steps for k, v in decode.items() if v} }, K4 by shape "
+        f"{ {k: v / steps for k, v in dec.items()} }")
+    assert decode["paged_attention"] == 0 and decode["page_gather"] == 0, \
+        "enc-dec decode launched K6 or K7"
+    for k in ("qmatmul", "quantize", "ubn_norm"):
+        assert decode[k] > 0, f"enc-dec decode: {k} not launched"
+    for k in ENCDEC_KERNELS:
+        assert prefill_launches[k] > 0, f"enc-dec prefill: {k} not launched"
+    assert bool(torch.isfinite(first).all()), "non-finite logits"
+    assert toks.shape == (ENCDEC_LANES, ENCDEC_NEW) \
+        and int(toks.min()) >= 0 and int(toks.max()) < a.vocab
+    log(f"[encdec] serve: tokens of request 0 {toks[0, :12].tolist()} ...")
+    for k, v in pre.items():
+        launches[f"serve:prefill:{k}"] = v
+    for k, v in dec.items():
+        launches[k] = launches.get(k, 0) + v
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    with ops.plain_reference():
+        ptoks, pfirst, *_ = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before, "the plain run launched a kernel"
+    dist = float((first - pfirst).abs().max())
+    eq = float((toks == ptoks).float().mean())
+    log(f"[encdec] serve: plain versions on the card {time.time() - t0:.1f} "
+        f"s; equal tokens {eq:.3f}, first logits max |kernel - plain| "
+        f"{dist:.3e}")
+    assert eq == 1.0, "enc-dec: the kernels' tokens differ from the plain's"
+    assert dist == 0.0, "enc-dec: first logits differ"
+
+
+def phase_encdec() -> dict:
+    """seamless-m4t-large-v2 at full width and depth (24 + 24 layers):
+    served, then trained ENCDEC_TRAIN_STEPS steps, each against the plain
+    versions.  Returns the launches: per op summed, and K4's and K5's by
+    shape or call."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    t_phase = time.time()
+    cfg = preset("full8")
+    model = build_model(get(ENCDEC), cfg, device="cuda").init(0)
+    a = model.a
+    log(f"[encdec] {a.name} at full width (d={a.d_model}, heads "
+        f"{a.n_heads}/{a.n_kv} x {a.dh}, ffn {a.d_ff}, {a.act}, "
+        f"{a.norm}, vocab {a.vocab} -> {a.vocab_padded}) and depth "
+        f"({a.enc_layers} + {a.dec_layers} layers), "
+        f"{model.n_params() / 1e9:.3f} G fp32 params, random weights (seed "
+        f"0), full8 native; built in {time.time() - t_phase:.1f} s")
+    launches: dict = {}
+    encdec_serve(model, launches)
+    t_tgt = TRAIN_SEQ // a.tgt_ratio
+    task = TokenTask(a.vocab, t_tgt, 1, kind="arith")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = []
+    for i in range(ENCDEC_TRAIN_STEPS + 1):     # the last one is profiled
+        batch = task.batch(i)
+        batch["frames"] = torch.randn((1, TRAIN_SEQ, a.d_model),
+                                      generator=g, device="cuda")
+        batches.append(batch)
+    log(f"[encdec] train: the same model, full depth ({a.enc_layers} + "
+        f"{a.dec_layers} layers), batch 1 x "
+        f"{TRAIN_SEQ} frames (seeded N(0, 1)) and {t_tgt} target tokens "
+        f"(TokenTask arith), lr 0.05")
+    total = train_steps("encdec train", model, cfg, batches,
+                        ENCDEC_KERNELS + ("dgrad", "wgrad"), encdec_counts,
+                        lambda run: device_split(run, "enc-dec train step"))
+    log(f"[encdec] train: K4 and K5 launches in {ENCDEC_TRAIN_STEPS} steps "
+        f"by shape or call "
+        f"{ {k: v for k, v in total.items() if k.startswith(('ubn_norm_', 'flash_attention_'))} }")
+    assert total.get(f"ubn_norm_layer_{TRAIN_SEQ}x{a.d_model}", 0) > 0, \
+        f"enc-dec train: K4 layer at {TRAIN_SEQ} rows never launched"
+    for kind in ("encoder", "cross", "decoder"):
+        assert total.get(f"flash_attention_{kind}", 0) > 0, \
+            f"enc-dec train: K5 {kind} never launched"
+    seen: dict = {}
+    with torch.no_grad(), encdec_counts({}, seen):
+        model.loss(batches[0])
+    for kind, (st_v, mn_v, tiles) in sorted(seen.items()):
+        log(f"[encdec] train: K5 {kind} calls of one forward: tiles visited "
+            f"{st_v} / {tiles} (stats launch), {mn_v} / {tiles} (main)")
+    for kind in ("encoder", "cross"):
+        st_v, mn_v, tiles = seen[kind]
+        assert st_v == mn_v == tiles, f"enc-dec: K5 {kind} skipped a tile"
+    for k, v in total.items():
+        launches[k] = launches.get(k, 0) + v
+    del model
+    torch.cuda.empty_cache()
+    log(f"[encdec] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2885,7 +3229,7 @@ def main() -> int:
     phase_ckpt()
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
                 dense=phase_dense(), moe=phase_moe(), modes=phase_modes(),
-                none={})
+                encdec=phase_encdec(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -9,20 +9,20 @@ from .minitron_4b import CFG as minitron_4b
 from .moonshot_v1_16b_a3b import CFG as moonshot_v1_16b_a3b
 from .phi4_mini_3_8b import CFG as phi4_mini_3_8b
 from .resnets import RESNET18, RESNET34, RESNET50
+from .seamless_m4t_large_v2 import CFG as seamless_m4t_large_v2
 
 ARCHS = {c.name: c for c in [granite_3_8b, granite_34b, phi4_mini_3_8b,
                               minitron_4b, chameleon_34b,
                               granite_moe_1b_a400m, moonshot_v1_16b_a3b,
-                              falcon_mamba_7b, RESNET18, RESNET34,
-                              RESNET50]}
+                              falcon_mamba_7b, seamless_m4t_large_v2,
+                              RESNET18, RESNET34, RESNET50]}
 
 
 def get(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ported: {sorted(ARCHS)}); "
-            "Mamba2, the hybrid and enc-dec families are ROADMAP Queue 1 "
-            "item 4")
+            "Mamba2 and the hybrid family are ROADMAP Queue 1 item 4")
     return ARCHS[name]
 
 

@@ -1,11 +1,12 @@
 """Architecture configuration schema (the fields the ported families read).
 
 Mirrors `repro.configs.base.ArchConfig` for the decoder-only LMs (families
-"lm" and "vlm"), the MoE LMs ("moe"), the Mamba1 SSM and the ResNet: the
-same field names and defaults, `dh`, `d_inner`, `vocab_padded` and
-`reduced()`, so a configuration reads the same in both packages.  Families
-that the port does not build yet (hybrid, enc-dec) keep no fields here,
-nor does the reference's dry-run metadata (`shapes`, `skip_notes`).
+"lm" and "vlm"), the MoE LMs ("moe"), the Mamba1 SSM, the encoder-decoder
+("encdec") and the ResNet: the same field names and defaults, `dh`,
+`d_inner`, `vocab_padded` and `reduced()`, so a configuration reads the
+same in both packages.  The family that the port does not build yet
+(hybrid) keeps no fields here, nor does the reference's dry-run metadata
+(`shapes`, `skip_notes`).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm | vlm | moe | ssm | resnet
+    family: str                  # lm | vlm | moe | ssm | encdec | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -46,6 +47,11 @@ class ArchConfig:
     # (the port's scan is sequential: ops.selective_scan; kept for parity)
     scan_chunk: int = 256
     unroll_scan_chunks: bool = False
+    # enc-dec: encoder and decoder depths, and the target length as a
+    # fraction of the source's (tgt_len = seq_len // tgt_ratio)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    tgt_ratio: int = 4
     # resnet
     block: str = ""              # basic | bottleneck
     stage_sizes: tuple = ()
@@ -74,7 +80,8 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
         2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16;
-        4 experts, top-2, for an MoE; an SSM state of 4; a ResNet keeps
+        4 experts, top-2, for an MoE; an SSM state of 4; 2 encoder and 2
+        decoder layers for an enc-dec; a ResNet keeps
         one block in each of its first two stages, 10 classes and 16 px
         images)."""
         if self.family == "resnet":
@@ -89,4 +96,6 @@ class ArchConfig:
             kw.update(moe_experts=4, moe_topk=2)
         if self.ssm_state:
             kw.update(ssm_state=4, headdim=8)
+        if self.enc_layers:
+            kw.update(enc_layers=2, dec_layers=2)
         return self.replace(name=self.name + "-smoke", **kw)

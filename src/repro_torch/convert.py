@@ -1,14 +1,15 @@
 """Carry the reference package's weights and optimizer state into the port.
 
 `params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`
-(dense or MoE), `ssm_params_from_jax(tree)` that of its `SSMLM.init` and
+(dense or MoE), `ssm_params_from_jax(tree)` that of its `SSMLM.init`,
+`encdec_params_from_jax(tree)` that of its `EncDec.init` and
 `resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
 leaf converted to numpy (the caller does that, so this module needs no
 JAX), and returns the same tree as torch tensors, ready for the port's
 `load_params`.  Both packages keep one layout (stacked (L, ...) layer
-weights for the LM, its `moe` subtree and the SSM; HWIO convolutions,
-(in, classes) fc and the list of stages of block dicts for the ResNet),
-so the conversion is a copy.
+weights for the LM, its `moe` subtree, the SSM and the enc-dec's `enc` and
+`dec`; HWIO convolutions, (in, classes) fc and the list of stages of block
+dicts for the ResNet), so the conversion is a copy.
 
 On the card there is no JAX: the models' `init` draws weights there from a
 torch.Generator by the same formulas, which gives the same distribution
@@ -49,6 +50,13 @@ def ssm_params_from_jax(tree: dict, device="cpu") -> dict:
                                 for k in ssm.LAYER_KEYS},
                      "final_norm": tree["final_norm"],
                      "lm_head": tree["lm_head"]}, device)
+
+
+def encdec_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The reference EncDec's tree ({"enc", "dec": stacked (L, ...) leaves,
+    "embed", "final_ln_g", "final_ln_b", "lm_head"}) of numpy arrays -> the
+    same tree of fp32 torch tensors on `device`."""
+    return _tensors(tree, device)
 
 
 def resnet_params_from_jax(tree: dict, device="cpu") -> dict:

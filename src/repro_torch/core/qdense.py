@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -111,7 +112,33 @@ def _dsilu(x: Tensor) -> Tensor:
     return sg * (1.0 + x * (1.0 - sg))
 
 
+# jax.nn.gelu's approximate=True constants, as fp32 values
+_GELU_C = float(np.float32(np.sqrt(2 / np.pi)))
+_GELU_A = float(np.float32(0.044715))
+
+
+def _gelu_tanh(x: Tensor) -> Tensor:
+    return torch.tanh(_GELU_C * (x + _GELU_A * (x * (x * x))))
+
+
+def _gelu(x: Tensor) -> Tensor:
+    # jax.nn.gelu (approximate=True) in its own order:
+    # x * (0.5 * (1 + tanh(c * (x + a * x^3)))), x^3 as x * (x * x)
+    # (F.gelu(approximate="tanh") rounds differently; XLA's CPU build
+    # fuses x + a * x^3 into one FMA and its tanh differs by a few ulps)
+    return x * (0.5 * (1.0 + _gelu_tanh(x)))
+
+
+def _dgelu(x: Tensor) -> Tensor:
+    # jax.grad of that formula, written out in the order its jaxpr takes
+    h = _gelu_tanh(x)
+    q = (0.5 * x) * (1.0 - h)
+    t = _GELU_C * (q + q * h)
+    return (0.5 * (1.0 + h) + t) + (_GELU_A * t) * (3.0 * (x * x))
+
+
 _ACT = {"silu": (_silu, _dsilu),
+        "gelu": (_gelu, _dgelu),
         "relu": (torch.relu, lambda x: (x > 0).float()),
         "none": (lambda x: x, None)}
 

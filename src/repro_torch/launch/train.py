@@ -40,6 +40,9 @@ restores the latest checkpoint there and continues from its step, which
 gives the same weights as an unbroken run, since the stochastic-rounding
 bits depend on the step index alone.  `make_train_step(..., n_micro=N)`
 accumulates the gradients of N microbatches, as the reference's does.
+The enc-dec (seamless-m4t-large-v2) trains through `make_train_step` on
+{"frames", "tokens", "labels"} batches; the CLI, like the reference's,
+has no frames task for it.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the sharded step and the elastic runtime (--dp, --tp, --elastic, ...).
@@ -71,14 +74,15 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
                     mom: float = 0.75, dr_bits: int | None = None,
                     n_micro: int = 1):
     """The training step for `model` (an LMTransformer, dense or MoE, an
-    SSMLM or a ResNet: a module holding its parameters, with
+    SSMLM, an EncDec or a ResNet: a module holding its parameters, with
     `loss(batch) -> (loss, metrics)`, `params()` and `labels()`):
     step(opt_state, batch, step_idx) -> the loss's metrics ({"loss"}, and
     "acc" for the ResNet) as 0-d tensors, updating the model's parameters
     and opt_state.acc IN PLACE.
 
     dr_bits: CQ range width for this step (None = qcfg.k_gw, the schedule
-    base).  n_micro > 1 splits the batch's leading dim into n_micro equal
+    base).  n_micro > 1 splits the leading dim of every batch entry (the
+    enc-dec's "frames", "tokens" and "labels" alike) into n_micro equal
     microbatches run one after another (each graph freed before the next,
     so activation memory scales down; BN statistics per microbatch) and
     takes the mean of their gradients, summed in fp32 from zeros in

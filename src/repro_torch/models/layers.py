@@ -3,8 +3,8 @@ training and monolithic prefill (native: the fused flash kernel forward,
 autograd of the plain chunked body backward; sim and fp32: the plain
 chunked body), int8-KV attention for serving (chunked
 prefill pages, and decode against the pages fused or gathered, or against
-a dense cache), the int8 KV writes, SwiGLU, the norm and the loss's target
-gather.
+a dense cache), the int8 KV writes, SwiGLU, the enc-dec's MLP, the norm and
+the loss's target gather.
 
 Port of `repro.models.layers`, with the reference's layouts at every
 public function: activations (B, S, H, dh), KV pages (P, page, KV, dh)
@@ -389,6 +389,13 @@ def swiglu(cfg: QConfig, x, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
     gate = qact(cfg, act, qdense(cfg, x, w_gate))
     up = qact(cfg, "none", qdense(cfg, x, w_up))
     h = qact(cfg, "none", gate * up)
+    return qdense(cfg, h, w_down)
+
+
+def mlp(cfg: QConfig, x, w_up: Tensor, w_down: Tensor,
+        act: str = "gelu") -> Tensor:
+    """The enc-dec's two-matrix MLP: Q_A(act(x @ w_up)) @ w_down."""
+    h = qact(cfg, act, qdense(cfg, x, w_up))
     return qdense(cfg, h, w_down)
 
 

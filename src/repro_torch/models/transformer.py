@@ -45,8 +45,10 @@ class LMTransformer(nn.Module):
         super().__init__()
         if acfg.family not in ("lm", "vlm", "moe"):
             raise NotImplementedError(
-                f"family {acfg.family!r} is not ported yet (ROADMAP Queue 1 "
-                "item 4)")
+                f"LMTransformer does not build family {acfg.family!r} "
+                "(build_model gives 'ssm' SSMLM, 'encdec' EncDec and "
+                "'resnet' ResNet); Mamba2 and the hybrid are not ported "
+                "yet (ROADMAP Queue 1 item 4)")
         qcfg.validate()
         self.a, self.q = acfg, qcfg
         self.device = resolve_device(device)

@@ -22,8 +22,10 @@ prompts onto common page-aligned prefixes (what the radix cache exploits),
 is the sequential one-request-at-a-time baseline.  Every LM the port
 builds serves through them: the dense LMs, the MoE LMs
 (granite-moe-1b-a400m, moonshot-v1-16b-a3b; decode routes dropless) and
-falcon-mamba-7b.  The engine runs on the card unless `device="cpu"` is
-passed.  Tensor-parallel serving and the
+falcon-mamba-7b.  The enc-dec (seamless-m4t-large-v2) is not an engine
+model, here as in the reference: `make_engine` refuses it, and it serves
+through `EncDec.prefill` / `serve_step`.  The engine runs on the card
+unless `device="cpu"` is passed.  Tensor-parallel serving and the
 replica router are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
@@ -57,6 +59,11 @@ def make_engine(arch: str, *, mode: str = "native", preset_name: str = "full8",
             "tensor-parallel serving is not ported yet: ROADMAP Queue 1 "
             "item 5")
     acfg = get(arch)
+    if acfg.family == "encdec":
+        raise NotImplementedError(
+            f"{arch} is an enc-dec: the engine serves decoder-only LMs, as "
+            "the reference's does; serve it through EncDec.prefill(frames, "
+            "t_self) and EncDec.serve_step(cache, tokens)")
     if reduced:
         acfg = acfg.reduced()
     if n_layers is not None:

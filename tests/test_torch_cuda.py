@@ -895,3 +895,59 @@ def test_cuda_qmatmul_moe_expert_shapes(cuda, e, c, d, f, spec):
         want = _int_contract(spec, x, y)
     assert got.shape == tuple(size[i] for i in spec.split("->")[1])
     assert torch.equal(got, want), (spec, e, c, d, f)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_reduced_kernels_equal_plain(cuda):
+    """The enc-dec (seamless-m4t-large-v2.reduced(), heads widened to 32
+    and chunks to 64, which K5 takes) on the kernels against its plain run
+    on the card, from one init: one make_train_step's loss, parameters and
+    accumulator, and prefill + 4 greedy serve_steps' tokens and logits,
+    bit for bit; the kernel run launches K1-K5 (K4 kind "layer", K5 on the
+    encoder's, the decoder's causal and the cross shapes), the plain run
+    none."""
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    acfg = get("seamless-m4t-large-v2").reduced().replace(
+        head_dim=32, q_chunk=64, kv_chunk=64)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    frames = torch.randn((2, 128, 64), generator=g, device=cuda)
+    toks = torch.randint(0, 128, (2, 33), generator=g, device=cuda)
+    batch = {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run():
+        model = build_model(acfg, preset("full8"), device="cuda").init(0)
+        opt = init_momentum(model.params())
+        before = dict(ops.LAUNCHES)
+        loss = float(make_train_step(model, model.q)(opt, batch, 0)["loss"])
+        cache, tok, steps = model.prefill(frames, 32), \
+            torch.zeros(2, dtype=torch.int32, device=cuda), []
+        for _ in range(4):
+            cache, lg = model.serve_step(cache, tok)
+            tok = lg[:, :128].argmax(-1).to(torch.int32)
+            steps.append((tok.cpu(), lg.cpu()))
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+        state = [t.detach().cpu() for t in flatten((model.params(),
+                                                   opt.acc))]
+        return loss, state, steps, ran
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, state, steps, ran = run()
+        with ops.plain_reference():
+            ploss, pstate, psteps, pran = run()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    for k in ("qmatmul", "quantize", "dgrad", "wgrad", "ubn_norm",
+              "flash_attention"):
+        assert ran[k] > 0, k
+    assert not any(pran.values()), pran
+    assert loss == ploss and np.isfinite(loss)
+    assert all(torch.equal(a, b) for a, b in zip(state, pstate))
+    for (t, lg), (pt, plg) in zip(steps, psteps):
+        assert torch.equal(t, pt) and torch.equal(lg, plg)
