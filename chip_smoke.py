@@ -37,7 +37,10 @@ prints no result line:
              SDPA in bf16, and non-causal at the enc-dec's encoder (1 x
              4096 over 4096) and cross (1024 queries over 4096 frames)
              shapes, 16/16 heads of 64, every tile visited, SDPA bf16
-             beside, K7 page_gather with one pool (4 lanes x 128
+             beside, and at every head width from 16 to 128 and zamba2-7b's
+             (32/32 heads of 112: 1 x 4096 causal and a 100-token
+             prefill, SDPA bf16 beside), K7 page_gather with one pool (4
+             lanes x 128
              pages, the unfused decode route's call) and with K and V in
              one launch, head-major (wall time beside device time), K6
              paged_attention at 4 lanes over 512 positions and 16 lanes
@@ -149,7 +152,7 @@ prints no result line:
              heads on 1 KV head, FFN 24576) on a 1 x 4096 sequence, whose
              loss, parameters and accumulator equal the plain run's step.
  10. moe     the MoE LMs at every published width: granite-moe-1b-a400m
-             (32 experts top-8, d 1024, FFN 512) at full depth, 24 layers,
+             (32 experts top-8, d 1024, FFN 512) at 12 of 24 layers,
              and moonshot-v1-16b-a3b (64 experts top-6, d 2048, FFN 1408)
              at 2 of 48 layers, random weights from seed 0: greedy
              requests of 37 and 100 tokens, 8 new tokens each, on 4 lanes
@@ -199,6 +202,25 @@ prints no result line:
              4096 and 1024 rows, K5 on the encoder's, the decoder's and
              the cross shapes), K5's visited tiles on one forward (every
              tile of the non-causal calls), and step 1 through the plain
+             versions, whose loss, parameters and accumulator must equal
+             the kernel run's.
+ 13. hybrid  zamba2-7b (Mamba2 layers of d_model 3584, d_inner 7168 in 112
+             SSD heads of 64, ssm_state 64, and one shared attention + MLP
+             block of 32/32 heads of 112 and FFN 14336 after every 6) at
+             full width, 13 of 81 layers (two groups of 6 and a 1-layer
+             tail, so the shared block runs twice and the tail runs),
+             random weights from seed 0: the serve phase's 4 greedy
+             requests on 4 lanes, page 16, on monolithic prefill (K5 at dh
+             112, K6 in decode; decode ms a step, TTFT, tokens/s, launches
+             per decode step) against the plain versions' run, tokens and
+             first logits equal; then chunked prefill with the radix cache
+             over the first two requests and one more sharing the first
+             prompt's first 4 pages (a hit, restoring the Mamba2 state
+             snapshot): tokens and every lane's Mamba2 slot equal to the
+             run without the cache, tokens equal to the plain run's; then 3
+             make_train_step steps on 1 x 4096 TokenTask ("arith") tokens
+             (the step's split, peak memory, K4 and K5 launches by shape,
+             a profile of one more step) and step 1 through the plain
              versions, whose loss, parameters and accumulator must equal
              the kernel run's.
 
@@ -850,6 +872,7 @@ def kernel_rows() -> None:
                     f"{device_ms(lib):.4f} ms")
 
     encdec_kernel_rows(i8, f32, sms)
+    hybrid_kernel_rows(i8)
 
     # ---- K4 ubn_norm (batch): ResNet-50's BNs at batch 32 flatten NHWC to
     # (N*H*W, C): every shape of a step (RESNET50_BN), on both routes (a
@@ -1274,6 +1297,69 @@ def encdec_kernel_rows(i8, f32, sms: int) -> None:
         del q8, k8, v8, got, want
 
 
+def hybrid_kernel_rows(i8) -> None:
+    """K5 at zamba2-7b's head width 112 (dh padded to 128 bytes for q.k,
+    p.v at 128 with the columns past 112 dropped): bitwise against the
+    plain version at every dh from 16 to 128 on a small shape, then the
+    rows at the hybrid phase's training shape (1 x 4096, causal, 32/32
+    heads of 112) and its monolithic prefill of 100 tokens (one ragged kv
+    chunk), SDPA bf16 beside each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    log("[kernels] K5 flash_attention at head widths 16 .. 128 and at "
+        "zamba2-7b's 32/32 heads of 112 (bitwise)")
+    scs = [torch.tensor(v, device=dev) for v in (2.0 ** -6, 2.0 ** -7,
+                                                  2.0 ** -7)]
+    pos = torch.arange(4096, device=dev, dtype=torch.int32)
+    for dh in range(16, 129, 16):
+        for causal in (True, False):
+            ax = (i8(1, 256, 4, dh), i8(1, 256, 2, dh), i8(1, 256, 2, dh),
+                  pos[:256], pos[:256], (pos[:256] < 230).to(torch.int32),
+                  *scs)
+            kw = dict(causal=causal, sm_scale=dh ** -0.5, q_chunk=128,
+                      kv_chunk=64)
+            assert torch.equal(ops.flash_attention(*ax, **kw),
+                               ref.flash_attention(*ax, **kw)), \
+                f"flash_attention dh {dh} causal={causal} differs"
+    log("  bitwise at dh 16, 32, ..., 128, causal and not, 4 query on 2 KV "
+        "heads, 26 padded keys")
+    h, dh = 32, 112
+    sdpa = F.scaled_dot_product_attention
+    for name, t, key in (("flash_attention_dh112_train", 4096,
+                          "flash_attention_train"),
+                         ("flash_attention_dh112_prefill", 100,
+                          "flash_attention_prefill")):
+        qc, kc = min(1024, t), min(512, t)
+        q8, k8, v8 = i8(1, t, h, dh), i8(1, t, h, dh), i8(1, t, h, dh)
+        args = (q8, k8, v8, pos[:t], pos[:t], torch.ones_like(pos[:t]),
+                *scs)
+        kw = dict(causal=True, sm_scale=dh ** -0.5, q_chunk=qc, kv_chunk=kc)
+        before = ops.LAUNCHES["flash_attention"]
+        got = ops.flash_attention(*args, **kw)
+        assert ops.LAUNCHES["flash_attention"] == before + 1, \
+            f"{name}: K5 did not launch at dh 112"
+        want = ref.flash_attention(*args, **kw)
+        assert torch.equal(got, want), f"{name} differs"
+        qb, kb_, vb = ((x.float() * c).to(torch.bfloat16).transpose(1, 2)
+                       for x, c in zip((q8, k8, v8), scs))
+        record(name, "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/paged_attention.py:304",
+               time_ms(lambda: ops.flash_attention(*args, **kw), 5),
+               time_ms(lambda: ref.flash_attention(*args, **kw), 2),
+               3 * q8.numel() + 4 * got.numel(),
+               2 * 2 * (t * (t + 1) // 2) * h * dh, INT8_OPS,
+               time_ms(lambda: sdpa(qb, kb_, vb, is_causal=True), 5),
+               max_err(got, want), ("hybrid", key),
+               device_ms=device_ms(lambda: ops.flash_attention(*args, **kw),
+                                   20),
+               note=f"1 x {t}, causal, 32/32 heads of 112 (zamba2-7b's "
+                    f"shared attention), kv_chunk {kc}; library SDPA bf16 "
+                    f"causal")
+        del q8, k8, v8, got, want
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 7: serve granite-3-8b and falcon-mamba-7b at full width,
 # 4 layers
@@ -1307,6 +1393,12 @@ def describe(model, depth: int) -> str:
         widths = (f"d_model {a.d_model}, d_inner {a.d_inner}, ssm_state "
                   f"{a.ssm_state}, d_conv {a.d_conv}, dt rank "
                   f"{max(a.d_model // 16, 1)}")
+    elif a.family == "hybrid":
+        widths = (f"d_model {a.d_model}, d_inner {a.d_inner} "
+                  f"({a.d_inner // a.headdim} SSD heads of {a.headdim}), "
+                  f"ssm_state {a.ssm_state}, d_conv {a.d_conv}; a shared "
+                  f"block after every {a.attn_every} layers: heads "
+                  f"{a.n_heads}/{a.n_kv} x {a.dh}, ffn {a.d_ff}")
     else:
         widths = (f"d={a.d_model}, heads {a.n_heads}/{a.n_kv} x {a.dh}, "
                   f"ffn {a.d_ff}")
@@ -1323,11 +1415,14 @@ def first_logits(model, prompt):
     from repro_torch.serving.pool import PagePool
     a = model.a
     tok = torch.as_tensor(prompt[:16], device="cuda")
-    if model.decode_state_spec()["kv_layers"]:
-        pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
-        tab = torch.arange(1, 33, device="cuda", dtype=torch.int32)[None]
-        return model.prefill_page(pool.view(tab), tok, 0)[0, :a.vocab]
-    return model.prefill_page(model.init_slots(1), tok)[0][0, :a.vocab]
+    spec, view = model.decode_state_spec(), None
+    if spec["kv_layers"]:
+        pool = PagePool(40, 16, spec["kv_layers"], a.n_kv, a.dh,
+                        device="cuda")
+        view = pool.view(torch.arange(1, 33, device="cuda",
+                                      dtype=torch.int32)[None])
+    return model.prefill_page(model.init_slots(1), view, tok,
+                              0)[0][0, :a.vocab]
 
 
 def count_decode(eng) -> dict:
@@ -1478,8 +1573,8 @@ def phase_engine(tag: str, arch: str, depth: int, kernels) -> dict:
     else:       # one 16-token page of a lane from the zero dense slot
         tok = torch.as_tensor(prompts[2][:16], device="cuda")
         slots = model.init_slots(1)
-        model.prefill_page(slots, tok)
-        with_profile(lambda: model.prefill_page(slots, tok),
+        model.prefill_page(slots, None, tok, 0)
+        with_profile(lambda: model.prefill_page(slots, None, tok, 0),
                      "prefill page (16 tokens, zero slot)",
                      {"K9 (sscan_*)": "sscan_"})
     if not eng.paged:   # the dense family's monolithic admission (K9 over
@@ -1660,17 +1755,12 @@ def profile_decode(eng, steps: int = 3) -> None:
     from torch.profiler import ProfilerActivity, profile
     lanes = eng.max_lanes
     z = torch.zeros((lanes,), dtype=torch.int32, device="cuda")
-    if eng.paged:
-        view = eng.pool.view(torch.zeros((lanes, eng.n_blocks),
-                                         dtype=torch.int32, device="cuda"))
+    view = eng.pool.view(torch.zeros((lanes, eng.n_blocks), dtype=torch.int32,
+                                     device="cuda")) if eng.paged else None
+    slots = dict(eng.model.init_slots(lanes), pos=z)
 
-        def step():
-            eng.model.paged_decode_step(view, z, z)
-    else:
-        slots = dict(eng.model.init_slots(lanes), pos=z)
-
-        def step():
-            eng.model.paged_decode_step(slots, z)
+    def step():
+        eng.model.paged_decode_step(slots, view, z)
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1683,7 +1773,7 @@ def profile_decode(eng, steps: int = 3) -> None:
     groups = {"K4 rows (ubn_rows)": "ubn_rows"}
     if eng.paged:
         groups["K6 (pa_scores, pa_exp, pa_out)"] = "pa_"
-    else:
+    if eng.dense and eng.model.a.ssm_kind == "mamba1":
         groups["K9 (sscan_*)"] = "sscan_"
     report_profile(prof, wall_us, steps, "decode step", groups)
 
@@ -1697,19 +1787,20 @@ def profile_prefill(model, prompt) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.serving.pool import PagePool
-    a = model.a
-    pool = PagePool(40, 16, a.n_layers, a.n_kv, a.dh, device="cuda")
+    a, kvl = model.a, model.decode_state_spec()["kv_layers"]
+    pool = PagePool(40, 16, kvl, a.n_kv, a.dh, device="cuda")
     view = pool.view(torch.arange(1, 33, device="cuda",
                                   dtype=torch.int32)[None])
     tok = torch.as_tensor(prompt[:16], device="cuda")
-    model.prefill_page(view, tok, 0)
+    dense = model.init_slots(1)
+    model.prefill_page(dense, view, tok, 0)
     torch.cuda.synchronize()
     before, counts = dict(ops.LAUNCHES), {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
             k1_by_contraction(counts, ranges=True):
         t0 = time.time()
-        model.prefill_page(view, tok, 0)
+        model.prefill_page(dense, view, tok, 0)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.time() - t0)
     gathers = ops.LAUNCHES["page_gather"] - before["page_gather"]
@@ -1723,12 +1814,12 @@ def profile_prefill(model, prompt) -> None:
             parent = parent.cpu_parent
         inside += parent is not None
     log(f"[profile] prefill page (16 tokens, 32 pages a lane): page_gather "
-        f"launches {gathers} ({a.n_layers} layers), K1 launches by "
+        f"launches {gathers} ({kvl} attention layers), K1 launches by "
         f"contraction {counts}; aten::copy_ inside the contractions "
         f"{inside} (of {copies} in the page)")
     report_profile(prof, wall_us, 1, "prefill page",
                    {"K1 (qmm_*)": "qmm_", "K7 (page_gather*)": "page_gather"})
-    assert gathers == a.n_layers, "prefill page: not one K7 launch a layer"
+    assert gathers == kvl, "prefill page: not one K7 launch a layer"
     assert inside == 0, "prefill page: an operand of a contraction was copied"
 
 
@@ -2057,10 +2148,12 @@ def phase_dense() -> dict:
 # ---------------------------------------------------------------------------
 
 # (name, short name, published depth, the depth served and trained):
-# granite-moe at full depth; moonshot at 2 of 48 layers (0.57 G parameters
-# a layer: its 28 G at full depth do not fit one card in fp32, let alone
-# with the step's gradient and accumulator)
-MOE = (("granite-moe-1b-a400m", "granite", 24, 24),
+# granite-moe at 12 of 24 layers (its full depth took some 180 s of the
+# whole run on a slow host, whose limit the hybrid phase approached);
+# moonshot at 2 of 48 layers (0.57 G parameters a layer: its 28 G at full
+# depth do not fit one card in fp32, let alone with the step's gradient
+# and accumulator)
+MOE = (("granite-moe-1b-a400m", "granite", 24, 12),
        ("moonshot-v1-16b-a3b", "moonshot", 48, 2))
 MOE_PROMPT_LENS = (37, 100)
 MOE_NEW = 8
@@ -2330,7 +2423,7 @@ def moe_train(tag: str, name: str, short: str, full: int, depth: int,
 
 
 def phase_moe() -> dict:
-    """granite-moe-1b-a400m (full depth) and moonshot-v1-16b-a3b (2
+    """granite-moe-1b-a400m (12 of 24 layers) and moonshot-v1-16b-a3b (2
     layers) at full width: served and trained against the plain versions.
     Returns the launches: per op summed, and K1's expert contractions by
     model:run:contraction."""
@@ -2990,11 +3083,12 @@ def device_split(fn, what: str) -> None:
 
 
 @contextlib.contextmanager
-def encdec_counts(counts: dict, visits: dict | None = None):
+def norm_attn_counts(counts: dict, visits: dict | None = None):
     """While inside, count K4's launches by (kind, rows x width) into
     `counts` ("ubn_norm_layer_4096x1024", ...) and K5's by call ("..._
     encoder": non-causal over its own positions, "..._cross": non-causal
-    over other positions, "..._decoder": causal).  With `visits`, each K5
+    over other positions, "..._decoder": causal) and by head width
+    ("flash_attention_dh112", ...).  With `visits`, each K5
     call also gathers its visited tiles: kind -> [stats launch, main
     launch, tiles in all], read once at the end (no sync per call)."""
     import torch
@@ -3016,6 +3110,7 @@ def encdec_counts(counts: dict, visits: dict | None = None):
         out = real_fa(q8, k8, v8, *args, causal=causal, **kw)
         if ops.LAUNCHES["flash_attention"] > before:
             add(f"flash_attention_{kind}")
+            add(f"flash_attention_dh{q8.shape[3]}")
             if visits is not None:
                 acc = dev_visits.setdefault(kind, [0, 0])
                 acc[0] = acc[0] + kw["visits"]
@@ -3061,7 +3156,7 @@ def encdec_serve(model, launches: dict) -> None:
         tok = torch.full((ENCDEC_LANES,), ENCDEC_START, dtype=torch.int32,
                          device="cuda")
         toks, first = [], None
-        with encdec_counts(count) if count is not None \
+        with norm_attn_counts(count) if count is not None \
                 else contextlib.nullcontext():
             for _ in range(ENCDEC_NEW):
                 cache, lg = model.serve_step(cache, tok)
@@ -3077,7 +3172,7 @@ def encdec_serve(model, launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     pre: dict = {}
-    with encdec_counts(pre):
+    with norm_attn_counts(pre):
         model.prefill(frames, t_self)          # warm: K5's scratch, cuBLAS
     prefill_launches = dict(ops.LAUNCHES)
     dec: dict = {}
@@ -3166,7 +3261,7 @@ def phase_encdec() -> dict:
         f"{TRAIN_SEQ} frames (seeded N(0, 1)) and {t_tgt} target tokens "
         f"(TokenTask arith), lr 0.05")
     total = train_steps("encdec train", model, cfg, batches,
-                        ENCDEC_KERNELS + ("dgrad", "wgrad"), encdec_counts,
+                        ENCDEC_KERNELS + ("dgrad", "wgrad"), norm_attn_counts,
                         lambda run: device_split(run, "enc-dec train step"))
     log(f"[encdec] train: K4 and K5 launches in {ENCDEC_TRAIN_STEPS} steps "
         f"by shape or call "
@@ -3177,7 +3272,7 @@ def phase_encdec() -> dict:
         assert total.get(f"flash_attention_{kind}", 0) > 0, \
             f"enc-dec train: K5 {kind} never launched"
     seen: dict = {}
-    with torch.no_grad(), encdec_counts({}, seen):
+    with torch.no_grad(), norm_attn_counts({}, seen):
         model.loss(batches[0])
     for kind, (st_v, mn_v, tiles) in sorted(seen.items()):
         log(f"[encdec] train: K5 {kind} calls of one forward: tiles visited "
@@ -3190,6 +3285,193 @@ def phase_encdec() -> dict:
     del model
     torch.cuda.empty_cache()
     log(f"[encdec] phase {time.time() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the hybrid zamba2-7b at full width, 13 of 81 layers
+# ---------------------------------------------------------------------------
+
+HYBRID = "zamba2-7b"
+HYBRID_FULL = 81
+HYBRID_DEPTH = 13         # two groups of 6 Mamba2 layers + a 1-layer tail
+HYBRID_NEW = 16
+HYBRID_KW = dict(max_lanes=4, page_size=16, max_ctx=512)
+HYBRID_TRAIN_STEPS = 3
+HYBRID_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention",
+                  "paged_attention")
+HYBRID_CHUNK_KERNELS = ("qmatmul", "quantize", "ubn_norm", "page_gather",
+                        "paged_attention")
+
+
+def hybrid_serve(model, prompts, launches: dict) -> None:
+    """PROMPT_LENS greedy through the engine on monolithic prefill (K5 at
+    dh 112, K6 in decode) against the plain versions' run, and the first
+    logits of each prompt; then chunked prefill with the radix cache: the
+    first two requests and one more that shares the first prompt's first
+    4 pages, which must hit the cache, against the run without the cache
+    (tokens and every lane's dense slot equal) and the plain versions'
+    run with it (tokens equal)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine
+    a = model.a
+    eng = Engine(model, **HYBRID_KW)
+    decode = count_decode(eng)
+    k45: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    with norm_attn_counts(k45):
+        for p in prompts:
+            eng.submit(p, HYBRID_NEW)
+        out = eng.drain()
+    toks = [out[i] for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(ops.LAUNCHES)
+    met = eng.metrics()
+    steps = max(met["decode_steps"], 1)
+    log(f"[hybrid] serve (monolithic): {len(prompts)} requests, prompts "
+        f"{PROMPT_LENS}, {HYBRID_NEW} new tokens each: wall {wall:.3f} s, "
+        f"TTFT mean {1e3 * met['ttft_mean_s']:.1f} ms, decode "
+        f"{1e3 * met['decode_wall_s'] / steps:.2f} ms/step over "
+        f"{met['decode_steps']} steps, {met['decode_tok_s']:.1f} tokens/s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+    ran = {k: v for k, v in counts.items() if v}
+    log(f"[hybrid] serve: launches {ran}; per decode step "
+        f"{ {k: v / steps for k, v in decode.items() if v} }; K4 and K5 by "
+        f"shape {k45}")
+    for k in HYBRID_KERNELS:
+        assert counts[k] > 0, f"hybrid serve: kernel {k} never launched"
+    assert decode["paged_attention"] > 0 and decode["flash_attention"] == 0
+    assert k45.get("flash_attention_dh112", 0) == counts["flash_attention"],\
+        "hybrid serve: a K5 launch not at dh 112"
+    for t in toks:
+        assert len(t) == HYBRID_NEW and all(0 <= x < a.vocab for x in t)
+    launches["flash_attention_prefill"] = counts["flash_attention"]
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    kernels_vs_plain("hybrid", "greedy (monolithic)", model, HYBRID_KW,
+                     prompts, toks=toks)
+    for p in prompts:
+        tok = torch.as_tensor(p[None], device="cuda")
+        lk = model.prefill(tok, len(p) + HYBRID_NEW)[1][0, :a.vocab]
+        with ops.plain_reference():
+            lp = model.prefill(tok, len(p) + HYBRID_NEW)[1][0, :a.vocab]
+        dist = float((lk - lp).abs().max())
+        log(f"[hybrid] first logits of a {len(p)}-token prompt "
+            f"(monolithic): max |kernel - plain| {dist:.3e}, argmax "
+            f"{int(lk.argmax())} vs {int(lp.argmax())}")
+        assert bool(torch.isfinite(lk).all()), "non-finite logits"
+        assert dist == 0.0, "hybrid: first logits differ"
+    last = torch.as_tensor([t[-1] for t in toks], device="cuda")
+    device_split(lambda: model.paged_decode_step(
+        dict(eng.slots, pos=torch.zeros_like(eng.slots["pos"])),
+        eng.pool.view(torch.zeros_like(torch.as_tensor(eng.table,
+                                                       device="cuda"))),
+        last), "hybrid decode step (all lanes on the trash page)")
+    del eng
+
+    # chunked prefill and the radix cache: the first two requests
+    # together, then a prompt sharing the first prompt's first 4 pages (64
+    # tokens)
+    page = HYBRID_KW["page_size"]
+    extra = np.concatenate([prompts[0][:4 * page], prompts[1]])
+
+    def run(radix: bool):
+        e = Engine(model, prefill_mode="chunked", radix_cache=radix,
+                   **HYBRID_KW)
+        got = _serve(e, prompts[:2])
+        rid = e.submit(extra, HYBRID_NEW)
+        got.append(e.drain()[rid])
+        torch.cuda.synchronize()
+        return got, e
+
+    before = dict(ops.LAUNCHES)
+    t0 = time.time()
+    ctoks, ceng = run(True)
+    ran = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v > before[k]}
+    m = ceng.metrics()
+    log(f"[hybrid] serve (chunked, radix cache on): wall "
+        f"{time.time() - t0:.3f} s, TTFT mean {1e3 * m['ttft_mean_s']:.1f} "
+        f"ms, decode {1e3 * m['decode_wall_s'] / max(m['decode_steps'], 1):.2f}"
+        f" ms/step; radix {m['radix']}; launches {ran}")
+    for k in HYBRID_CHUNK_KERNELS:
+        assert ran.get(k, 0) > 0, f"hybrid chunked: kernel {k} never launched"
+    assert m["radix"]["hit_pages"] >= 4, "hybrid: the shared prefix missed"
+    for k, v in ran.items():
+        launches[k] = launches.get(k, 0) + v
+    otoks, oeng = run(False)
+    same_slots = all(torch.equal(ceng.slots[k], oeng.slots[k])
+                     for k in ("m_conv", "m_h"))
+    log(f"[hybrid] radix cache off: tokens equal {otoks == ctoks}, the "
+        f"request served through the hit {ctoks[-1][:8]} ...; every lane's "
+        f"Mamba2 slot equal {same_slots}")
+    assert otoks == ctoks, "hybrid: radix hit tokens differ from recompute"
+    assert same_slots, "hybrid: radix hit dense state differs"
+    del ceng, oeng
+    before = dict(ops.LAUNCHES)
+    with ops.plain_reference():
+        ptoks, _ = run(True)
+    assert ops.LAUNCHES == before, "the plain run launched a kernel"
+    log(f"[hybrid] chunked + radix through the plain versions: tokens equal "
+        f"{ptoks == ctoks}")
+    assert ptoks == ctoks, "hybrid chunked: kernels' tokens differ"
+    lk = first_logits(model, prompts[1])
+    with ops.plain_reference():
+        lp = first_logits(model, prompts[1])
+    dist = float((lk - lp).abs().max())
+    log(f"[hybrid] first logits of a prefill page (chunked): max |kernel - "
+        f"plain| {dist:.3e}")
+    assert bool(torch.isfinite(lk).all()) and dist == 0.0, \
+        "hybrid: chunked first logits differ"
+
+
+def phase_hybrid() -> dict:
+    """zamba2-7b at full width, HYBRID_DEPTH of 81 layers: served, then
+    trained HYBRID_TRAIN_STEPS steps, each against the plain versions.
+    Returns the launches: per op summed, K5's by call and head width and
+    K4's by shape, and "flash_attention_train" / "..._prefill"."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.models import build_model
+    t_phase = time.time()
+    cfg = preset("full8")
+    model = build_model(get(HYBRID).replace(n_layers=HYBRID_DEPTH), cfg,
+                        device="cuda").init(0)
+    a = model.a
+    log(f"[hybrid] {describe(model, HYBRID_FULL)} ({model.n_groups} "
+        f"applications of the shared block, a tail of {model.tail}), full8 "
+        f"native; engine {HYBRID_KW}; built in {time.time() - t_phase:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, a.vocab, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    launches: dict = {}
+    hybrid_serve(model, prompts, launches)
+    task = TokenTask(a.vocab, TRAIN_SEQ, 1, kind="arith")
+    log(f"[hybrid] train: the same model, batch 1 x {TRAIN_SEQ} tokens "
+        f"(TokenTask arith), lr 0.05")
+    total = train_steps("hybrid train", model, cfg,
+                        [task.batch(i) for i in range(HYBRID_TRAIN_STEPS + 1)],
+                        TRAIN_KERNELS, norm_attn_counts,
+                        lambda run: device_split(run, "hybrid train step"))
+    log(f"[hybrid] train: K4 and K5 launches in {HYBRID_TRAIN_STEPS} steps by "
+        f"shape or call "
+        f"{ {k: v for k, v in total.items() if k.startswith(('ubn_norm_', 'flash_attention_'))} }")
+    assert total.get("flash_attention_dh112", 0) == total["flash_attention"] \
+        > 0, "hybrid train: K5 not launched at dh 112"
+    launches["flash_attention_train"] = total["flash_attention"]
+    for k, v in total.items():
+        if k != "flash_attention":
+            launches[k] = launches.get(k, 0) + v
+    del model
+    torch.cuda.empty_cache()
+    log(f"[hybrid] phase {time.time() - t_phase:.1f} s")
     return launches
 
 
@@ -3229,7 +3511,7 @@ def main() -> int:
     phase_ckpt()
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
                 dense=phase_dense(), moe=phase_moe(), modes=phase_modes(),
-                encdec=phase_encdec(), none={})
+                encdec=phase_encdec(), hybrid=phase_hybrid(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -1,12 +1,11 @@
 """Architecture configuration schema (the fields the ported families read).
 
 Mirrors `repro.configs.base.ArchConfig` for the decoder-only LMs (families
-"lm" and "vlm"), the MoE LMs ("moe"), the Mamba1 SSM, the encoder-decoder
-("encdec") and the ResNet: the same field names and defaults, `dh`,
-`d_inner`, `vocab_padded` and `reduced()`, so a configuration reads the
-same in both packages.  The family that the port does not build yet
-(hybrid) keeps no fields here, nor does the reference's dry-run metadata
-(`shapes`, `skip_notes`).
+"lm" and "vlm"), the MoE LMs ("moe"), the Mamba1 SSM, the Mamba2 hybrid
+("hybrid"), the encoder-decoder ("encdec") and the ResNet: the same field
+names and defaults, `dh`, `d_inner`, `vocab_padded` and `reduced()`, so a
+configuration reads the same in both packages.  The reference's dry-run
+metadata (`shapes`, `skip_notes`) is not kept.
 """
 from __future__ import annotations
 
@@ -17,7 +16,8 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # lm | vlm | moe | ssm | encdec | resnet
+    family: str                  # lm | vlm | moe | ssm | hybrid | encdec
+                                 # | resnet
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -37,16 +37,21 @@ class ArchConfig:
     # of the flash kernel (each per-chunk decomposition's amax spans one)
     q_chunk: int = 1024
     kv_chunk: int = 512
-    # SSM (mamba1; mamba2's headdim is kept for the reference's reduced())
+    # SSM (mamba1, and mamba2: SSD heads of `headdim` channels)
     ssm_state: int = 0
     ssm_kind: str = ""           # mamba1 | mamba2
     d_conv: int = 4
     expand: int = 2
     headdim: int = 64
-    # SSM sequence-chunk size of the reference's chunked associative scan
-    # (the port's scan is sequential: ops.selective_scan; kept for parity)
+    # SSM sequence chunk: Mamba2's SSD chunk scan runs over chunks of it;
+    # Mamba1's is the reference's associative-scan chunk (the port's Mamba1
+    # scan is sequential, ops.selective_scan, so there it is kept for
+    # parity), as is unroll_scan_chunks (a lax.scan option)
     scan_chunk: int = 256
     unroll_scan_chunks: bool = False
+    # hybrid (zamba2): one shared attention block after every `attn_every`
+    # Mamba2 layers
+    attn_every: int = 0
     # enc-dec: encoder and decoder depths, and the target length as a
     # fraction of the source's (tgt_len = seq_len // tgt_ratio)
     enc_layers: int = 0
@@ -80,8 +85,9 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes:
         2 layers, width 64, 4 heads / 2 KV heads of width 16, chunks 16;
-        4 experts, top-2, for an MoE; an SSM state of 4; 2 encoder and 2
-        decoder layers for an enc-dec; a ResNet keeps
+        4 experts, top-2, for an MoE; an SSM state of 4 and SSD heads of 8;
+        a shared block after every layer of 2 for the hybrid; 2 encoder and
+        2 decoder layers for an enc-dec; a ResNet keeps
         one block in each of its first two stages, 10 classes and 16 px
         images)."""
         if self.family == "resnet":
@@ -96,6 +102,8 @@ class ArchConfig:
             kw.update(moe_experts=4, moe_topk=2)
         if self.ssm_state:
             kw.update(ssm_state=4, headdim=8)
+        if self.attn_every:
+            kw.update(attn_every=1, n_layers=2)
         if self.enc_layers:
             kw.update(enc_layers=2, dec_layers=2)
         return self.replace(name=self.name + "-smoke", **kw)

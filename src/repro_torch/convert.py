@@ -2,13 +2,14 @@
 
 `params_from_jax(tree)` takes the output of `repro`'s `LMTransformer.init`
 (dense or MoE), `ssm_params_from_jax(tree)` that of its `SSMLM.init`,
+`hybrid_params_from_jax(tree)` that of its `Zamba2.init`,
 `encdec_params_from_jax(tree)` that of its `EncDec.init` and
 `resnet_params_from_jax(tree)` that of its `ResNet.init`, with every
 leaf converted to numpy (the caller does that, so this module needs no
 JAX), and returns the same tree as torch tensors, ready for the port's
 `load_params`.  Both packages keep one layout (stacked (L, ...) layer
-weights for the LM, its `moe` subtree, the SSM and the enc-dec's `enc` and
-`dec`; HWIO convolutions, (in, classes) fc and the list of stages of block
+weights for the LM, its `moe` subtree, the SSM, the hybrid's Mamba2 layers
+(beside its `shared` block) and the enc-dec's `enc` and `dec`; HWIO convolutions, (in, classes) fc and the list of stages of block
 dicts for the ResNet), so the conversion is a copy.
 
 On the card there is no JAX: the models' `init` draws weights there from a
@@ -48,6 +49,19 @@ def ssm_params_from_jax(tree: dict, device="cpu") -> dict:
     return _tensors({"embed": tree["embed"],
                      "layers": {k: tree["layers"][k]
                                 for k in ssm.LAYER_KEYS},
+                     "final_norm": tree["final_norm"],
+                     "lm_head": tree["lm_head"]}, device)
+
+
+def hybrid_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The reference Zamba2's tree ({"embed", "layers": {ln, in_proj, ...,
+    out_proj} stacked (L, ...), "shared": {ln1, wq, ..., w_down},
+    "final_norm", "lm_head"}) of numpy arrays -> the same tree of fp32
+    torch tensors on `device`."""
+    return _tensors({"embed": tree["embed"],
+                     "layers": {k: tree["layers"][k]
+                                for k in ssm.MAMBA2_KEYS},
+                     "shared": tree["shared"],
                      "final_norm": tree["final_norm"],
                      "lm_head": tree["lm_head"]}, device)
 

@@ -382,12 +382,14 @@ class _QEinsum(torch.autograd.Function):
         return da, db, None, None, None, None, None
 
 
-def _fp32_matmul(t: Tensor) -> None:
-    """sim and fp32 products run in full fp32 or not at all."""
+def fp32_matmul(t: Tensor, what: str = "qeinsum: the sim and fp32 "
+                "products") -> None:
+    """fp32 products (sim and fp32 qeinsums, Mamba2's SSD einsums) run in
+    full fp32 or not at all: raise on the card when cuBLAS's TF32 is on."""
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "qeinsum: torch.backends.cuda.matmul.allow_tf32 is on; the sim "
-            "and fp32 products must run in full fp32")
+            f"{what} must run in full fp32, but "
+            "torch.backends.cuda.matmul.allow_tf32 is on")
 
 
 class _FloatEinsum(torch.autograd.Function):
@@ -396,7 +398,7 @@ class _FloatEinsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b, cfg, spec, e_kind):
-        _fp32_matmul(a)
+        fp32_matmul(a)
         ctx.cfg, ctx.spec, ctx.e_kind = cfg, spec, e_kind
         ctx.save_for_backward(a, b)
         return torch.einsum(spec, a, b)

@@ -53,7 +53,12 @@
 //     tiles it visits, one cp.async.bulk each, into a 4-stage ring
 //     completing on mbarriers, refilling a stage once all 8 warps have
 //     released it; the warpgroups run q.k as wgmma m64n64k32 from shared
-//     memory and p.v as wgmma m64n{dh}k32 with p from registers.
+//     memory and p.v as wgmma m64n{DP}k32 with p from registers, DP = dh
+//     rounded up to a multiple of 32 (dh 112 runs p.v at 128).
+//   * dh is any multiple of 16 up to 128.  The operand passes zero every
+//     16-byte column at or past dh, so q.k contracts over DP bytes of
+//     which the padding adds nothing, and V^T's rows dh .. DP - 1 are zero,
+//     so p.v's columns past dh are zero and are not stored.
 //   * Tiles whose keys are masked for every row of the block (decided from
 //     the block's largest q position and the tile's smallest valid key
 //     position, so offset positions stay exact) are skipped: in the stats
@@ -312,15 +317,18 @@ __global__ void __launch_bounds__(256) fa_prep_kv(FaArgs a) {
     __syncthreads();
     // V^T: row d, 64 columns in 4 chunks of 16, column k holding the key
     // 32 (k / 32) + vperm(k % 32)
-    for (int u = threadIdx.x; u < a.dh * 4; u += 256) {
+    // (rows dh .. DP - 1 zero)
+    const int dp = (a.dh + 31) & ~31;
+    for (int u = threadIdx.x; u < dp * 4; u += 256) {
         const int d = u >> 2, c = u & 3;
         uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (d < a.dh)
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int k = c * 16 + i;
-            const int t = (k & 32) + vperm(k & 31);
-            w[i >> 2] |= (uint32_t)Vs[t * 144 + d] << (8 * (i & 3));
-        }
+            for (int i = 0; i < 16; ++i) {
+                const int k = c * 16 + i;
+                const int t = (k & 32) + vperm(k & 31);
+                w[i >> 2] |= (uint32_t)Vs[t * 144 + d] << (8 * (i & 3));
+            }
         *reinterpret_cast<int4*>(vt + swz64(d, c * 16)) =
             make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
     }
@@ -378,6 +386,7 @@ __device__ __forceinline__ void load_tile(const FaArgs& a, uint8_t* ring,
         bulk_g2s(st + KTILE, a.vt + (tbase + tt) * VTILE, VTILE, &full[s]);
 }
 
+// DH: dh rounded up to a multiple of 32 (q.k's depth and p.v's width)
 template <int DH, bool MAIN>
 __global__ void __launch_bounds__(NTHREADS, 1) fa_kernel(FaArgs a) {
     constexpr int STAGE = KTILE + (MAIN ? VTILE : 0);
@@ -668,7 +677,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) fa_kernel(FaArgs a) {
         for (int i8 = 0; i8 < DH / 8; ++i8)
 #pragma unroll
             for (int rr = 0; rr < 2; ++rr) {
-                if (!valid[rr]) continue;
+                if (!valid[rr] || i8 * 8 >= a.dh) continue;
                 const double den = (double)fmaxf(l[rr], 1e-9f);
                 float2 v;
                 v.x = (float)((double)o[4 * i8 + 2 * rr] / den);
@@ -695,10 +704,10 @@ static int run(const FaArgs& a, dim3 grid, cudaStream_t st) {
 
 template <bool MAIN>
 static int run_dh(const FaArgs& a, dim3 grid, cudaStream_t st) {
-    switch (a.dh) {
-        case 32: return run<32, MAIN>(a, grid, st);
-        case 64: return run<64, MAIN>(a, grid, st);
-        case 96: return run<96, MAIN>(a, grid, st);
+    switch ((a.dh + 31) / 32) {       // dh rounded up to a multiple of 32
+        case 1: return run<32, MAIN>(a, grid, st);
+        case 2: return run<64, MAIN>(a, grid, st);
+        case 3: return run<96, MAIN>(a, grid, st);
         default: return run<128, MAIN>(a, grid, st);
     }
 }
@@ -707,8 +716,8 @@ static int run_dh(const FaArgs& a, dim3 grid, cudaStream_t st) {
 // the Q, K and V^T tiles and the tile summary); phase 0: statistics (the
 // running max mrun and the probability amaxes); phase 1: main pass (out).
 // S, T multiples of qc and kc, kc a multiple of 64 (kval: 1 valid, 0
-// masked, -1 absent), dh in {32, 64, 96,
-// 128}, the heads a multiple of KV; q8, k8, v8 16-byte aligned.  ps =
+// masked, -1 absent), dh a multiple of 16 up
+// to 128, the heads a multiple of KV; q8, k8, v8 16-byte aligned.  ps =
 // 2^(k_a-1), lim = ps - 1.  Scratch: stat nq + 2 nk + nq nk ints, pthr 130
 // floats, tinfo nt int4, qr/kr/vt the tiles (ops.flash_attention sizes
 // them).  visits, when not null, gathers the 64-position tiles each of

@@ -835,7 +835,10 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
     slots; q/k/v_scale: pow2 payload scales; q_chunk/kv_chunk: the
     quantization chunks.  Returns (B, S, H, dh) f32, the pre-Q_A output.
 
-    The kernel takes kv_chunk a multiple of 64, or one ragged chunk
+    The kernel takes dh a multiple of 16 up to 128 (zamba2's shared
+    attention has 112; q.k runs over dh rounded up to 32 bytes of zero
+    padding, p.v at that width with its columns past dh dropped), and
+    kv_chunk a multiple of 64, or one ragged chunk
     (kv_chunk == T, a monolithic prefill's prompt shorter than the chunk):
     that one is padded here to the next multiple of 64 with zero payloads
     marked absent (k_valid -1 to the kernel), which changes no chunk amax
@@ -866,11 +869,11 @@ def flash_attention(q8: Tensor, k8: Tensor, v8: Tensor, q_pos: Tensor,
           and h % kv == 0, "flash_attention head shapes")
     _need(s % q_chunk == 0 and t % kv_chunk == 0,
           "flash_attention operands must be padded to chunk multiples")
-    _need((kv_chunk % 64 == 0 or kv_chunk == t) and dh % 32 == 0
-          and dh <= 128,
+    _need((kv_chunk % 64 == 0 or kv_chunk == t) and dh % 16 == 0
+          and 0 < dh <= 128,
           f"flash_attention kernel takes kv_chunk % 64 == 0 or one kv chunk, "
-          f"and dh in (32, 64, 96, 128) (got kv_chunk={kv_chunk}, T={t}, "
-          f"dh={dh})")
+          f"and dh a multiple of 16 up to 128 (got kv_chunk={kv_chunk}, "
+          f"T={t}, dh={dh})")
     dev = q8.device
     kvl = (k_valid != 0).to(device=dev, dtype=torch.int32)
     pad = -t % 64 if kv_chunk % 64 else 0

@@ -22,6 +22,8 @@ reference's CLI does) is the vanilla float baseline with plain Momentum.
         --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m \
         --reduced --mode native --steps 3 --batch 2 --seq 32 --device cpu
+    python -m repro_torch.launch.train --arch zamba2-7b --reduced \
+        --mode native --steps 3 --batch 2 --seq 32 --device cpu
     python -m repro_torch.launch.train --arch resnet50 --reduced \
         --mode native --steps 3 --batch 4 --device cpu
     python -m repro_torch.launch.train --arch granite-3-8b --reduced \
@@ -31,9 +33,10 @@ reference's CLI does) is the vanilla float baseline with plain Momentum.
     python -m repro_torch.launch.train ... --ckpt-dir DIR --save-every 2
     python -m repro_torch.launch.train ... --ckpt-dir DIR --resume
 
-The LMs (dense, MoE and SSM) train on TokenTask ("arith"); a ResNet on the
-synthetic ImageTask at its config's image size and classes, or on npz
-shards under `--data-dir` (data/imagenet.py).  With `--ckpt-dir` the CLI saves
+The LMs (dense, MoE, SSM and the hybrid) train on TokenTask ("arith"); a
+ResNet on the synthetic ImageTask at its config's image size and classes,
+or on npz shards under `--data-dir` (data/imagenet.py).  With `--ckpt-dir`
+the CLI saves
 (parameters, MomentumState) after every `--save-every` steps
 (checkpoint/manager.py, the reference's format); with `--resume` it
 restores the latest checkpoint there and continues from its step, which
@@ -74,7 +77,9 @@ def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
                     mom: float = 0.75, dr_bits: int | None = None,
                     n_micro: int = 1):
     """The training step for `model` (an LMTransformer, dense or MoE, an
-    SSMLM, an EncDec or a ResNet: a module holding its parameters, with
+    SSMLM, a Zamba2 (the shared block's gradient is the sum over its
+    applications, which autograd accumulates), an EncDec or a ResNet: a
+    module holding its parameters, with
     `loss(batch) -> (loss, metrics)`, `params()` and `labels()`):
     step(opt_state, batch, step_idx) -> the loss's metrics ({"loss"}, and
     "acc" for the ResNet) as 0-d tensors, updating the model's parameters

@@ -1,7 +1,7 @@
-"""Mamba1 (falcon-mamba-7b): the block, its init, labels and decode state.
+"""Mamba1 (falcon-mamba-7b) and Mamba2 (SSD, the hybrid zamba2-7b's mixer):
+the blocks, their init, labels and decode state.
 
-Port of the Mamba1 part of `repro.models.ssm` (Mamba2 belongs to the hybrid
-family, not ported yet).  Every projection is a WAGEUBN int8 matmul
+Port of `repro.models.ssm`.  Every projection is a WAGEUBN int8 matmul
 (`qdense`: K1 and K2 in native mode; fp32 products of the grid values in
 sim, of the values in fp32), the norm is `qrmsnorm` (K4 in native mode),
 and the recurrence runs in fp32 over 16-bit-gridded dt, B and C
@@ -25,6 +25,18 @@ taps in tap order (the reference's is an XLA convolution in chunk mode and
 an einsum over the window in decode mode): not a kernel, and the same sum
 in both modes.  Tensor parallelism (tp_size > 1) is not ported (ROADMAP
 Queue 1 item 5).
+
+Mamba2 follows the reference's SSD chunk scan and its order of operations
+exactly: per chunk of `scan_chunk` steps (the sequence padded with zeros
+to a multiple of it) the intra-chunk scores C.B^T and their product with
+the inputs are int8 contractions through `qeinsum` with cfg.e_attn (K1 on
+the card; the reference's are XLA integer einsums, and integer dots are
+exact), the decay mask m = scores * ldec * dt * causal is put on the Q_A
+grid in between, and the inter-chunk term, the carried state's update
+and the decays are fp32 `torch.einsum` / `exp` (TF32 refused on the
+card), as XLA's are in the reference.  "decode" is one recurrence step on
+the dense (B, heads, N, headdim) state.  Mamba2 needs no K9: its
+recurrence is the chunk sums above.
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import qact, qdense, qrmsnorm, qweight
 from repro_torch.core.qconfig import QConfig
-from repro_torch.core.qdense import qbn_param
+from repro_torch.core.qdense import fp32_matmul, qbn_param, qeinsum
 from repro_torch.core.qtensor import qt_carrier
 from repro_torch.kernels import ops
 
@@ -176,3 +188,156 @@ def mamba1_block(cfg: QConfig, acfg: ArchConfig, p: dict, x: Tensor,
     y = y * qt_carrier(qact(cfg, "silu", z))
     out = qdense(cfg, qact(cfg, "none", y), p["out_proj"])
     return x + out, {"conv": conv_next, "h": h_last}
+
+
+# ==========================================================================
+# Mamba2 (SSD)
+# ==========================================================================
+
+MAMBA2_KEYS = ("ln", "in_proj", "conv_w", "conv_b", "bc_proj", "dt_proj",
+               "dt_bias", "A_log", "D_skip", "ssm_norm", "out_proj")
+
+
+def mamba2_shapes(acfg: ArchConfig) -> dict:
+    """One Mamba2 layer's parameter shapes, in the reference's layouts."""
+    d, di, n = acfg.d_model, acfg.d_inner, acfg.ssm_state
+    hm = di // acfg.headdim
+    return {"ln": (d,), "in_proj": (d, 2 * di), "conv_w": (acfg.d_conv, di),
+            "conv_b": (di,), "bc_proj": (d, 2 * n), "dt_proj": (d, hm),
+            "dt_bias": (hm,), "A_log": (hm,), "D_skip": (hm,),
+            "ssm_norm": (di,), "out_proj": (di, d)}
+
+
+@torch.no_grad()
+def mamba2_init_(cfg: QConfig, acfg: ArchConfig, p: dict,
+                 gen: torch.Generator) -> dict:
+    """In place, one layer's parameters by the reference's `mamba2_init`
+    formulas (winit for the projections and the conv, dt log-uniform in
+    [1e-3, 1e-1] per head behind an inverse softplus, A_log = 0, D = 1,
+    unit norm gains), drawn from `gen`: the same distributions, not the
+    same bits."""
+    for k in ("in_proj", "conv_w", "bc_proj", "dt_proj", "out_proj"):
+        L.winit_(cfg, p[k], p[k].shape[0], gen)
+    p["ln"].fill_(1.0)
+    p["ssm_norm"].fill_(1.0)
+    p["conv_b"].zero_()
+    u = torch.empty_like(p["dt_bias"]).uniform_(math.log(1e-3),
+                                                math.log(1e-1),
+                                                generator=gen)
+    p["dt_bias"].copy_(torch.log(torch.expm1(torch.exp(u))))
+    p["A_log"].zero_()
+    p["D_skip"].fill_(1.0)
+    return p
+
+
+def mamba2_labels() -> dict:
+    return {"ln": "gamma", "in_proj": "w", "conv_w": "w", "conv_b": "beta",
+            "bc_proj": "w", "dt_proj": "w", "dt_bias": "exempt",
+            "A_log": "exempt", "D_skip": "exempt", "ssm_norm": "gamma",
+            "out_proj": "w"}
+
+
+def mamba2_state_init(acfg: ArchConfig, bsz: int, device="cpu") -> dict:
+    di, n = acfg.d_inner, acfg.ssm_state
+    hm = di // acfg.headdim
+    return {"conv": torch.zeros((bsz, acfg.d_conv - 1, di), device=device),
+            "h": torch.zeros((bsz, hm, n, acfg.headdim), device=device)}
+
+
+def _ssd_chunk(cfg: QConfig, s0: Tensor, xcb: Tensor, dtb: Tensor,
+               alb: Tensor, bsb: Tensor, csb: Tensor):
+    """One chunk of the SSD scan (the reference's scan body): xcb (B, c,
+    H, P), dtb and alb (B, c, H), bsb and csb (B, c, N), carried state s0
+    (B, H, N, P).  Returns (the state after the chunk, y (B, c, H, P))."""
+    cum = torch.cumsum(alb, dim=1)                         # (B, c, H)
+    # intra-chunk: the quantized score matmul (the reference's INT8 SSD)
+    scores = qeinsum(cfg, "btn,bsn->bts", cfg.e_attn, False, csb, bsb)
+    ldec = torch.exp(torch.clamp(cum[:, :, None, :] - cum[:, None, :, :],
+                                 -60.0, 0.0))
+    tt = torch.arange(xcb.shape[1], device=xcb.device)
+    causal = (tt[:, None] >= tt[None, :])[None, :, :, None]
+    m = scores[:, :, :, None] * ldec * dtb[:, None, :, :] * causal
+    m = qact(cfg, "none", m)
+    y_in = qeinsum(cfg, "btsh,bshp->bthp", cfg.e_attn, False, m, xcb)
+    # inter-chunk
+    dec0 = torch.exp(cum)
+    y_x = torch.einsum("btn,bhnp->bthp", csb, s0) * dec0[..., None]
+    # state update
+    dec_end = torch.exp(torch.clamp(cum[:, -1:, :] - cum, -60.0, 0.0))
+    wx = xcb * (dtb * dec_end)[..., None]
+    s_new = (torch.exp(cum[:, -1])[:, :, None, None] * s0
+             + torch.einsum("bsn,bshp->bhnp", bsb, wx))
+    return s_new, y_in + y_x
+
+
+def mamba2_block(cfg: QConfig, acfg: ArchConfig, p: dict, x: Tensor,
+                 mode: str, state: dict | None = None,
+                 tp_size: int = 1) -> tuple[Tensor, dict]:
+    """x: (B, S, D).  mode "train" (zero state; returns the conv tail and
+    the last state), "chunk" (one chunked-prefill page, seeded from
+    `state`) or "decode" (S == 1); "train" and "chunk" scan chunks of
+    acfg.scan_chunk steps.  Returns (x + out, new state {"conv": (B, K-1, d_inner), "h": (B,
+    heads, N, headdim)})."""
+    if tp_size != 1:
+        raise NotImplementedError(
+            "tensor-parallel Mamba2 is not ported yet: ROADMAP Queue 1 "
+            "item 5")
+    if mode not in ("train", "chunk", "decode"):
+        raise ValueError(f"unknown Mamba2 mode {mode!r}")
+    bsz, s, _ = x.shape
+    di, n, pdim = acfg.d_inner, acfg.ssm_state, acfg.headdim
+    hm = di // pdim
+    kc = acfg.d_conv - 1
+    fp32_matmul(x, "Mamba2's SSD einsums")
+    h = qact(cfg, "none", qrmsnorm(cfg, x, p["ln"]))
+    xz = qdense(cfg, h, p["in_proj"])
+    xi, z = xz[..., :di], xz[..., di:]
+    bc = qdense(cfg, h, p["bc_proj"])
+    bs = qbn_param(cfg, bc[..., :n], cfg.k_bn)              # (B, S, N)
+    cs = qbn_param(cfg, bc[..., n:], cfg.k_bn)
+    dt = softplus(qdense(cfg, h, p["dt_proj"]) + p["dt_bias"])
+    dt = qbn_param(cfg, dt, cfg.k_bn)                       # (B, S, H)
+    a_neg = -torch.exp(p["A_log"])                          # (H,)
+
+    if mode == "decode":
+        xc = causal_conv1d(cfg, xi, p["conv_w"], p["conv_b"],
+                           init=state["conv"])
+        xh = qt_carrier(qact(cfg, "silu", xc)).reshape(bsz, 1, hm, pdim)
+        dt1 = dt[:, 0]                                      # (B, H)
+        dec = torch.exp(dt1 * a_neg)[:, :, None, None]
+        upd = torch.einsum("bn,bhp->bhnp", bs[:, 0],
+                           xh[:, 0] * dt1[..., None])
+        ss = dec * state["h"] + upd
+        y = torch.einsum("bn,bhnp->bhp", cs[:, 0], ss)[:, None]
+        new_state = {"conv": conv_window_tail(xi, state["conv"], kc),
+                     "h": ss}
+    else:
+        init = state["conv"] if mode == "chunk" else None
+        xc = causal_conv1d(cfg, xi, p["conv_w"], p["conv_b"], init=init)
+        xh = qt_carrier(qact(cfg, "silu", xc)).reshape(bsz, s, hm, pdim)
+        alog = dt * a_neg                                   # log decays
+        chunk = min(acfg.scan_chunk, s)
+        pad = -s % chunk
+        xp, dtp, alp, bsp, csp = (F.pad(t, (0, 0) * (t.dim() - 2)
+                                        + (0, pad))
+                                  for t in (xh, dt, alog, bs, cs))
+        ss = (state["h"] if mode == "chunk"
+              else x.new_zeros((bsz, hm, n, pdim)))
+        ys = []
+        for c0 in range(0, s + pad, chunk):
+            sl = slice(c0, c0 + chunk)
+            ss, yc = _ssd_chunk(cfg, ss, xp[:, sl], dtp[:, sl], alp[:, sl],
+                                bsp[:, sl], csp[:, sl])
+            ys.append(yc)
+        y = torch.cat(ys, 1)[:, :s]
+        conv_next = (conv_window_tail(xi, state["conv"], kc)
+                     if mode == "chunk" else
+                     F.pad(xi, (0, 0, kc - s, 0)) if s < kc
+                     else xi[:, s - kc:])
+        new_state = {"conv": conv_next, "h": ss}
+
+    y = y + p["D_skip"][:, None] * xh
+    y = y.reshape(bsz, -1, di)
+    y = qrmsnorm(cfg, y, p["ssm_norm"]) * qt_carrier(qact(cfg, "silu", z))
+    out = qdense(cfg, qact(cfg, "none", y), p["out_proj"])
+    return x + out, new_state

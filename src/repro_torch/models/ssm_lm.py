@@ -38,9 +38,10 @@ class SSMLM(nn.Module):
         super().__init__()
         if acfg.family != "ssm" or acfg.ssm_kind != "mamba1":
             raise NotImplementedError(
-                f"family {acfg.family!r} ({acfg.ssm_kind or 'no ssm_kind'}) "
-                "is not ported yet: SSMLM runs Mamba1 (ROADMAP Queue 1 item "
-                "4)")
+                f"SSMLM runs Mamba1 family 'ssm' configs, as the reference's "
+                f"does (got family {acfg.family!r}, "
+                f"{acfg.ssm_kind or 'no ssm_kind'}); Mamba2 runs inside the "
+                "hybrid family, whose model is Zamba2")
         qcfg.validate()
         self.a, self.q = acfg, qcfg
         self.device = resolve_device(device)
@@ -191,19 +192,23 @@ class SSMLM(nn.Module):
         return ({"conv": state["conv"][:, b], "h": state["h"][:, b],
                  "pos": state["pos"][b]}, None)
 
-    def paged_decode_step(self, slots: dict, tokens) -> tuple[Tensor, dict]:
+    def paged_decode_step(self, slots: dict, pool_view,
+                          tokens) -> tuple[Tensor, dict]:
         """One decode step over all lanes (every lane's slot advances, dead
-        ones too, as in the reference).  Returns (logits (B, Vp), new slots);
-        positions are the engine's, so "pos" passes through."""
+        ones too, as in the reference); `pool_view` is None (no paged KV).
+        Returns (logits (B, Vp), new slots); positions are the engine's, so
+        "pos" passes through."""
         st, logits = self.serve_step(slots, tokens)
         st["pos"] = slots["pos"]
         return logits, st
 
     @torch.no_grad()
-    def prefill_page(self, dense: dict, tokens) -> tuple[Tensor, dict]:
+    def prefill_page(self, dense: dict, pool_view, tokens,
+                     pos0: int) -> tuple[Tensor, dict]:
         """Chunked prefill: one page (page,) of one lane's prompt advances
-        the per-layer states of `dense` (B = 1).  Returns (last-token logits
-        (1, Vp), new dense state)."""
+        the per-layer states of `dense` (B = 1); `pool_view` is None and
+        `pos0` unused (the recurrence carries the position).  Returns
+        (last-token logits (1, Vp), new dense state)."""
         x = self._embed(tokens)[None]
         x, st = self._backbone(x, "chunk", dense)
         st["pos"] = dense["pos"]

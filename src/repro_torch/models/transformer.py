@@ -40,15 +40,87 @@ LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_gate", "w_up",
               "w_down")
 
 
+def attn_sublayer(a: ArchConfig, q: QConfig, p: dict, x: Tensor, pos, mode,
+                  cache, emit=None) -> Tensor:
+    """One pre-norm attention sublayer, x + wo(attention(x)), with the
+    parameters `p` (ln1, wq, wk, wv, wo): the LM's layers and the hybrid's
+    shared block.  In train mode, `emit` (a list) receives the layer's (k,
+    v) int8 payloads on the cache grid (2^-7), the monolithic prefill's KV.
+    Otherwise `cache` holds a dense cache's (B, T, KV, dh) "k"/"v" (decode
+    at per-lane positions) or the pool's (P, page, KV, dh) "k_pages" /
+    "v_pages" and "table" ("chunk": one lane, one page of positions from
+    "pos0"; "decode": one token a lane), written IN PLACE."""
+    b, s, _ = x.shape
+    h = qact(q, "none", L.norm(q, a.norm, x, p["ln1"]))
+    qh = qdense(q, h, p["wq"]).reshape(b, s, a.n_heads, a.dh)
+    kh = qdense(q, h, p["wk"]).reshape(b, s, a.n_kv, a.dh)
+    vh = qdense(q, h, p["wv"]).reshape(b, s, a.n_kv, a.dh)
+    if mode == "train":
+        qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
+        qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+        o = L.chunked_attention(q, qh, kh, vh, causal=True, q_pos=pos,
+                                k_pos=pos, q_chunk=a.q_chunk,
+                                kv_chunk=a.kv_chunk)
+        if emit is not None:
+            emit.append((L.kv_quantize(kh, 2.0 ** -7),
+                         L.kv_quantize(vh, 2.0 ** -7)))
+        o = o.reshape(b, s, a.n_heads * a.dh)
+        return x + qdense(q, o, p["wo"])
+    ks, vs = cache["k_scale"], cache["v_scale"]
+    if "k" in cache:    # decode against a dense cache (B, T, KV, dh)
+        rp = pos.reshape(b, 1)
+        qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
+        qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+        lanes, at = torch.arange(b, device=x.device), pos.long()
+        cache["k"][lanes, at] = L.kv_quantize(kh[:, 0], ks)
+        cache["v"][lanes, at] = L.kv_quantize(vh[:, 0], vs)
+        o = L.decode_attention(q, qh, L.kv_qtensor(cache["k"], ks),
+                               L.kv_qtensor(cache["v"], vs), q_pos=pos,
+                               t_valid=pos.max() + 1)
+        o = o.reshape(b, s, a.n_heads * a.dh)
+        return x + qdense(q, o, p["wo"])
+    kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
+    if mode == "chunk":
+        # chunked prefill: ONE lane, s == page_size tokens filling one
+        # pool page; every amax spans this page alone
+        qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
+        qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+        # an index past the table clamps, as the reference's gather does
+        blk = min(cache["pos0"] // kp.shape[1], table.shape[1] - 1)
+        pid = table[0, blk]
+        L.page_write(kp, pid, L.kv_quantize(kh[0], ks))
+        L.page_write(vp, pid, L.kv_quantize(vh[0], vs))
+        o = L.paged_prefill_attention(q, qh, kp, vp, table, ks, vs,
+                                      q_pos=pos)
+    else:       # decode: s == 1, pos (B,)
+        rp = pos.reshape(b, 1)
+        qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
+        qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
+        L.page_scatter_token(kp, table, pos, L.kv_quantize(kh[:, 0], ks))
+        L.page_scatter_token(vp, table, pos, L.kv_quantize(vh[:, 0], vs))
+        o = L.paged_decode_attention(q, qh, kp, vp, table, ks, vs,
+                                     q_pos=pos, t_valid=pos.max() + 1)
+    o = o.reshape(b, s, a.n_heads * a.dh)
+    return x + qdense(q, o, p["wo"])
+
+
+def ffn_sublayer(a: ArchConfig, q: QConfig, p: dict, x: Tensor) -> Tensor:
+    """One pre-norm feed-forward sublayer, x + FFN(x): SwiGLU with (ln2,
+    w_gate, w_up, w_down), or an MoE LM's experts (p["moe"])."""
+    h = qact(q, "none", L.norm(q, a.norm, x, p["ln2"]))
+    if a.moe_experts:       # decode (one token a lane) is dropless
+        return x + MOE.moe_ffn(q, a, h, p["moe"])
+    return x + L.swiglu(q, h, p["w_gate"], p["w_up"], p["w_down"], a.act)
+
+
 class LMTransformer(nn.Module):
     def __init__(self, acfg: ArchConfig, qcfg: QConfig, device="cuda"):
         super().__init__()
         if acfg.family not in ("lm", "vlm", "moe"):
             raise NotImplementedError(
                 f"LMTransformer does not build family {acfg.family!r} "
-                "(build_model gives 'ssm' SSMLM, 'encdec' EncDec and "
-                "'resnet' ResNet); Mamba2 and the hybrid are not ported "
-                "yet (ROADMAP Queue 1 item 4)")
+                "(build_model gives 'ssm' SSMLM, 'hybrid' Zamba2, 'encdec' "
+                "EncDec and 'resnet' ResNet)")
         qcfg.validate()
         self.a, self.q = acfg, qcfg
         self.device = resolve_device(device)
@@ -133,71 +205,6 @@ class LMTransformer(nn.Module):
             views.append(v)
         return views
 
-    def _attn(self, p, x, pos, mode, cache, emit=None):
-        """One attention sublayer.  In train mode, `emit` (a list) receives
-        the layer's (k, v) int8 payloads on the cache grid (2^-7), the
-        monolithic prefill's KV."""
-        a, q = self.a, self.q
-        b, s, _ = x.shape
-        h = qact(q, "none", L.norm(q, a.norm, x, p["ln1"]))
-        qh = qdense(q, h, p["wq"]).reshape(b, s, a.n_heads, a.dh)
-        kh = qdense(q, h, p["wk"]).reshape(b, s, a.n_kv, a.dh)
-        vh = qdense(q, h, p["wv"]).reshape(b, s, a.n_kv, a.dh)
-        if mode == "train":
-            qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
-            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
-            o = L.chunked_attention(q, qh, kh, vh, causal=True, q_pos=pos,
-                                    k_pos=pos, q_chunk=a.q_chunk,
-                                    kv_chunk=a.kv_chunk)
-            if emit is not None:
-                emit.append((L.kv_quantize(kh, 2.0 ** -7),
-                             L.kv_quantize(vh, 2.0 ** -7)))
-            o = o.reshape(b, s, a.n_heads * a.dh)
-            return x + qdense(q, o, p["wo"])
-        ks, vs = cache["k_scale"], cache["v_scale"]
-        if "k" in cache:    # decode against a dense cache (B, T, KV, dh)
-            rp = pos.reshape(b, 1)
-            qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
-            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
-            lanes, at = torch.arange(b, device=x.device), pos.long()
-            cache["k"][lanes, at] = L.kv_quantize(kh[:, 0], ks)
-            cache["v"][lanes, at] = L.kv_quantize(vh[:, 0], vs)
-            o = L.decode_attention(q, qh, L.kv_qtensor(cache["k"], ks),
-                                   L.kv_qtensor(cache["v"], vs), q_pos=pos,
-                                   t_valid=pos.max() + 1)
-            o = o.reshape(b, s, a.n_heads * a.dh)
-            return x + qdense(q, o, p["wo"])
-        kp, vp, table = cache["k_pages"], cache["v_pages"], cache["table"]
-        if mode == "chunk":
-            # chunked prefill: ONE lane, s == page_size tokens filling one
-            # pool page; every amax spans this page alone
-            qh, kh = L.rope(qh, pos, a.rope_theta), L.rope(kh, pos, a.rope_theta)
-            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
-            # an index past the table clamps, as the reference's gather does
-            blk = min(cache["pos0"] // kp.shape[1], table.shape[1] - 1)
-            pid = table[0, blk]
-            L.page_write(kp, pid, L.kv_quantize(kh[0], ks))
-            L.page_write(vp, pid, L.kv_quantize(vh[0], vs))
-            o = L.paged_prefill_attention(q, qh, kp, vp, table, ks, vs,
-                                          q_pos=pos)
-        else:       # decode: s == 1, pos (B,)
-            rp = pos.reshape(b, 1)
-            qh, kh = L.rope(qh, rp, a.rope_theta), L.rope(kh, rp, a.rope_theta)
-            qh, kh, vh = (qact(q, "none", t) for t in (qh, kh, vh))
-            L.page_scatter_token(kp, table, pos, L.kv_quantize(kh[:, 0], ks))
-            L.page_scatter_token(vp, table, pos, L.kv_quantize(vh[:, 0], vs))
-            o = L.paged_decode_attention(q, qh, kp, vp, table, ks, vs,
-                                         q_pos=pos, t_valid=pos.max() + 1)
-        o = o.reshape(b, s, a.n_heads * a.dh)
-        return x + qdense(q, o, p["wo"])
-
-    def _ffn(self, p, x):
-        a, q = self.a, self.q
-        h = qact(q, "none", L.norm(q, a.norm, x, p["ln2"]))
-        if a.moe_experts:       # decode (one token a lane) is dropless
-            return x + MOE.moe_ffn(q, a, h, p["moe"])
-        return x + L.swiglu(q, h, p["w_gate"], p["w_up"], p["w_down"], a.act)
-
     def _backbone(self, x, pos, mode, view):
         """Every layer against `view`: the paged pool's or a dense cache's
         (L, ...) stacks, sliced per layer."""
@@ -207,8 +214,8 @@ class LMTransformer(nn.Module):
                          v_scale=view["v_scale"][i],
                          **{k: view[k][i] for k in stacks})
             p = self._layer(i)
-            x = self._attn(p, x, pos, mode, cache)
-            x = self._ffn(p, x)
+            x = attn_sublayer(self.a, self.q, p, x, pos, mode, cache)
+            x = ffn_sublayer(self.a, self.q, p, x)
         return x
 
     def _logits(self, x):
@@ -232,8 +239,8 @@ class LMTransformer(nn.Module):
         x = self.embed[tokens]                        # exempt first layer
         pos = torch.arange(tokens.shape[1], device=self.device)
         for p in self._layer_views():
-            x = self._attn(p, x, pos, "train", None)
-            x = self._ffn(p, x)
+            x = attn_sublayer(self.a, self.q, p, x, pos, "train", None)
+            x = ffn_sublayer(self.a, self.q, p, x)
         logits = self._logits(x)
         lse = torch.logsumexp(logits, dim=-1)
         loss = torch.mean(lse - L.target_logit(logits, labels))
@@ -276,9 +283,9 @@ class LMTransformer(nn.Module):
         cache = self.init_cache(b, cache_len)
         for i in range(self.a.n_layers):
             p, emit = self._layer(i), []
-            x = self._attn(p, x, pos, "train", None, emit)
+            x = attn_sublayer(self.a, self.q, p, x, pos, "train", None, emit)
             cache["k"][i, :, :s], cache["v"][i, :, :s] = emit[0]
-            x = self._ffn(p, x)
+            x = ffn_sublayer(self.a, self.q, p, x)
         cache["pos"].fill_(s)
         return cache, self._logits(x[:, -1:])[:, 0]
 
@@ -310,30 +317,33 @@ class LMTransformer(nn.Module):
                 (cache["k"][:, b], cache["v"][:, b]))
 
     @torch.no_grad()
-    def paged_decode_step(self, pool_view: dict, tokens: Tensor,
-                          pos: Tensor) -> Tensor:
+    def paged_decode_step(self, slots: dict, pool_view: dict,
+                          tokens: Tensor) -> tuple[Tensor, dict]:
         """One decode step over all lanes against the paged pool.
 
-        pool_view: {"k_pages"/"v_pages": (L, P, page, KV, dh) int8,
-        "k_scale"/"v_scale": (L,), "table": (B, NB)}; tokens, pos: (B,).
-        Writes each lane's new KV into its page slot IN PLACE and returns
-        the logits (B, Vp)."""
+        slots: {"pos": (B,)}, each lane's position (the engine's); pool_view:
+        {"k_pages"/"v_pages": (L, P, page, KV, dh) int8, "k_scale"/"v_scale":
+        (L,), "table": (B, NB)}; tokens: (B,).  Writes each lane's new KV
+        into its page slot IN PLACE.  Returns (logits (B, Vp), slots), the
+        reference's slot API (this family's dense state is its positions,
+        which the engine advances)."""
         x = self.embed[tokens.long()][:, None, :]
-        x = self._backbone(x, pos, "decode", pool_view)
-        return self._logits(x)[:, 0]
+        x = self._backbone(x, slots["pos"], "decode", pool_view)
+        return self._logits(x)[:, 0], slots
 
     @torch.no_grad()
-    def prefill_page(self, pool_view: dict, tokens: Tensor,
-                     pos0: int) -> Tensor:
+    def prefill_page(self, dense: dict, pool_view: dict, tokens: Tensor,
+                     pos0: int) -> tuple[Tensor, dict]:
         """Chunked prefill: run ONE page of one lane's prompt.
 
+        dense: the lane's mid-prefill state ({"pos"}, passed through);
         tokens: (page,); pos0: the page's first position (a multiple of
         page_size); pool_view as in `paged_decode_step` with a (1, NB)
         table.  Writes the page's KV into the pool IN PLACE and attends to
-        every earlier position through the table.  Returns the last token's
-        logits (1, Vp)."""
+        every earlier position through the table.  Returns (the last
+        token's logits (1, Vp), dense)."""
         page = pool_view["k_pages"].shape[2]
         x = self.embed[tokens.long()][None]
         pos = pos0 + torch.arange(page, device=x.device)
         x = self._backbone(x, pos, "chunk", dict(pool_view, pos0=pos0))
-        return self._logits(x[:, -1:])[:, 0]
+        return self._logits(x[:, -1:])[:, 0], dense

@@ -21,8 +21,10 @@ prompts onto common page-aligned prefixes (what the radix cache exploits),
 `run_load` replays traffic against the engine's clock, and `naive_serve`
 is the sequential one-request-at-a-time baseline.  Every LM the port
 builds serves through them: the dense LMs, the MoE LMs
-(granite-moe-1b-a400m, moonshot-v1-16b-a3b; decode routes dropless) and
-falcon-mamba-7b.  The enc-dec (seamless-m4t-large-v2) is not an engine
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b; decode routes dropless),
+falcon-mamba-7b and the hybrid zamba2-7b (its Mamba2 state in dense
+slots, its shared attention's KV in the pool; the radix cache keeps its
+dense snapshots).  The enc-dec (seamless-m4t-large-v2) is not an engine
 model, here as in the reference: `make_engine` refuses it, and it serves
 through `EncDec.prefill` / `serve_step`.  The engine runs on the card
 unless `device="cpu"` is passed.  Tensor-parallel serving and the

@@ -1,13 +1,18 @@
 """Continuous-batching int8 serving engine.
 
 Port of `repro.serving.engine.Engine` at tp=1.  Attention KV lives as int8
-pages in a `PagePool`; recurrent SSM state lives in dense per-lane slots
-(no pool), as in the reference, which branches on
-`decode_state_spec()["kv_layers"] > 0` alone.  One decode step runs all
-`max_lanes` lanes (dead lanes ride along: their table rows point at the
-trash page and their positions stay 0; a dense family's dead and
-mid-prefill lanes advance their slots' stale state, which release never
-resets, exactly as the reference's do).
+pages in a `PagePool`; recurrent SSM state lives in dense per-lane slots,
+as in the reference, and a family may have either store or both: the
+pages when `decode_state_spec()["kv_layers"] > 0` (the LMs; the hybrid's
+shared attention), dense state when its `dense_axes` hold more than the
+positions (the Mamba1 SSM; the hybrid's Mamba2 layers).  Every family
+takes the same slot API, `prefill_page(dense, pool_view, tokens, pos0)`
+and `paged_decode_step(slots, pool_view, tokens)` (pool_view None without
+pages), so each step is one call.  One decode step runs all `max_lanes`
+lanes (dead lanes ride along: their table rows point at the trash page
+and their positions stay 0; dead and mid-prefill lanes advance their
+slots' stale dense state, which release never resets, exactly as the
+reference's do).
 
 Control plane (host, numpy): `Scheduler` admission/preemption, per-lane
 page tables, request bookkeeping, the `RadixCache`.  Data plane (device):
@@ -26,8 +31,9 @@ Per-step flow (Engine.step):
   2. chunked only: up to `prefill_budget` prompt tokens of prefill work:
      full pages `prefill_chunk` at a time through `prefill_page`, then the
      ragged tail token by token through the B=1 decode step; a finished
-     prefill samples its first token, moves a dense family's state into the
+     prefill samples its first token, moves its dense state into the
      lane's slot and publishes its full prompt pages to the radix tree
+     (with the dense state after each page, for a family that has one)
   3. paged only: allocate decode pages at page boundaries; on exhaustion
      evict least-recently-used radix subtrees, then preempt the
      longest-context request (recompute preemption)
@@ -44,13 +50,21 @@ from threefry bits, core/prng.py) with the reference's key stream: one
 and every decode step advance (greedy ticks it and skips the fold-in).
 
 The reference compiles its chunk step for a fixed `prefill_chunk` pages and
-masks the pages past the prompt onto the trash page; for a paged family
-the port runs those masked pages too, because their trash-page writes are
-what dead lanes read in decode, and dead lanes' outputs enter the
-batch-global activation scales (the same tokens as the reference depend on
-it).  For a dense family the reference discards a masked page's state and
-logits, and the port skips it.  Likewise the chunked engine's warm-up
-steps run as the reference's do (monolithic engines have none).
+masks the pages past the prompt onto the trash page, discarding their
+dense state and logits; for a paged family the port runs those masked
+pages too, from the last real page's dense state, because their
+trash-page writes are what dead lanes read in decode, and dead lanes'
+outputs enter the batch-global activation scales (the same tokens as the
+reference depend on it).  A family without pages has nothing to write
+there, and the port skips its masked pages.  Likewise the chunked
+engine's warm-up steps run as the reference's do (monolithic engines have
+none).
+
+Radix hits restore both stores: the hit pages by reference, and for a
+family with dense state the snapshot the tree keeps after the deepest hit
+page, which seeds the lane's mid-prefill state; the page and the snapshot
+are both pure functions of the token prefix, so a hit equals recompute
+bit for bit.
 
 Not ported yet: tensor-parallel serving (ROADMAP Queue 1 item 5).
 
@@ -102,10 +116,9 @@ class Engine:
     """Continuous-batching serving engine over the paged int8 KV pool.
 
     Args:
-      model: an `LMTransformer` (paged: `decode_state_spec`, `prefill`,
-        `prefill_page` and `paged_decode_step` against the pool) or an
-        `SSMLM` (dense: the same methods on state dicts, plus
-        `init_slots`).
+      model: an `LMTransformer` (pages), an `SSMLM` (dense state) or a
+        `Zamba2` (both): `decode_state_spec`, `init_slots`, `prefill`,
+        `slot_from_cache`, `prefill_page` and `paged_decode_step`.
       max_lanes: decode batch width (padded; dead lanes ride along masked).
       page_size: tokens per KV page; n_pages: pool size (default
         1 + max_lanes * ceil(max_ctx / page_size)); max_ctx: per-request
@@ -146,6 +159,7 @@ class Engine:
         self.clock = clock
         spec = model.decode_state_spec()
         self.paged = spec["kv_layers"] > 0
+        self.dense = len(spec["dense_axes"]) > 1     # state beyond "pos"
         if radix_cache and prefill_mode != "chunked":
             raise ValueError(
                 "radix_cache requires prefill_mode='chunked' (only the "
@@ -193,7 +207,7 @@ class Engine:
             self._dense0 = model.init_slots(1)   # zero mid-prefill state
             self._warmup()
         if radix_cache:
-            self.radix = RadixCache(self.pool)
+            self.radix = RadixCache(self.pool, store_dense=self.dense)
             self.scheduler.cache = self.radix
 
         self.engine_steps = 0
@@ -360,17 +374,19 @@ class Engine:
     def _admit_chunked(self, req: Request, lane: int) -> None:
         """Claim a lane and pages; prefill streams in later engine steps.
         Radix lookup first: the longest cached page-aligned prefix is reused
-        by reference (one pool ref per hit page) and only the suffix pages
-        are allocated."""
+        by reference (one pool ref per hit page), only the suffix pages are
+        allocated, and for a family with dense state the deepest hit node's
+        snapshot seeds the mid-prefill state."""
         if req.queue_s is None:
             req.queue_s = self.clock() - req.arrival
-        hit_pids = []
+        hit_pids, hit_dense = [], None
         if self.radix is not None:
-            hit_pids = self.radix.lookup(req.prompt)
+            hit_pids, hit_dense = self.radix.lookup(req.prompt)
             for pid in hit_pids:
                 self.pool.ref(pid)      # the request's hold on the hit
         req.n_shared = len(hit_pids)
         req.pf_pos = req.n_shared * self.page_size
+        req.page_snaps = [None] * (len(req.prompt) // self.page_size)
         if self.paged:
             nb_total = len(req.prompt) // self.page_size + 1  # + decode block
             new_pids = self._alloc_pages(nb_total - req.n_shared, req)
@@ -379,18 +395,19 @@ class Engine:
             self.table[lane] = 0
             self.table[lane, :nb_total] = req.page_ids
             self._table_dev = None
-        else:
-            self._pf_dense[req.rid] = self._dense0
+        self._pf_dense[req.rid] = (self._dense0 if hit_dense is None
+                                   else hit_dense)
         req.lane = lane
         self.lane_req[lane] = req       # PREFILL state: masked in decode
 
     def _release(self, req: Request) -> None:
         """Free the lane and unref its pages (shared pages just drop this
-        hold).  A dense family's slot keeps its state: the lane rides along
+        hold).  The lane's dense slot keeps its state: the lane rides along
         in decode with it, as in the reference."""
         for pid in req.page_ids:
             self.pool.unref(pid)
         self._pf_dense.pop(req.rid, None)
+        req.page_snaps = []
         if req.lane >= 0:
             self.table[req.lane] = 0
             self.lane_req[req.lane] = None
@@ -442,79 +459,64 @@ class Engine:
 
     # ---- chunked prefill -------------------------------------------------
 
-    def _chunk(self, row: np.ndarray, toks: np.ndarray, start: int,
-               n_full: int):
-        """`prefill_chunk` pages of one lane from logical block `start`:
-        pages at or past `n_full` are masked onto the trash page (all-zero
-        table row) and their logits discarded.  Returns the last active
-        page's last-token logits (zeros if none was active)."""
+    def _view(self, rows: np.ndarray):
+        """The pool view over page-table `rows` (None without pages)."""
+        if not self.paged:
+            return None
+        return self.pool.view(torch.as_tensor(rows, device=self.device))
+
+    def _chunk(self, dense: dict, row: np.ndarray, toks: np.ndarray,
+               start: int, n_full: int):
+        """`prefill_chunk` pages of one lane from logical block `start`,
+        from its mid-prefill state `dense`.  Pages at or past `n_full` are
+        masked: a paged family runs them onto the trash page (all-zero
+        table row) from the last real page's state and drops their state
+        and logits; a family without pages skips them.  Returns (the last
+        real page's last-token logits, None if none was real; the state
+        after it; the state after each real page)."""
         page = self.page_size
-        tab = torch.as_tensor(row[None], device=self.device)
-        zero = torch.zeros_like(tab)
-        tok_dev = torch.as_tensor(toks, device=self.device)
-        lg = torch.zeros((1, self.model.a.vocab_padded), device=self.device)
+        real, masked = self._view(row[None]), self._view(0 * row[None])
+        tok = torch.as_tensor(toks, device=self.device)
+        lg, snaps = None, []
         for j in range(self.prefill_chunk):
             active = start + j < n_full
-            lg2 = self.model.prefill_page(
-                self.pool.view(tab if active else zero),
-                tok_dev[j * page:(j + 1) * page], (start + j) * page)
+            if not (active or self.paged):
+                break
+            lg2, dn2 = self.model.prefill_page(
+                dense, real if active else masked,
+                tok[j * page:(j + 1) * page], (start + j) * page)
             if active:
-                lg = lg2
-        return lg
+                lg, dense = lg2, dn2
+                snaps.append(dn2)
+        return lg, dense, snaps
 
-    def _tail(self, row: np.ndarray, token: int, pos: int):
-        """One prompt-tail token through the B=1 decode step."""
-        tab = torch.as_tensor(row[None], device=self.device)
+    def _tail(self, dense: dict, row: np.ndarray, token: int, pos: int):
+        """One prompt-tail token through the B=1 decode step from the
+        mid-prefill state `dense`.  Returns (logits, the state after it;
+        its "pos" is the engine's, passed through)."""
         t = torch.full((1,), token, dtype=torch.int32, device=self.device)
         p = torch.full((1,), pos, dtype=torch.int32, device=self.device)
-        return self.model.paged_decode_step(self.pool.view(tab), t, p)
-
-    def _chunk_dense(self, req: Request, tokens: np.ndarray):
-        """Full pages of one lane's prompt advance its mid-prefill state;
-        returns the last page's last-token logits.  The reference's chunk
-        step also runs `prefill_chunk` pages past the prompt and discards
-        their state and logits: with no trash page to write, the port skips
-        them."""
-        page = self.page_size
-        tok = torch.as_tensor(tokens, device=self.device)
-        dense, lg = self._pf_dense[req.rid], None
-        for j in range(len(tokens) // page):
-            lg, dense = self.model.prefill_page(
-                dense, tok[j * page:(j + 1) * page])
-        self._pf_dense[req.rid] = dense
-        return lg
-
-    def _tail_dense(self, req: Request, token: int):
-        """One prompt-tail token through the B=1 decode step."""
-        t = torch.full((1,), token, dtype=torch.int32, device=self.device)
-        lg, self._pf_dense[req.rid] = self.model.paged_decode_step(
-            self._pf_dense[req.rid], t)
-        return lg
+        lg, dn = self.model.paged_decode_step(dict(dense, pos=p),
+                                              self._view(row[None]), t)
+        return lg, dict(dn, pos=dense["pos"])
 
     def _warmup(self) -> None:
         """The reference engine's warm-up calls, run the same way: a chunk
-        with every page masked, a tail token and a decode step, all on the
-        trash page.  They compile the reference's traces; here they leave
-        the trash page in the state the reference's does.  A dense family
-        runs the tail token from the zero state and the decode step over
-        the zero slots and keeps neither result, so the slots stay zero
-        (the reference re-initialises them after its warm-up)."""
-        if not self.paged:
-            z = torch.zeros((self.max_lanes,), dtype=torch.int32,
-                            device=self.device)
-            self.model.paged_decode_step(self._dense0, z[:1])
-            self.model.paged_decode_step(dict(self.slots, pos=z), z)
-            self._sync()
-            return
+        with every page masked (a paged family's), a tail token and a
+        decode step, all on the trash page and from the zero state.  They
+        compile the reference's traces; here they leave the trash page in
+        the state the reference's does.  Their dense results are dropped,
+        so the slots stay zero (the reference re-initialises them after
+        its warm-up)."""
         zrow = np.zeros((self.n_blocks,), np.int32)
-        self._chunk(zrow, np.zeros((self.prefill_chunk * self.page_size,),
-                                   np.int32), 0, 0)
-        self._tail(zrow, 0, 0)
+        self._chunk(self._dense0, zrow,
+                    np.zeros((self.prefill_chunk * self.page_size,),
+                             np.int32), 0, 0)
+        self._tail(self._dense0, zrow, 0, 0)
         z = torch.zeros((self.max_lanes,), dtype=torch.int32,
                         device=self.device)
-        self.model.paged_decode_step(
-            self.pool.view(torch.as_tensor(self.table, device=self.device)),
-            z, z)
+        self.model.paged_decode_step(dict(self.slots, pos=z),
+                                     self._view(self.table), z)
         self._sync()
 
     def _run_prefill_chunks(self) -> tuple[list[Request], bool]:
@@ -539,21 +541,21 @@ class Engine:
                 start = req.pf_pos // page
                 allowed = min(self.prefill_chunk, nb_full - start,
                               budget // page)
+                toks = np.zeros((self.prefill_chunk * page,), np.int32)
                 chunk = req.prompt[start * page:(start + allowed) * page]
-                if self.paged:
-                    toks = np.zeros((self.prefill_chunk * page,), np.int32)
-                    toks[:len(chunk)] = chunk
-                    lg = self._chunk(self.table[lane], toks, start,
-                                     start + allowed)
-                else:
-                    lg = self._chunk_dense(req, chunk)
+                toks[:len(chunk)] = chunk
+                lg, self._pf_dense[req.rid], snaps = self._chunk(
+                    self._pf_dense[req.rid], self.table[lane], toks, start,
+                    start + allowed)
+                if self.radix is not None and self.radix.store_dense:
+                    req.page_snaps[start:start + allowed] = snaps
                 req.pf_pos = (start + allowed) * page
                 budget -= allowed * page
                 worked = True
             while budget >= 1 and nb_full * page <= req.pf_pos < s:
-                tok = int(req.prompt[req.pf_pos])
-                lg = (self._tail(self.table[lane], tok, req.pf_pos)
-                      if self.paged else self._tail_dense(req, tok))
+                lg, self._pf_dense[req.rid] = self._tail(
+                    self._pf_dense[req.rid], self.table[lane],
+                    int(req.prompt[req.pf_pos]), req.pf_pos)
                 req.pf_pos += 1
                 budget -= 1
                 worked = True
@@ -565,28 +567,30 @@ class Engine:
         return finished, worked
 
     def _finish_prefill(self, req: Request, lane: int, logits) -> None:
-        """Prefill done: sample the first token, move a dense family's
-        mid-prefill state into the lane's slot, flip to DECODE, and publish
-        the full prompt pages to the radix tree (deduping against a
-        concurrent identical prefill that published first)."""
+        """Prefill done: sample the first token, move the mid-prefill dense
+        state into the lane's slot, flip to DECODE, and publish the full
+        prompt pages (with their dense snapshots) to the radix tree
+        (deduping against a concurrent identical prefill that published
+        first)."""
         self._first_token(req, lane, logits)
-        if not self.paged:
-            dense = self._pf_dense.pop(req.rid)
-            self._write_slot(lane, {
-                name: (dense[name][0] if ax == 0 else dense[name][:, 0])
-                for name, ax in self._dense_axes.items()})
+        dense = self._pf_dense.pop(req.rid)
+        self._write_slot(lane, {
+            name: (dense[name][0] if ax == 0 else dense[name][:, 0])
+            for name, ax in self._dense_axes.items()})
         req.state = RequestState.DECODE
         self._table_dev = None          # lane unmasks in the decode table
         if self.radix is not None:
             nb_full = len(req.prompt) // self.page_size
             if nb_full:
                 dedup = self.radix.insert(req.prompt,
-                                          req.page_ids[:nb_full])
+                                          req.page_ids[:nb_full],
+                                          req.page_snaps)
                 for blk, cached in dedup.items():
                     self.pool.ref(cached)           # byte-identical page:
                     self.pool.unref(req.page_ids[blk])  # swap to cached
                     req.page_ids[blk] = cached
                     self.table[lane, blk] = cached
+        req.page_snaps = []
 
     # ---- decode ----------------------------------------------------------
 
@@ -596,23 +600,22 @@ class Engine:
             if req is not None and req.state is RequestState.DECODE:
                 pos[ln] = req.pos
         tokens = torch.as_tensor(self.h_tokens, device=self.device)
-        if not self.paged:
-            # every lane advances its slot: dead and mid-prefill lanes too
-            logits, self.slots = self.model.paged_decode_step(
-                dict(self.slots, pos=torch.as_tensor(pos, device=self.device)),
-                tokens)
-            return self._sample(logits)
-        if self._table_dev is None:     # re-upload only when tables changed
-            # mid-prefill lanes decode masked: their rows point at the
-            # trash page so the ride-along writes never touch real pages
-            eff = self.table.copy()
-            for ln, req in enumerate(self.lane_req):
-                if req is not None and req.state is not RequestState.DECODE:
-                    eff[ln] = 0
-            self._table_dev = torch.as_tensor(eff, device=self.device)
-        logits = self.model.paged_decode_step(
-            self.pool.view(self._table_dev), tokens,
-            torch.as_tensor(pos, device=self.device))
+        view = None
+        if self.paged:
+            if self._table_dev is None:     # re-upload only when changed
+                # mid-prefill lanes decode masked: their rows point at the
+                # trash page so the ride-along writes never touch real pages
+                eff = self.table.copy()
+                for ln, req in enumerate(self.lane_req):
+                    if req is not None \
+                            and req.state is not RequestState.DECODE:
+                        eff[ln] = 0
+                self._table_dev = torch.as_tensor(eff, device=self.device)
+            view = self.pool.view(self._table_dev)
+        # every lane advances its dense slot: dead and mid-prefill lanes too
+        logits, self.slots = self.model.paged_decode_step(
+            dict(self.slots, pos=torch.as_tensor(pos, device=self.device)),
+            view, tokens)
         # the one host-device sync of the decode step: the token readback
         return self._sample(logits)
 

@@ -18,10 +18,15 @@ Contract:
   * lookup    — longest cached prefix in FULL pages; always leaves at
                 least the last prompt token uncached so the engine has
                 logits to sample the first token from.  Returns the page
-                ids.  (The reference's nodes also snapshot a paged
-                recurrent family's dense state; no such family is ported.)
-  * insert    — publishes a finished prefill's full prompt pages.  The
-                tree takes one pool ref per published page (copy-on-write
+                ids plus the deepest hit node's dense-state snapshot: a
+                paged family with recurrent state (the hybrid: its Mamba2
+                conv windows and SSD states at the page boundary, a pure
+                function of the token prefix like the page itself) seeds
+                the lane's mid-prefill state from it; a pure-attention
+                family stores None.
+  * insert    — publishes a finished prefill's full prompt pages (and
+                the dense snapshot after each, where the family has one).
+                The tree takes one pool ref per published page (copy-on-write
                 discipline: shared pages are read-only by construction —
                 decode and suffix prefill both write at positions past the
                 shared prefix).  If a concurrent identical prefill already
@@ -44,24 +49,28 @@ from .pool import PagePool
 
 
 class _Node:
-    __slots__ = ("key", "page", "children", "parent", "last_use")
+    __slots__ = ("key", "page", "dense", "children", "parent", "last_use")
 
-    def __init__(self, key, page, parent):
+    def __init__(self, key, page, dense, parent):
         self.key = key                  # bytes of this edge's page tokens
         self.page = page                # physical pool page id
+        self.dense = dense              # state snapshot after this page
         self.children: dict[bytes, _Node] = {}
         self.parent = parent
         self.last_use = 0
 
 
 class RadixCache:
-    """Page-granular prefix cache over a `PagePool` (see module docstring);
-    `pool` is the PagePool whose pages the tree references."""
+    """Page-granular prefix cache over a `PagePool` (see module docstring):
+    `pool` is the PagePool whose pages the tree references; `store_dense`
+    keeps a dense-state snapshot per node (a paged family with recurrent
+    state), else nodes hold None."""
 
-    def __init__(self, pool: PagePool):
+    def __init__(self, pool: PagePool, store_dense: bool = False):
         self.pool = pool
+        self.store_dense = store_dense
         self.page_size = pool.page_size
-        self.root = _Node(b"", 0, None)         # sentinel, never evicted
+        self.root = _Node(b"", 0, None, None)   # sentinel, never evicted
         self._tick = 0
         # accounting
         self.hit_pages = 0
@@ -102,10 +111,10 @@ class RadixCache:
             n += 1
         return n
 
-    def lookup(self, prompt) -> list[int]:
-        """Longest cached prefix as page ids.  Touches the path for LRU;
-        the CALLER takes the pool refs (one per returned page) when it
-        commits to the hit."""
+    def lookup(self, prompt) -> tuple[list[int], object | None]:
+        """Longest cached prefix: ([page ids], the deepest hit node's dense
+        snapshot or None).  Touches the path for LRU; the CALLER takes the
+        pool refs (one per returned page) when it commits to the hit."""
         self._tick += 1
         self.lookups += 1
         limit = self._match_limit(prompt)
@@ -119,7 +128,7 @@ class RadixCache:
             pids.append(child.page)
             node = child
         self.hit_pages += len(pids)
-        return pids
+        return pids, (node.dense if node is not self.root else None)
 
     @property
     def hit_rate(self) -> float:
@@ -128,12 +137,13 @@ class RadixCache:
 
     # ---- publish ---------------------------------------------------------
 
-    def insert(self, prompt, page_ids) -> dict[int, int]:
+    def insert(self, prompt, page_ids, dense_snaps=None) -> dict[int, int]:
         """Publish a finished prefill's full prompt pages.
 
         Args:
           prompt: the request's token ids; page_ids: its page table
-            (page_ids[i] holds page i's KV).
+            (page_ids[i] holds page i's KV); dense_snaps: the dense state
+            after each full page (index-aligned with them) or None.
 
         Returns {block index: existing page id} for blocks where the tree
         ALREADY held an identical page (a concurrent duplicate prefill):
@@ -146,7 +156,9 @@ class RadixCache:
         for i, key in enumerate(self._page_keys(prompt)):
             child = node.children.get(key)
             if child is None:
-                child = _Node(key, page_ids[i], node)
+                snap = (dense_snaps[i] if self.store_dense and dense_snaps
+                        else None)
+                child = _Node(key, page_ids[i], snap, node)
                 self.pool.ref(page_ids[i])          # the tree's own hold
                 node.children[key] = child
                 self.inserted_pages += 1

@@ -69,6 +69,9 @@ class Request:
     # chunked-prefill progress (engine-owned, reset on preemption)
     pf_pos: int = 0                 # prompt tokens already prefilled
     n_shared: int = 0               # prefix pages served by the radix cache
+    page_snaps: list = field(default_factory=list)  # dense state after each
+                                    # full prompt page (radix, recurrent
+                                    # families)
 
     @property
     def ctx_len(self) -> int:

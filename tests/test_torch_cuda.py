@@ -142,7 +142,8 @@ def test_cuda_dgrad_int16_wraps_like_the_plain_version(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,dh,pad", [(True, 128, 0), (False, 64, 40),
-                                           (True, 32, 17)])
+                                           (True, 32, 17), (True, 112, 0),
+                                           (False, 112, 40)])
 def test_cuda_flash_attention_bitwise(cuda, causal, dh, pad):
     g = torch.Generator(device=cuda).manual_seed(4)
     b, s, t, h, kv = 2, 256, 256, 8, 2
@@ -210,13 +211,30 @@ def test_cuda_flash_attention_rows_without_keys(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_a,dh,causal", [(4, 128, True), (4, 64, False),
-                                           (2, 96, True), (8, 64, True)])
+                                           (2, 96, True), (8, 64, True),
+                                           (4, 112, True), (8, 16, False),
+                                           (8, 48, True), (8, 80, False)])
 def test_cuda_flash_attention_k_a_and_dh(cuda, k_a, dh, causal):
     """k_a below 8 (the a4 preset's 4, and the smallest, 2) and the head
-    widths below 128."""
+    widths below 128: every multiple of 16 that is no multiple of 32 runs
+    q.k over zero-padded bytes and p.v at the next multiple of 32."""
     _flash_case(cuda, s=256, t=256, q_pos=np.arange(256),
                 k_pos=np.arange(256), k_valid=np.arange(256) < 230,
                 causal=causal, dh=dh, k_a=k_a, seed=k_a * dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["g1_causal", "g1_not_causal",
+                                  "g1_ragged_chunk"])
+def test_cuda_flash_attention_zamba2_heads(cuda, case):
+    """zamba2-7b's shared attention: heads of 112, one query head per KV
+    head (G = 1: 64-row blocks of one head), causal and not, and its
+    monolithic prefill's one ragged kv chunk (a 100-token prompt)."""
+    t = 100 if case == "g1_ragged_chunk" else 256
+    _flash_case(cuda, s=t, t=t, q_pos=np.arange(t), k_pos=np.arange(t),
+                k_valid=np.arange(t) < t - 9, causal=case != "g1_not_causal",
+                dh=112, h=4, kv=4, q_chunk=min(t, 128), kv_chunk=min(t, 64)
+                if t % 64 == 0 else t, seed=t)
 
 
 @pytest.mark.cuda
@@ -951,3 +969,59 @@ def test_cuda_encdec_reduced_kernels_equal_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(state, pstate))
     for (t, lg), (pt, plg) in zip(steps, psteps):
         assert torch.equal(t, pt) and torch.equal(lg, plg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefill_mode", ["monolithic", "chunked"])
+def test_cuda_hybrid_reduced_kernels_equal_plain(cuda, prefill_mode):
+    """The hybrid (zamba2-7b.reduced() with 3 layers, a shared block after
+    every 2, heads widened to zamba2's 112 and chunks to 64, which K5
+    takes) on the kernels against its plain run on the card, from one
+    init: one make_train_step's loss, parameters and accumulator, and the
+    engine's greedy tokens over 3 requests on 2 lanes, bit for bit; the
+    kernel run launches K1-K6 (K5 in training and monolithic prefill, K6
+    in decode), the plain run none."""
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    from repro_torch.serving import Engine
+    acfg = get("zamba2-7b").reduced().replace(
+        n_layers=3, attn_every=2, head_dim=112, q_chunk=64, kv_chunk=64,
+        scan_chunk=16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, 128, (2, 65), generator=g, device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    prompts = [np.arange(n, dtype=np.int32) % 97 + 3 for n in (21, 8, 13)]
+
+    def run():
+        model = build_model(acfg, preset("full8"), device="cuda").init(0)
+        opt = init_momentum(model.params())
+        before = dict(ops.LAUNCHES)
+        loss = float(make_train_step(model, model.q)(opt, batch, 0)["loss"])
+        eng = Engine(model, max_lanes=2, page_size=8, max_ctx=32,
+                     prefill_mode=prefill_mode, prefill_chunk=2)
+        rids = [eng.submit(p, 5) for p in prompts]
+        out = eng.drain()
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+        state = [t.detach().cpu() for t in flatten((model.params(),
+                                                   opt.acc))]
+        return loss, state, [out[r] for r in rids], ran
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, state, got, ran = run()
+        with ops.plain_reference():
+            ploss, pstate, pgot, pran = run()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    for k in ("qmatmul", "quantize", "dgrad", "wgrad", "ubn_norm",
+              "flash_attention", "paged_attention"):
+        assert ran[k] > 0, k
+    assert not any(pran.values()), pran
+    assert loss == ploss and np.isfinite(loss)
+    assert all(torch.equal(a, b) for a, b in zip(state, pstate))
+    assert got == pgot

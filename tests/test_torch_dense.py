@@ -77,19 +77,17 @@ def test_full_width_layouts_at_cut_depth(name):
     assert model.n_params() == 2 * per_layer + 2 * vp * d + d
 
 
-def test_unported_families_still_raise():
-    """The hybrid keeps item 4's refusal in build_model and the config
-    registry (MoE and enc-dec are ported: tests/test_torch_moe.py,
-    tests/test_torch_encdec.py); LMTransformer refuses both families."""
-    for family in ("hybrid", "encdec"):
-        acfg = get("granite-34b").reduced().replace(family=family)
-        if family == "hybrid":
-            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-                build_model(acfg, preset("full8"), device="meta")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            LMTransformer(acfg, preset("full8"), device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        get("zamba2-7b")
+@pytest.mark.parametrize("family", ["hybrid", "encdec"])
+def test_lm_transformer_refuses_other_families(family):
+    """LMTransformer builds the lm, vlm and moe families only; build_model
+    gives the hybrid its Zamba2 (tests/test_torch_hybrid.py) and the
+    enc-dec its EncDec (tests/test_torch_encdec.py), and the config
+    registry refuses only unknown names."""
+    acfg = get("granite-34b").reduced().replace(family=family)
+    with pytest.raises(NotImplementedError, match="does not build"):
+        LMTransformer(acfg, preset("full8"), device="meta")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get("granite-35b")
 
 
 @pytest.mark.parametrize("name", DENSE)

@@ -223,7 +223,7 @@ def test_make_engine_refuses_encdec():
     with pytest.raises(NotImplementedError,
                        match="EncDec.prefill.*serve_step"):
         make_engine(NAME, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="does not build"):
         LMTransformer(get(NAME).reduced(), preset("full8"), device="meta")
 
 

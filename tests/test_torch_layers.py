@@ -350,8 +350,9 @@ def test_model_prefill_page_and_decode_step(models):
                                                            * page]),
                                     j * page)
         jk, jv = nc["k_pages"], nc["v_pages"]
-        tlg = tm.prefill_page(jpool.view(_t(row)),
-                              _t(toks[j * page:(j + 1) * page]), j * page)
+        tlg, _ = tm.prefill_page({"pos": torch.zeros(1, dtype=torch.int32)},
+                                 jpool.view(_t(row)),
+                                 _t(toks[j * page:(j + 1) * page]), j * page)
         _logits_ok(tlg.numpy(), lg)
     np.testing.assert_array_equal(jpool.k.numpy(), np.asarray(jk))
     # one decode step: lane 1 continues at position 16, lanes 0/2 dead
@@ -362,7 +363,8 @@ def test_model_prefill_page_and_decode_step(models):
             "table": jnp.asarray(table)}
     lg, _, nc = jm.paged_decode_step(params, {"pos": jnp.asarray(pos)}, view,
                                      jnp.asarray(tok))
-    tlg = tm.paged_decode_step(jpool.view(_t(table)), _t(tok), _t(pos))
+    tlg, _ = tm.paged_decode_step({"pos": _t(pos)}, jpool.view(_t(table)),
+                                  _t(tok))
     _logits_ok(tlg.numpy(), lg)
     np.testing.assert_array_equal(jpool.k.numpy(), np.asarray(nc["k_pages"]))
     assert lanes == tlg.shape[0]

@@ -102,8 +102,8 @@ WIDTHS = {"granite-moe-1b-a400m": (24, 1024, 16, 8, 64, 512, 32, 49664),
 def test_full_width_layouts(name):
     """The published layouts on the meta device (shapes only): the
     reference's `moe` subtree in place of w_gate / w_up / w_down, and the
-    parameter count (granite-moe at full depth, as chip_smoke.py runs it,
-    ~1.39 G; moonshot at 2 of 48 layers, ~1.81 G)."""
+    parameter count (granite-moe at full depth, ~1.39 G; moonshot at 2 of
+    48 layers, as chip_smoke.py runs it, ~1.81 G)."""
     nl, d, h, kv, dh, f, e, vp = WIDTHS[name]
     depth = nl if name.startswith("granite") else 2
     model = build_model(get(name).replace(n_layers=depth), preset("full8"),

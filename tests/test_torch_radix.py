@@ -110,11 +110,12 @@ def test_radix_lookup_match_limit_and_hit_accounting():
     # aligned identical prompt: the last page stays uncached (the engine
     # must compute the final prompt token to sample from)
     assert cache.match_pages(prompt) == 2
-    assert cache.lookup(prompt) == pids[:2]
+    hit, dense = cache.lookup(prompt)
+    assert hit == pids[:2] and dense is None
     # extension past the prefix may reuse every published page
     ext = np.concatenate([prompt, np.int32([99, 98])])
     assert cache.match_pages(ext) == 3
-    assert cache.lookup(ext) == pids
+    assert cache.lookup(ext)[0] == pids
     # divergence in page 2 stops the walk
     div = prompt.copy()
     div[5] = 77
@@ -143,7 +144,7 @@ def test_radix_eviction_lru_and_request_pinning():
     hot = _publish(cache, pool, np.arange(50, 58, dtype=np.int32))
     assert cache.evictable() == 4
     # a request commits to `hot`: its refs pin that chain against eviction
-    pids = cache.lookup(np.concatenate(
+    pids, _ = cache.lookup(np.concatenate(
         [np.arange(50, 58, dtype=np.int32), np.int32([1])]))
     for p in pids:
         pool.ref(p)
@@ -167,7 +168,7 @@ def test_radix_remap_tracks_pool_defrag():
     mapping = pool.defrag()
     assert mapping
     cache.remap(mapping)
-    hit = cache.lookup(np.concatenate([prompt, np.int32([5])]))
+    hit, _ = cache.lookup(np.concatenate([prompt, np.int32([5])]))
     assert hit and all(pool.refcount(p) == 1 for p in hit)
 
 
@@ -242,7 +243,8 @@ PROMPTS = [SHARED,
            np.arange(40, 48, dtype=np.int32)]        # page-aligned
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "granite-moe-1b-a400m",
+                                  "zamba2-7b"])
 def test_chunked_radix_cache_bitwise_exact(arch):
     """Acceptance: greedy outputs with the radix cache on are bit-identical
     to cache off, per family — page-scoped quantization makes cached pages
@@ -265,7 +267,7 @@ def test_chunked_radix_hits_serve_shared_prefix():
     assert eng.pool.in_use == 0
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "zamba2-7b"])
 def test_chunked_radix_exact_after_preemption_recompute(arch):
     """Preempt mid-generation in both engines at the same step: the cache-on
     engine re-prefills through radix hits on its own published pages, the
@@ -375,7 +377,7 @@ def test_refcount_defrag_eviction_chaos():
     for op in rng.integers(0, 5, size=200):
         if op == 0:                        # a request prefills + publishes
             prompt = random_prompt()
-            hit = cache.lookup(prompt)
+            hit, _ = cache.lookup(prompt)
             for p in hit:
                 pool.ref(p)
             need = len(prompt) // 4 - len(hit)

@@ -357,13 +357,13 @@ def test_prefill_page_from_zero_equals_prefill(models):
     one decode step after either agrees too."""
     tm = models[4]
     toks = _t(np.random.default_rng(8).integers(0, 128, 8).astype(np.int32))
-    lg, dense = tm.prefill_page(tm.init_slots(1), toks)
+    lg, dense = tm.prefill_page(tm.init_slots(1), None, toks, 0)
     st, lp = tm.prefill(toks[None])
     assert torch.equal(lg, lp)
     assert torch.equal(dense["h"], st["h"])
     assert torch.equal(dense["conv"], st["conv"])
     nxt = torch.tensor([5])
-    assert torch.equal(tm.paged_decode_step(dense, nxt)[0],
+    assert torch.equal(tm.paged_decode_step(dense, None, nxt)[0],
                        tm.serve_step(st, nxt)[1])
     slot, kv = tm.slot_from_cache(st, 0)
     assert kv is None
