@@ -52,7 +52,9 @@ prints no result line:
              its staged tiles), K9b selective_scan_bwd (the scan's
              gradient: at ragged shapes and at the ssm_train step's
              1 x 4096 x 8192 x 16, with its device time and the call's
-             peak memory), with
+             peak memory), K9 and K9b again on bf16 carriers
+             (scan_dtype "bf16": a prefill page, train_4k and ragged
+             shapes, bitwise), with
              its time, bound, plain time and the time of one PyTorch call
              for the same function where one exists (used only as a
              yardstick); this phase runs without deterministic mode's
@@ -91,7 +93,12 @@ prints no result line:
              qdense and attention chunks); then
              step 1 again from the same weights through the plain versions
              on the card, whose loss, parameters and momentum accumulator
-             must equal the kernel run's bit for bit.
+             must equal the kernel run's bit for bit; then step 1 once
+             more with remat "none" (every layer's activations kept),
+             whose loss, parameters and accumulator must equal the remat
+             "full" run's (the default: each layer recomputed in the
+             backward), with both peaks.  Since remat, a training step's
+             launches count the recomputed forward's too.
   5. resnet  the paper's ResNet-50 at full size (bottleneck stages 3/4/6/3,
              widths 64 -> 2048, 224 x 224 x 3 images, 1000 classes, 161
              parameter leaves, 25.6 M parameters), seed 0, full8 native,
@@ -141,7 +148,10 @@ prints no result line:
              breakdown of one more step with K9's and K9b's device time;
              then step 1 again from the same weights through the plain
              versions on the card, whose loss, parameters and accumulator
-             must equal the kernel run's bit for bit.
+             must equal the kernel run's bit for bit; then the same 3
+             steps with scan_dtype "bf16" (K9 and K9b on bf16 carriers),
+             step 1 against the plain versions, walls and peak beside
+             the fp32 run's.
   9. dense   granite-34b, phi4-mini-3.8b, minitron-4b and chameleon-34b,
              each at every published width, 2 layers, random weights from
              seed 0: greedy requests of 37 and 100 tokens, 8 new tokens
@@ -152,7 +162,7 @@ prints no result line:
              heads on 1 KV head, FFN 24576) on a 1 x 4096 sequence, whose
              loss, parameters and accumulator equal the plain run's step.
  10. moe     the MoE LMs at every published width: granite-moe-1b-a400m
-             (32 experts top-8, d 1024, FFN 512) at 12 of 24 layers,
+             (32 experts top-8, d 1024, FFN 512) at 6 of 24 layers,
              and moonshot-v1-16b-a3b (64 experts top-6, d 2048, FFN 1408)
              at 2 of 48 layers, random weights from seed 0: greedy
              requests of 37 and 100 tokens, 8 new tokens each, on 4 lanes
@@ -189,8 +199,9 @@ prints no result line:
              K4, K5 and K6; the sim runs launch K2.
  12. encdec  seamless-m4t-large-v2 (the enc-dec: d 1024, 16 heads of 64 on
              16 KV heads, FFN 8192 with gelu, LayerNorm, vocab 256206) at
-             full width and depth (24 encoder + 24 decoder layers, 1.63 G
-             parameters), random weights from seed 0: 4 requests of 4096
+             full width, 12 + 12 of its 24 encoder + 24 decoder layers
+             (full depth, 1.63 G parameters, until the full_depth phase
+             came), random weights from seed 0: 4 requests of 4096
              seeded N(0, 1) frames through `EncDec.prefill` (t_self
              1024) and 32 greedy `serve_step`s each from token 0, with the
              prefill wall, decode ms a step, tokens/s and the launches a
@@ -223,6 +234,15 @@ prints no result line:
              a profile of one more step) and step 1 through the plain
              versions, whose loss, parameters and accumulator must equal
              the kernel run's.
+ 14. full_depth  phi4-mini-3.8b (d 3072, 24 query / 8 KV heads of 128,
+             FFN 8192, vocab 200064) at full width and all 32 layers
+             (4.45 G parameters), random weights from seed 0, full8
+             native, remat "full": 2 make_train_step steps on one 1 x
+             4096 TokenTask ("arith") sequence with the split, peak
+             memory (below the card's) and launches a step; then a model
+             rebuilt from seed 0 takes step 1 through the plain versions,
+             whose loss, parameters and accumulator must equal the kernel
+             run's.
 
 `python3 chip_smoke.py PHASE ...` (e.g. `modes`) runs the build and the
 named phases alone and prints no result lines.  It ends with a line `{"kernels": [...]}`, then the card line, then
@@ -1224,6 +1244,100 @@ def kernel_rows() -> None:
                     f"{4 * a_.numel() / 1e9:.3f} GB for each of a, b, da "
                     f"and db; no PyTorch call computes it")
         del a_, b_, c_, h0, dy, dh, got
+    scan_bf16_rows(scan_inputs, f32, sms)
+
+
+def scan_bf16_rows(scan_inputs, f32, sms: int) -> None:
+    """K9 and K9b on bf16 carriers (QConfig.scan_dtype "bf16"): bitwise
+    against their plain versions (the fp32 route on the exact fp32 values,
+    each output rounded once to bf16) at a prefill page, train_4k and
+    ragged shapes across the staged tiles and K9b's chunks (N 4 runs the
+    direct route); rows at the prefill page (no path serves with bf16
+    carriers: 0 launches) and at train_4k, whose launches come from
+    ssm_train's bf16 run."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    log("[kernels] K9 selective_scan on bf16 carriers (bitwise: y and "
+        "h_last)")
+    for name, shape, with_h0, phase in (
+            ("selective_scan_bf16", (1, 16, 8192, 16), True, "none"),
+            ("selective_scan_bf16_train_4k", (1, TRAIN_SEQ, 8192, 16),
+             False, ("ssm_train", "bf16:selective_scan")),
+            (None, (1, 17, 8192, 16), True, None),
+            (None, (2, 33, 300, 16), False, None),
+            (None, (2, 37, 1000, 4), True, None)):
+        a_, b_, c_, h0 = (t.to(bf) for t in scan_inputs(*shape))
+        h0 = h0 if with_h0 else None
+        y, hl = ops.selective_scan(a_, b_, c_, h0)
+        yp, hp = ref.selective_scan(a_, b_, c_, h0)
+        assert y.dtype == bf and torch.equal(y, yp) and torch.equal(hl, hp), \
+            f"selective_scan bf16 {shape} differs"
+        if name is None:
+            continue
+        nbytes = 2 * (2 * a_.numel() + c_.numel() + y.numel()
+                      + (2 if with_h0 else 1) * hl.numel())
+        call = lambda: ops.selective_scan(a_, b_, c_, h0)  # noqa: E731
+        p = ops.sscan_plan(*shape, sms, 2)
+        record(name, "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan.py:60", time_ms(call),
+               time_ms(lambda: ref.selective_scan(a_, b_, c_, h0),
+                       2 if shape[1] > 16 else 5),
+               nbytes, 4 * a_.numel(), FP32_OPS, None,
+               max(max_err(y, yp), max_err(hl, hp)), phase,
+               device_ms=device_ms(call),
+               note=f"{'x'.join(map(str, shape))} bf16, {p['route']} route "
+                    f"(tile {p['tile']}, stages {p['stages']}, "
+                    f"{p['smem']} B shared)")
+        del a_, b_, c_, h0, y, hl, yp, hp
+
+    log("[kernels] K9b selective_scan_bwd on bf16 carriers (bitwise: da, "
+        "db, dc, dh0)")
+    for name, shape, with_h0 in (
+            ("selective_scan_bwd_bf16", (1, TRAIN_SEQ, 8192, 16), False),
+            (None, (2, 37, 1000, 4), True),
+            (None, (3, 9, 65, 16), True),
+            (None, (1, 17, 8192, 16), False)):
+        a_, b_, c_, h0 = (t.to(bf) for t in scan_inputs(*shape))
+        h0 = h0 if with_h0 else None
+        dy = f32(*shape[:3]).to(bf)
+        dh = None if h0 is None else f32(*h0.shape).to(bf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = ops.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = ref.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        err = max(max_err(x, w) for x, w in zip(got, want) if x is not None)
+        assert all((x is None and w is None) or torch.equal(x, w)
+                   for x, w in zip(got, want)), \
+            f"selective_scan_bwd bf16 {shape} differs"
+        if name is None:
+            continue
+        del want
+        # the fp32 row's count at 2 bytes an element; the checkpoint buffer
+        # is scratch and not counted
+        nbytes = 2 * (4 * a_.numel() + c_.numel() + dy.numel()
+                      + c_.numel() + (3 if with_h0 else 0) * a_[:, 0].numel())
+
+        def call():
+            return ops.selective_scan_bwd(a_, b_, c_, dy, h0, dh)
+        record(name, "src/repro_torch/csrc/selective_scan_bwd.cu",
+               "none (port-only K9b: the reference differentiates its XLA "
+               "scan, src/repro/models/ssm.py:85)", time_ms(call, 5),
+               time_ms(lambda: ref.selective_scan_bwd(a_, b_, c_, dy, h0,
+                                                      dh), 1),
+               nbytes, 8 * a_.numel(), FP32_OPS, None, err,
+               ("ssm_train", "bf16:selective_scan_bwd"),
+               device_ms=device_ms(call, 10),
+               note=f"{'x'.join(map(str, shape))} bf16, a and b read "
+                    f"twice, fp32 checkpoints in their own "
+                    f"{4 * a_.numel() // 8 / 1e9:.3f} GB buffer; peak "
+                    f"memory of a call {peak / 1e9:.3f} GB beside "
+                    f"{2 * a_.numel() / 1e9:.3f} GB for each of a, b, da "
+                    f"and db")
+        del a_, b_, c_, h0, dy, dh, got
 
 
 def encdec_kernel_rows(i8, f32, sms: int) -> None:
@@ -1840,15 +1954,16 @@ def _host_copy(tree) -> list:
 
 def plain_step_equal(tag: str, model, step, batch, init_params, after1,
                      loss1: float) -> None:
-    """Step 1 again from `init_params` and a fresh optimizer state through
-    the plain versions on the card: its loss, every parameter leaf and
-    every accumulator leaf must equal the kernel run's (`loss1`, `after1`)
-    bit for bit."""
+    """Step 1 again from `init_params` (None: the model as built, from the
+    kernel run's seed) and a fresh optimizer state through the plain
+    versions on the card: its loss, every parameter leaf and every
+    accumulator leaf must equal the kernel run's (`loss1`, `after1`) bit
+    for bit."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.optim import flatten, init_momentum
     with torch.no_grad():
-        for p, h in zip(flatten(model.params()), init_params):
+        for p, h in zip(flatten(model.params()), init_params or []):
             p.copy_(h)
     opt = init_momentum(model.params())
     before = dict(ops.LAUNCHES)
@@ -1898,12 +2013,50 @@ def phase_train() -> dict:
 
     total = train_steps("train", model, cfg,
                         [task.batch(i) for i in range(TRAIN_STEPS + 1)],
-                        TRAIN_KERNELS, k1_by_contraction, profiled)
+                        TRAIN_KERNELS, k1_by_contraction, profiled,
+                        keep=True)
     log(f"[train] K1 launches in {TRAIN_STEPS} steps by contraction: "
         f"{ {k: v for k, v in total.items() if k.startswith('qmatmul_')} }")
     del model
     torch.cuda.empty_cache()
+    remat_check(cfg, task.batch(0))
     return total
+
+
+def remat_check(cfg, batch) -> None:
+    """Step 1 of the train phase's model again with remat "none" (every
+    layer's activations kept for the backward): its loss, weights and
+    accumulator must equal the remat "full" run's bit for bit; both
+    peaks printed."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.models import build_model
+    tag = "train_remat_none"
+    model = build_model(get("granite-3-8b").replace(n_layers=4,
+                                                    remat="none"),
+                        cfg, device="cuda").init(0)
+    train_steps(tag, model, cfg, [batch], TRAIN_KERNELS, plain=False,
+                keep=True)
+    full, none = RUNS["train"], RUNS[tag]
+    same_p = [torch.equal(x, y) for x, y in zip(full["after1"],
+                                                 none["after1"])]
+    same_a = [torch.equal(x, y) for x, y in zip(full["after1_acc"],
+                                                 none["after1_acc"])]
+    log(f"[train] remat: step 1 with remat none, loss "
+        f"{none['losses'][0]:.6f} vs {full['losses'][0]:.6f}; parameters "
+        f"equal {sum(same_p)}/{len(same_p)}, accumulator equal "
+        f"{sum(same_a)}/{len(same_a)}; peak device memory "
+        f"{none['peak'] / 1e9:.2f} GB (none) vs {full['peak'] / 1e9:.2f} GB "
+        f"(full) over {none['base'] / 1e9:.2f} and "
+        f"{full['base'] / 1e9:.2f} GB resident before the runs (the model "
+        f"included), step {none['walls'][0]:.3f} s vs "
+        f"{min(full['walls']):.3f}-{max(full['walls']):.3f} s")
+    assert none["losses"][0] == full["losses"][0], "remat: loss differs"
+    assert all(same_p) and all(same_a), "remat: step 1 differs"
+    for run in (full, none):
+        del run["after1"], run["after1_acc"]
+    del model
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1943,7 +2096,8 @@ def step_parts(model, parts: list):
 
 
 def train_steps(tag: str, model, cfg, batches, kernels, count=None,
-                profiled=None, plain: bool = True) -> dict:
+                profiled=None, plain: bool = True,
+                keep: bool = False) -> dict:
     """make_train_step over `batches` (step i on batches[i]): per step its
     metrics, wall, peak memory, forward / backward / optimizer split and
     launches, every kernel of `kernels` launched in every step; then step
@@ -1952,19 +2106,26 @@ def train_steps(tag: str, model, cfg, batches, kernels, count=None,
     into the dict it is given in each step (k1_by_contraction,
     bn_by_shape).  With `profiled`, the last batch is not a timed step:
     `profiled(run)` is handed one more step on it.  Returns the launches
-    summed over the timed steps; RUNS[tag] keeps the losses, walls, peak
-    memory and the parameters after step 1 (on the host)."""
+    summed over the timed steps; RUNS[tag] keeps the losses, walls and
+    peak memory, and with `keep` the parameters ("after1") and the
+    accumulator ("after1_acc") after step 1 on the host, for a comparison
+    across runs whose caller then drops them (the host holds 96 GiB)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.train import make_train_step
+    import gc
+
     from repro_torch.optim import init_momentum
-    init_params = _host_copy(model.params())
+    gc.collect()            # earlier phases' garbage off the card's peak
+    torch.cuda.empty_cache()
+    init_params = _host_copy(model.params()) if plain else None
     opt = init_momentum(model.params())
     step = make_train_step(model, cfg, lr=0.05)
     timed = batches[:-1] if profiled else batches
     total = dict.fromkeys(ops.LAUNCHES, 0)
     after1, loss1, parts, peak = None, None, [], 0
-    run = RUNS[tag] = {"losses": [], "walls": []}
+    run = RUNS[tag] = {"losses": [], "walls": [],
+                       "base": torch.cuda.memory_allocated()}
     first = next(iter(batches[0].values()))
     unit = ("tokens", first.size) if "tokens" in batches[0] \
         else ("images", first.shape[0])
@@ -2001,7 +2162,8 @@ def train_steps(tag: str, model, cfg, batches, kernels, count=None,
             after1 = (_host_copy(model.params()), _host_copy(opt.acc))
             loss1 = met["loss"]
     PEAK[tag] = run["peak"] = peak
-    run["after1"] = after1[0]
+    if keep:
+        run["after1"], run["after1_acc"] = after1
     if profiled:
         profiled(lambda: step(opt, batches[-1], len(timed)))
     if plain:
@@ -2046,8 +2208,9 @@ def phase_ssm_train() -> dict:
         f"{TRAIN_SEQ} tokens (TokenTask arith); built in "
         f"{time.time() - t0:.1f} s")
     # where a step's time goes: device time by kernel name, K9's and K9b's
+    batches = [task.batch(i) for i in range(SSM_TRAIN_STEPS + 1)]
     total = train_steps(
-        tag, model, cfg, [task.batch(i) for i in range(SSM_TRAIN_STEPS + 1)],
+        tag, model, cfg, batches,
         SSM_TRAIN_KERNELS, profiled=lambda run: with_profile(
             run, "ssm train step",
             {"K9 (sscan_staged)": "sscan_staged",
@@ -2055,6 +2218,26 @@ def phase_ssm_train() -> dict:
              "K1 (qmm_*)": "qmm_", "K3 (bwd_*)": "bwd_"}))
     del model
     torch.cuda.empty_cache()
+    # the same model and batches on bf16 scan carriers (scan_dtype "bf16":
+    # K9 and K9b on bf16 a, b, c), step 1 against the plain replay
+    t0 = time.time()
+    bcfg = cfg.replace(scan_dtype="bf16")
+    model = build_model(get("falcon-mamba-7b").replace(n_layers=4), bcfg,
+                        device="cuda").init(0)
+    log(f"[{tag}_bf16] the same model with scan_dtype bf16; built in "
+        f"{time.time() - t0:.1f} s")
+    bf16 = train_steps(f"{tag}_bf16", model, bcfg,
+                       batches[:SSM_TRAIN_STEPS], SSM_TRAIN_KERNELS)
+    f32r, bfr = RUNS[tag], RUNS[f"{tag}_bf16"]
+    log(f"[{tag}_bf16] steps {[round(w, 3) for w in bfr['walls']]} s, peak "
+        f"{bfr['peak'] / 1e9:.2f} GB; fp32 carriers: steps "
+        f"{[round(w, 3) for w in f32r['walls']]} s, peak "
+        f"{f32r['peak'] / 1e9:.2f} GB; losses "
+        f"{[round(x, 6) for x in bfr['losses']]} vs "
+        f"{[round(x, 6) for x in f32r['losses']]}")
+    del model
+    torch.cuda.empty_cache()
+    total.update({f"bf16:{k}": v for k, v in bf16.items()})
     return total
 
 
@@ -2148,12 +2331,12 @@ def phase_dense() -> dict:
 # ---------------------------------------------------------------------------
 
 # (name, short name, published depth, the depth served and trained):
-# granite-moe at 12 of 24 layers (its full depth took some 180 s of the
-# whole run on a slow host, whose limit the hybrid phase approached);
+# granite-moe at 6 of 24 layers (its full depth took some 180 s of the
+# whole run on a slow host; 12 layers until the full_depth phase came);
 # moonshot at 2 of 48 layers (0.57 G parameters a layer: its 28 G at full
 # depth do not fit one card in fp32, let alone with the step's gradient
 # and accumulator)
-MOE = (("granite-moe-1b-a400m", "granite", 24, 12),
+MOE = (("granite-moe-1b-a400m", "granite", 24, 6),
        ("moonshot-v1-16b-a3b", "moonshot", 48, 2))
 MOE_PROMPT_LENS = (37, 100)
 MOE_NEW = 8
@@ -2238,7 +2421,8 @@ def moe_profile(run, what: str) -> None:
         log(f"[profile] {what}: MoE ranges: not measured (no range on the "
             f"card's timeline)")
         return
-    log(f"[profile] {what}: device ms by range "
+    log(f"[profile] {what}: device ms by range (remat runs each layer's "
+        f"forward ranges twice) "
         + ", ".join(f"{name.removeprefix('MoE ')} {ns / 1e6:.3f} ({k} "
                     f"kernels in {n} calls)"
                     for name, (n, k, ns) in sorted(split.items())))
@@ -2423,7 +2607,7 @@ def moe_train(tag: str, name: str, short: str, full: int, depth: int,
 
 
 def phase_moe() -> dict:
-    """granite-moe-1b-a400m (12 of 24 layers) and moonshot-v1-16b-a3b (2
+    """granite-moe-1b-a400m (6 of 24 layers) and moonshot-v1-16b-a3b (2
     layers) at full width: served and trained against the plain versions.
     Returns the launches: per op summed, and K1's expert contractions by
     model:run:contraction."""
@@ -2878,7 +3062,7 @@ def modes_quickstart(out: dict) -> None:
         tag = f"modes {label}"
         total = train_steps(tag, model, cfg, batches,
                             ("quantize",) if cfg.mode == "sim" else (),
-                            plain=not cfg.native)
+                            plain=not cfg.native, keep=name == "full8")
         if not cfg.native:
             off_native(tag, total, cfg.mode == "sim")
         out[f"quickstart {label}"] = total
@@ -2903,6 +3087,9 @@ def modes_quickstart(out: dict) -> None:
         f"differing {np.mean(d > 0):.6f}, max distance {d.max():.0f} codes; "
         f"step-1 loss {rows[2]['losses'][0]:.6f} vs "
         f"{rows[3]['losses'][0]:.6f}")
+    for label in ("full8 sim", "full8 native"):
+        del RUNS[f"modes {label}"]["after1"], \
+            RUNS[f"modes {label}"]["after1_acc"]
 
 
 def modes_serve(out: dict) -> None:
@@ -3046,6 +3233,9 @@ ENCDEC_SRC = TRAIN_SEQ    # frames a request (train_4k); t_self = S // 4
 ENCDEC_NEW = 32           # greedy tokens a request
 ENCDEC_START = 0          # the fixed start token of every request
 ENCDEC_TRAIN_STEPS = 3
+# encoder and decoder layers each, of the published 24 + 24: cut from full
+# depth since the full_depth phase (the whole run's time limit)
+ENCDEC_DEPTH = 12
 ENCDEC_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention")
 # device time by kernel family: the substring of its kernels' names
 KERNEL_NAMES = {"K1": "qmm_", "K2": "quantize_kernel", "K3": "bwd_",
@@ -3226,9 +3416,9 @@ def encdec_serve(model, launches: dict) -> None:
 
 
 def phase_encdec() -> dict:
-    """seamless-m4t-large-v2 at full width and depth (24 + 24 layers):
-    served, then trained ENCDEC_TRAIN_STEPS steps, each against the plain
-    versions.  Returns the launches: per op summed, and K4's and K5's by
+    """seamless-m4t-large-v2 at full width, ENCDEC_DEPTH + ENCDEC_DEPTH of
+    its 24 + 24 layers: served, then trained ENCDEC_TRAIN_STEPS steps,
+    each against the plain versions.  Returns the launches: per op summed, and K4's and K5's by
     shape or call."""
     import torch
     from repro_torch.configs import get
@@ -3237,12 +3427,16 @@ def phase_encdec() -> dict:
     from repro_torch.models import build_model
     t_phase = time.time()
     cfg = preset("full8")
-    model = build_model(get(ENCDEC), cfg, device="cuda").init(0)
+    full = get(ENCDEC)
+    model = build_model(full.replace(enc_layers=ENCDEC_DEPTH,
+                                     dec_layers=ENCDEC_DEPTH), cfg,
+                        device="cuda").init(0)
     a = model.a
     log(f"[encdec] {a.name} at full width (d={a.d_model}, heads "
         f"{a.n_heads}/{a.n_kv} x {a.dh}, ffn {a.d_ff}, {a.act}, "
-        f"{a.norm}, vocab {a.vocab} -> {a.vocab_padded}) and depth "
-        f"({a.enc_layers} + {a.dec_layers} layers), "
+        f"{a.norm}, vocab {a.vocab} -> {a.vocab_padded}), depth cut to "
+        f"{a.enc_layers} + {a.dec_layers} of {full.enc_layers} + "
+        f"{full.dec_layers} layers, "
         f"{model.n_params() / 1e9:.3f} G fp32 params, random weights (seed "
         f"0), full8 native; built in {time.time() - t_phase:.1f} s")
     launches: dict = {}
@@ -3256,7 +3450,7 @@ def phase_encdec() -> dict:
         batch["frames"] = torch.randn((1, TRAIN_SEQ, a.d_model),
                                       generator=g, device="cuda")
         batches.append(batch)
-    log(f"[encdec] train: the same model, full depth ({a.enc_layers} + "
+    log(f"[encdec] train: the same model ({a.enc_layers} + "
         f"{a.dec_layers} layers), batch 1 x "
         f"{TRAIN_SEQ} frames (seeded N(0, 1)) and {t_tgt} target tokens "
         f"(TokenTask arith), lr 0.05")
@@ -3475,6 +3669,71 @@ def phase_hybrid() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: phi4-mini-3.8b trained at full depth on one card (remat "full")
+# ---------------------------------------------------------------------------
+
+FULL_DEPTH_STEPS = 2
+FULL_DEPTH_KERNELS = ("qmatmul", "quantize", "ubn_norm", "dgrad", "wgrad",
+                      "flash_attention")
+
+
+def phase_full_depth() -> dict:
+    """phi4-mini-3.8b at full width and all 32 layers, full8 native, remat
+    "full" (each layer's activations recomputed in the backward): 2
+    make_train_step steps on one 1 x 4096 sequence with the split, peak
+    memory and launches, then step 1 through the plain versions on a
+    model rebuilt from the same seed, whose loss, parameters and
+    accumulator must equal the kernel run's.  Returns the launches of the
+    2 steps."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    tag = "full_depth"
+    cfg = preset("full8")
+    acfg = get("phi4-mini-3.8b")
+
+    def build():
+        return build_model(acfg, cfg, device="cuda").init(0)
+
+    t0 = time.time()
+    model = build()
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    log(f"[{tag}] {describe(model, acfg.n_layers)}, remat "
+        f"{model.a.remat}, full8 native, batch 1 x {TRAIN_SEQ} tokens "
+        f"(TokenTask arith); masters, gradients and accumulators "
+        f"{12 * model.n_params() / 1e9:.1f} GB of the card's "
+        f"{total_mem / 1e9:.1f} GB; built in {time.time() - t0:.1f} s")
+    task = TokenTask(acfg.vocab, TRAIN_SEQ, 1, kind="arith")
+    batches = [task.batch(i) for i in range(FULL_DEPTH_STEPS)]
+    total = train_steps(tag, model, cfg, batches, FULL_DEPTH_KERNELS,
+                        plain=False, keep=True)
+    run = RUNS[tag]
+    log(f"[{tag}] peak device memory {run['peak'] / 1e9:.2f} GB of "
+        f"{total_mem / 1e9:.1f} GB; launches a step "
+        f"{ {k: v // FULL_DEPTH_STEPS for k, v in total.items() if v} }")
+    assert run["peak"] < total_mem
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    model = build()
+    log(f"[{tag}] rebuilt from seed 0 for the plain replay in "
+        f"{time.time() - t0:.1f} s")
+    plain_step_equal(tag, model, make_train_step(model, cfg, lr=0.05),
+                     batches[0], None, (run["after1"], run["after1_acc"]),
+                     run["losses"][0])
+    del run["after1"], run["after1_acc"], model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3511,7 +3770,8 @@ def main() -> int:
     phase_ckpt()
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
                 dense=phase_dense(), moe=phase_moe(), modes=phase_modes(),
-                encdec=phase_encdec(), hybrid=phase_hybrid(), none={})
+                encdec=phase_encdec(), hybrid=phase_hybrid(),
+                full_depth=phase_full_depth(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -49,6 +49,9 @@ class ArchConfig:
     # parity), as is unroll_scan_chunks (a lax.scan option)
     scan_chunk: int = 256
     unroll_scan_chunks: bool = False
+    # remat policy for the layer loop: "full" (checkpoint every layer)
+    # or "none" (save everything; trades HBM for recompute)
+    remat: str = "full"
     # hybrid (zamba2): one shared attention block after every `attn_every`
     # Mamba2 layers
     attn_every: int = 0

@@ -111,8 +111,10 @@ class QConfig:
     quant_e2: bool = True
     quant_u: bool = True
 
-    # carrier dtype of the SSM scan's inputs and state: "f32" only
-    # ("bf16" raises in validate())
+    # carrier dtype of the Mamba1 scan's inputs and state in train and
+    # chunk modes: "bf16" selects bf16 carriers (K9 / K9b keep h in fp32
+    # and round their outputs to bf16), anything else fp32; decode stays
+    # fp32 (models/ssm.py mamba1_block)
     scan_dtype: str = "f32"
 
     # paged decode attention through the fused kernel (K6) or gather-then-
@@ -168,10 +170,6 @@ class QConfig:
     def validate(self) -> None:
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r} (one of {MODES})")
-        if self.scan_dtype != "f32":
-            raise NotImplementedError(
-                f"scan_dtype={self.scan_dtype!r} is not ported yet (the scan "
-                "kernel K9 runs in fp32): ROADMAP Queue 1 item 4")
         # Paper Eq. 22: k_Ggamma = k_Gbeta = k_GC = k_Mom + k_Acc - 1
         if not (self.k_ggamma == self.k_gbeta == self.k_gc
                 == self.k_mom + self.k_acc - 1):

@@ -49,7 +49,7 @@ from repro_torch.kernels import ops
 from . import qfuncs as qf
 from .qconfig import QConfig
 from .qtensor import (QTensor, get_quantizer, qt_carrier, quantize_ste,
-                      resolve_quantizer)
+                      resolve_quantizer, save_qtensors, saved_qtensors)
 
 Tensor = torch.Tensor
 
@@ -360,15 +360,15 @@ class _QEinsum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a_in, b_in, cfg, spec, e_kind, qa, qb):
-        ctx.cfg, ctx.spec, ctx.e_kind, ctx.qa, ctx.qb = (cfg, spec, e_kind,
-                                                         qa, qb)
+        ctx.cfg, ctx.spec, ctx.e_kind = cfg, spec, e_kind
+        ctx.ks = save_qtensors(ctx, qa, qb)
         return _qt_contract(spec, qa, qb)
 
     @staticmethod
     def backward(ctx, g):
         want_a, want_b = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
-        a_s, b_s, spec = ctx.qa, ctx.qb, ctx.spec
-        ctx.qa = ctx.qb = None
+        a_s, b_s = saved_qtensors(ctx, ctx.ks)
+        spec = ctx.spec
         quantizer = _error_quantizer(ctx.cfg, ctx.e_kind)
         g = g.contiguous()
         fused = _fused_bwd(spec, quantizer, g, a_s, b_s, want_a, want_b)

@@ -117,6 +117,23 @@ def qt_carrier(x) -> Tensor:
     return x.to_array() if isinstance(x, QTensor) else x
 
 
+def save_qtensors(ctx, *qts: QTensor) -> tuple:
+    """Save the payloads of carrier-free QTensors through
+    `ctx.save_for_backward`, where a layer's checkpoint (remat "full")
+    drops them and its recompute restores them; returns the widths that
+    `saved_qtensors` needs to rebuild them."""
+    ctx.save_for_backward(*(t for q in qts
+                            for t in (q.data, q.scale, q.lo, q.lo_scale)))
+    return tuple(q.k for q in qts)
+
+
+def saved_qtensors(ctx, ks: tuple) -> list:
+    """The QTensors `save_qtensors` saved, in order."""
+    t = ctx.saved_tensors
+    return [QTensor(t[4 * i], t[4 * i + 1], k, t[4 * i + 2], t[4 * i + 3])
+            for i, k in enumerate(ks)]
+
+
 def _decompose(x: Tensor, step, k: int) -> QTensor:
     """clip(round(x / step)) saturated to the signed k-bit range; `step`
     (a 0-d tensor or a float) is a power of two, so the reciprocal multiply

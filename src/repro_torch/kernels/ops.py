@@ -11,8 +11,9 @@ version (`kernels/ref.py`) for a CPU tensor.
   flash_attention  K5  tiled online-softmax int8 attention (training fwd)
   page_gather      K7  paged int8 KV gather through a page table
   paged_attention  K6  paged int8 decode attention over the live positions
-  selective_scan   K9  the Mamba1 recurrence with a carried state; its
-                       gradient is an autograd Function whose backward is
+  selective_scan   K9  the Mamba1 recurrence with a carried state, on
+                       fp32 or bf16 carriers; its gradient is an autograd
+                       Function whose backward is
   selective_scan_bwd K9b the reverse scan (port-only: the reference
                        differentiates an XLA scan)
 
@@ -26,7 +27,9 @@ that way); the serving path never enters it.
 launches its kernel (K6 counts one per call, which is three launches
 with nothing between them; K1, K3, K4 "batch", K5 and K7 count
 one per call likewise, and K9b one per call for its scan and its dc
-pass) and never on the plain route.
+pass) and never on the plain route.  A training step with remat "full"
+(models/layers.py `maybe_remat`) runs each layer's forward again in the
+backward, and those launches count too.
 """
 from __future__ import annotations
 
@@ -72,8 +75,11 @@ _SIGS = {
         c_int, c_int, c_int, _P],
     ("flash_attention", "fa_pcode_check"): [_P, _P, _P],
     ("selective_scan", "sscan_launch"): [_P] * 6 + [c_int] * 7 + [_P],
+    ("selective_scan", "sscan_bf16_launch"): [_P] * 6 + [c_int] * 7 + [_P],
     ("selective_scan_bwd", "sscan_bwd_launch"): [_P] * 11 + [c_int] * 4
     + [_P],
+    ("selective_scan_bwd", "sscan_bwd_bf16_launch"): [_P] * 12
+    + [c_int] * 4 + [_P],
 }
 _FNS: dict = {}
 
@@ -940,27 +946,37 @@ def flash_pcode_mismatches(device) -> list[int]:
 SCAN_STATES = (4, 16)   # the N the kernel is instantiated for
 SCAN_THREADS = 128      # a block: 128 / (N / 4) channels of one batch row
 SCAN_PAGE = 16          # an S up to this is one staged tile
+SCAN_BWD_CHUNK = 8      # K9b's steps recomputed from one checkpoint
+SCAN_DTYPES = (torch.float32, torch.bfloat16)
+SCAN_LAUNCH = {torch.float32: "sscan_launch",
+               torch.bfloat16: "sscan_bf16_launch"}
+SCAN_BWD_LAUNCH = {torch.float32: "sscan_bwd_launch",
+                   torch.bfloat16: "sscan_bwd_bf16_launch"}
 
 
-def sscan_plan(bsz: int, s: int, d: int, n: int, sms: int) -> dict:
+def sscan_plan(bsz: int, s: int, d: int, n: int, sms: int,
+               esize: int = 4) -> dict:
     """The launch plan of K9 (csrc/selective_scan.cu) for a (B, S, D, N)
-    scan on a card of `sms` SMs.  A channel's N states are split over
-    `lanes` = N / 4 threads; a block takes `chans` = 128 / lanes channels.
-    S <= 1 (a decode step) takes the "direct" route; a longer S the
-    "staged" one: a prefill page (S <= 16) is one tile of S steps, a longer
-    S tiles of 4 steps in a ring of 4 stages (2 where more than three
-    blocks must share an SM).  `smem` is a staged block's shared bytes."""
+    scan of `esize`-byte operands (4: fp32, 2: bf16) on a card of `sms`
+    SMs.  A channel's N states are split over `lanes` = N / 4 threads; a
+    block takes `chans` = 128 / lanes channels.  S <= 1 (a decode step)
+    takes the "direct" route; a longer S the "staged" one: a prefill page
+    (S <= 16) is one tile of S steps, a longer S tiles of 4 steps in a
+    ring of 4 stages (2 where more than three blocks must share an SM).
+    bf16 at N = 4 always takes the direct route: a step's row of 4-state
+    channels is 8 bytes a channel, too narrow for the 16-byte bulk copies.
+    `smem` is a staged block's shared bytes."""
     lanes = n // 4
     chans = SCAN_THREADS // lanes
     blocks = bsz * -(-d // chans)
-    if s <= 1:
+    if s <= 1 or esize * n < 16:
         return {"route": "direct", "lanes": lanes, "chans": chans,
                 "blocks": blocks, "tile": 1, "stages": 0, "smem": 0}
     if s <= SCAN_PAGE:
         tile, stages = s, 1
     else:
         tile, stages = 4, 4 if -(-blocks // sms) <= 3 else 2
-    smem = 64 + stages * tile * (2 * chans * n + n) * 4
+    smem = 64 + stages * tile * (2 * chans * n + n) * esize
     return {"route": "staged", "lanes": lanes, "chans": chans,
             "blocks": blocks, "tile": tile, "stages": stages, "smem": smem}
 
@@ -981,11 +997,13 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
                    h0: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Mamba1 selective scan h_t = a_t * h_{t-1} + b_t, y_t = c_t . h_t.
 
-    a, b: (B, S, D, N) f32; c: (B, S, N) f32; h0: (B, D, N) f32 carried
-    state, or None for zeros (the TPU kernel's function).  Returns
-    (y (B, S, D) f32, h_last (B, D, N) f32); on the card both are views of
-    one allocation.  The kernel takes N in SCAN_STATES and B < 65536; other
-    shapes raise ValueError.  Differentiable through `_SelectiveScan`,
+    a, b: (B, S, D, N); c: (B, S, N); h0: (B, D, N) carried state, or None
+    for zeros (the TPU kernel's function); all f32, or all bf16 (the
+    carriers of `scan_dtype="bf16"`: h stays fp32 inside, the outputs
+    round to bf16).  Returns (y (B, S, D), h_last (B, D, N)) in the
+    operands' dtype; on the card both are views of one allocation.  The
+    kernel takes N in SCAN_STATES and B < 65536; other shapes and mixed
+    dtypes raise ValueError.  Differentiable through `_SelectiveScan`,
     whose backward is `selective_scan_bwd` (K9b on the card)."""
     return _SelectiveScan.apply(a, b, c, h0)
 
@@ -1012,10 +1030,12 @@ class _SelectiveScan(torch.autograd.Function):
 def _scan_checks(op: str, a: Tensor, b: Tensor, c: Tensor,
                  h0: Tensor | None, **more) -> None:
     """The operand checks K9 and K9b share; `more` holds further (B, D, N)
-    or (B, S, D) operands by name."""
-    _need(a.dim() == 4 and a.dtype == torch.float32 and b.dtype == a.dtype
-          and c.dtype == a.dtype, "{} takes (B, S, D, N) f32 a and b and "
-          "(B, S, N) f32 c", op)
+    or (B, S, D) operands by name.  Every operand is f32, or every one
+    bf16."""
+    _need(a.dim() == 4 and a.dtype in SCAN_DTYPES and b.dtype == a.dtype
+          and c.dtype == a.dtype, "{} takes (B, S, D, N) a and b and "
+          "(B, S, N) c, all f32 or all bf16; got {}, {}, {}", op, a.dtype,
+          b.dtype, c.dtype)
     bsz, s, d, n = a.shape
     _need(b.shape == a.shape and c.shape == (bsz, s, n),
           "{} shapes a {}, b {}, c {}", op, tuple(a.shape), tuple(b.shape),
@@ -1030,9 +1050,9 @@ def _scan_checks(op: str, a: Tensor, b: Tensor, c: Tensor,
         if t is None:
             continue
         want = (bsz, s, d) if name == "dy" else (bsz, d, n)
-        _need(t.shape == want and t.dtype == torch.float32
-              and t.device == a.device, "{} {} {} is not {} f32", op, name,
-              tuple(t.shape), want)
+        _need(t.shape == want and t.dtype == a.dtype
+              and t.device == a.device, "{} {} {} {} is not {} {}", op,
+              name, tuple(t.shape), t.dtype, want, a.dtype)
 
 
 def _scan_forward(a: Tensor, b: Tensor, c: Tensor,
@@ -1044,19 +1064,20 @@ def _scan_forward(a: Tensor, b: Tensor, c: Tensor,
     if h0 is not None:
         h0 = _aligned(h0)
     ac, bc, cc = _aligned(a), _aligned(b), _aligned(c)
-    key = (bsz, s, d, n, _sm_count(a.device))
+    es = a.element_size()
+    key = (bsz, s, d, n, _sm_count(a.device), es)
     p = _SCAN_PLANS.get(key)
     if p is None:
         p = _SCAN_PLANS[key] = sscan_plan(*key)
-    # one allocation: h_last first, so that its float4 stores are aligned,
+    # one allocation: h_last first, so that its vector stores are aligned,
     # then y
     hn = bsz * d * n
-    buf = torch.empty(hn + bsz * s * d, dtype=torch.float32, device=a.device)
+    buf = torch.empty(hn + bsz * s * d, dtype=a.dtype, device=a.device)
     h_last = buf.as_strided((bsz, d, n), (d * n, n, 1))
     y = buf.as_strided((bsz, s, d), (s * d, d, 1), hn)
-    _launch("selective_scan", "sscan_launch", _ptr(ac), _ptr(bc), _ptr(cc),
-            _ptr(h0), buf.data_ptr() + 4 * hn, _ptr(buf), bsz, s, d, n,
-            int(p["route"] == "staged"), p["tile"], p["stages"],
+    _launch("selective_scan", SCAN_LAUNCH[a.dtype], _ptr(ac), _ptr(bc),
+            _ptr(cc), _ptr(h0), buf.data_ptr() + es * hn, _ptr(buf), bsz, s,
+            d, n, int(p["route"] == "staged"), p["tile"], p["stages"],
             _stream(ac))
     LAUNCHES["selective_scan"] += 1
     return y, h_last
@@ -1067,15 +1088,18 @@ def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
                        dh_last: Tensor | None = None):
     """The gradient of `selective_scan` (K9b): (da, db (B, S, D, N),
     dc (B, S, N), dh0 (B, D, N) or None without h0) from the forward's
-    operands, dy (B, S, D) and dh_last (B, D, N) or None.  The numerics
-    and the order of dc's sum are `ref.selective_scan_bwd`'s.
+    operands, dy (B, S, D) and dh_last (B, D, N) or None, all in the
+    operands' dtype (f32 or bf16).  The numerics and the order of dc's
+    sum are `ref.selective_scan_bwd`'s.
 
     On the card: one kernel launch runs the forward once more, leaving the
-    state before every chunk of 8 steps in da's first step of that chunk,
-    then walks the chunks backwards, recomputing each chunk's h from its
-    checkpoint before da overwrites it, and writes each block's float64 dc
-    partials; a second launch sums the partials in block order.
-    Takes the shapes K9 takes; others raise ValueError."""
+    state before every chunk of 8 steps in da's first step of that chunk
+    (fp32; bf16 carriers cannot hold it, so there a (B, ceil(S / 8), D, N)
+    fp32 buffer takes it), then walks the chunks backwards, recomputing
+    each chunk's h from its checkpoint before da overwrites it, and writes
+    each block's float64 dc partials; a second launch sums the partials in
+    block order.  Takes the shapes and dtypes K9 takes; others raise
+    ValueError."""
     if not _on_kernel(a):
         return ref.selective_scan_bwd(a, b, c, dy, h0, dh_last)
     _scan_checks("selective_scan_bwd", a, b, c, h0, dy=dy, dh_last=dh_last)
@@ -1089,11 +1113,16 @@ def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
     da, db = torch.empty_like(ac), torch.empty_like(ac)
     part = torch.empty((bsz, s, tiles, n), dtype=torch.float64,
                        device=a.device)
-    dc = torch.empty((bsz, s, n), dtype=torch.float32, device=a.device)
+    dc = torch.empty((bsz, s, n), dtype=a.dtype, device=a.device)
     dh0 = None if h0 is None else torch.empty_like(h0c)
-    _launch("selective_scan_bwd", "sscan_bwd_launch", _ptr(ac), _ptr(bc),
-            _ptr(cc), _ptr(h0c), _ptr(dyc), _ptr(dhc), _ptr(da), _ptr(db),
-            _ptr(part), _ptr(dc), _ptr(dh0), bsz, s, d, n, _stream(ac))
+    args = [_ptr(ac), _ptr(bc), _ptr(cc), _ptr(h0c), _ptr(dyc), _ptr(dhc),
+            _ptr(da), _ptr(db), _ptr(part), _ptr(dc), _ptr(dh0)]
+    if a.dtype == torch.bfloat16:       # the fp32 checkpoints' own buffer
+        ck = torch.empty((bsz, -(-s // SCAN_BWD_CHUNK), d, n),
+                         dtype=torch.float32, device=a.device)
+        args.append(_ptr(ck))
+    _launch("selective_scan_bwd", SCAN_BWD_LAUNCH[a.dtype], *args, bsz, s,
+            d, n, _stream(ac))
     LAUNCHES["selective_scan_bwd"] += 1
     return da, db, dc, dh0
 

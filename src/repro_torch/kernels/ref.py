@@ -362,14 +362,19 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
                    h0: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Mamba1 recurrence h_t = a_t * h_{t-1} + b_t, y_t = sum_n c_t[n] h_t[n].
 
-    a, b: (B, S, D, N) f32; c: (B, S, N) f32; h0: (B, D, N) f32 or None
-    (zeros).  Returns (y (B, S, D), h_last (B, D, N)).
+    a, b: (B, S, D, N); c: (B, S, N); h0: (B, D, N) or None (zeros); all
+    f32 or all bf16.  Returns (y (B, S, D), h_last (B, D, N)) in that dtype.
 
     The numerics the kernel matches bit for bit: h in fp32 with two
     roundings per step (a multiply, then an add: no fused multiply-add),
     and y_t as the sum in n order of the float64 products h*c (each exact),
     rounded once to fp32.  The loop over t computes h only, into a
-    (B, S, D, N) buffer; y then comes from one n-ordered float64 pass."""
+    (B, S, D, N) buffer; y then comes from one n-ordered float64 pass.
+    bf16 carriers (`scan_dtype="bf16"`) run exactly that on their exact
+    fp32 values, then round each output once more, fp32 -> bf16 to
+    nearest even: y by the chain float64 -> fp32 -> bf16."""
+    if a.dtype == torch.bfloat16:
+        return _bf16_outputs(selective_scan(*_f32_inputs(a, b, c, h0)))
     bsz, s, d, n = a.shape
     hs, h = _scan_states(a, b, h0)
     acc = None
@@ -379,6 +384,16 @@ def selective_scan(a: Tensor, b: Tensor, c: Tensor,
     y = (acc.to(a.dtype) if acc is not None
          else torch.zeros((bsz, s, d), dtype=a.dtype, device=a.device))
     return y, h
+
+
+def _f32_inputs(*ts):
+    """bf16 operands as their exact fp32 values (None stays None)."""
+    return [None if t is None else t.float() for t in ts]
+
+
+def _bf16_outputs(ts):
+    """fp32 results rounded once to bf16, to nearest even."""
+    return tuple(None if t is None else t.to(torch.bfloat16) for t in ts)
 
 
 def _scan_states(a: Tensor, b: Tensor, h0: Tensor | None):
@@ -410,8 +425,11 @@ def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
 
     a, b: (B, S, D, N); c: (B, S, N); dy: (B, S, D) the gradient of y;
     h0: (B, D, N) or None (zeros); dh_last: (B, D, N) the gradient of
-    h_last, or None (zeros).  Returns (da, db (B, S, D, N), dc (B, S, N),
-    dh0 (B, D, N), or None without h0).
+    h_last, or None (zeros); all f32 or all bf16.  Returns (da, db
+    (B, S, D, N), dc (B, S, N), dh0 (B, D, N), or None without h0) in
+    that dtype.  bf16 carriers run the fp32 arithmetic below on their
+    exact fp32 values and round each output once to bf16 (dc by the chain
+    float64 -> fp32 -> bf16), to nearest even.
 
     With g_t the gradient of h_t, from t = S-1 down to 0:
         g_t  = a_{t+1} g_{t+1} + dy_t (x) c_t    (the carry starts at dh_last)
@@ -428,6 +446,9 @@ def selective_scan_bwd(a: Tensor, b: Tensor, c: Tensor, dy: Tensor,
         `scan_dc_groups(N)[0]` channels; each group is summed in d order,
         a tile's four group sums in order, the tiles' sums in d order, all
         in float64, then rounded once to fp32."""
+    if a.dtype == torch.bfloat16:
+        return _bf16_outputs(selective_scan_bwd(
+            *_f32_inputs(a, b, c, dy, h0, dh_last)))
     bsz, s, d, n = a.shape
     hs, _ = _scan_states(a, b, h0)
     carry = (torch.zeros((bsz, d, n), dtype=a.dtype, device=a.device)

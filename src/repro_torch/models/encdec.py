@@ -209,9 +209,13 @@ class EncDec(nn.Module):
         norm."""
         x = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         pos = torch.arange(x.shape[1], device=self.device)
+
+        def body(h, p):
+            h = self._attn(p, h, None, causal=False, q_pos=pos, k_pos=pos)
+            return self._mlp_block(p, h)
+        body = L.maybe_remat(self.a, body)
         for p in self._views(self.enc):
-            x = self._attn(p, x, None, causal=False, q_pos=pos, k_pos=pos)
-            x = self._mlp_block(p, x)
+            x = body(x, p)
         return x
 
     def _decode_train(self, enc_out: Tensor, tokens: Tensor) -> Tensor:
@@ -219,11 +223,15 @@ class EncDec(nn.Module):
         tpos = torch.arange(tokens.shape[1], device=self.device)
         spos = torch.arange(enc_out.shape[1], device=self.device)
         enc_q = qact(self.q, "none", enc_out)
-        for p in self._views(self.dec):
-            y = self._attn(p, y, None, causal=True, q_pos=tpos, k_pos=tpos)
-            y = self._attn(p, y, enc_q, causal=False, q_pos=tpos, k_pos=spos,
+
+        def body(h, p):
+            h = self._attn(p, h, None, causal=True, q_pos=tpos, k_pos=tpos)
+            h = self._attn(p, h, enc_q, causal=False, q_pos=tpos, k_pos=spos,
                            prefix="x_")
-            y = self._mlp_block(p, y)
+            return self._mlp_block(p, h)
+        body = L.maybe_remat(self.a, body)
+        for p in self._views(self.dec):
+            y = body(y, p)
         return y
 
     def _logits(self, x) -> Tensor:

@@ -161,6 +161,8 @@ class Zamba2(nn.Module):
         (G, B, T, KV, dh) "k" / "v".  Returns (x, the new Mamba2 state
         {"m_conv", "m_h"} stacked (L, ...))."""
         a, q = self.a, self.q
+        if mode == "train":
+            return self._train_backbone(x, pos, emit)
         stacks = ("k", "v") if cache and "k" in cache \
             else ("k_pages", "v_pages")
         convs, hs = [], []
@@ -180,6 +182,36 @@ class Zamba2(nn.Module):
             x = attn_sublayer(a, q, self.shared, x, pos, mode, kv, emit)
             x = ffn_sublayer(a, q, self.shared, x)
         return x, {"m_conv": torch.stack(convs), "m_h": torch.stack(hs)}
+
+    def _train_backbone(self, x: Tensor, pos, emit: list | None):
+        """`_backbone` in train mode, nested as the reference's remat is:
+        each Mamba2 layer checkpointed, each group of `attn_every` layers
+        with the shared block after it checkpointed again, and each tail
+        layer (remat "full"; plain calls with remat "none")."""
+        a, q = self.a, self.q
+        views = self._layer_views()
+        mbody = L.maybe_remat(a, lambda h, p: S.mamba2_block(
+            q, a, p, h, "train"))
+
+        def group(h, ps):
+            sts = []
+            for p in ps:
+                h, st = mbody(h, p)
+                sts.append(st)
+            h = attn_sublayer(a, q, self.shared, h, pos, "train", None, emit)
+            return ffn_sublayer(a, q, self.shared, h), sts
+
+        gbody = L.maybe_remat(a, group)
+        ae, sts = a.attn_every, []
+        n_groups = a.n_layers // ae
+        for g in range(n_groups):
+            x, gs = gbody(x, views[g * ae:(g + 1) * ae])
+            sts += gs
+        for p in views[n_groups * ae:]:
+            x, st = mbody(x, p)
+            sts.append(st)
+        return x, {"m_conv": torch.stack([s["conv"] for s in sts]),
+                   "m_h": torch.stack([s["h"] for s in sts])}
 
     def _logits(self, x: Tensor) -> Tensor:
         h = qrmsnorm(self.q, x, self.final_norm)

@@ -21,12 +21,14 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import qact, qdense, qlayernorm, qprobs, qrmsnorm
 from repro_torch.core.numerics import div32, exp32, sum64
 from repro_torch.core.qconfig import QConfig
 from repro_torch.core.qdense import qeinsum
-from repro_torch.core.qtensor import QTensor, qt_carrier
+from repro_torch.core.qtensor import (QTensor, qt_carrier, save_qtensors,
+                                      saved_qtensors)
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -52,6 +54,27 @@ def winit_(cfg: QConfig, w: Tensor, fan_in: int,
     s = 2.0 ** (cfg.k_wu - 1)
     lim = 1.0 - 2.0 ** (1 - cfg.k_wu)
     return w.mul_(s).round_().div_(s).clamp_(-lim, lim)
+
+
+def maybe_remat(acfg, fn):
+    """`fn` checkpointed when acfg.remat is "full" and autograd records
+    (the reference's `maybe_remat`: its activations are not kept, the
+    backward runs `fn` again), else `fn` itself (remat "none", and the
+    serving paths under no_grad).  The forward draws no random numbers,
+    so the recompute gives the first run's bits without restoring the RNG
+    state; non-reentrant, so gradients reach the tensors `fn` closes over
+    (the decoder's encoder output, the hybrid's shared block).  The
+    recompute launches the forward's kernels again: `ops.LAUNCHES` of a
+    training step count them."""
+    if acfg.remat != "full":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -199,8 +222,8 @@ class _FlashFused(torch.autograd.Function):
     def forward(ctx, qc, kc, vc, cfg, causal, q_chunk, kv_chunk, q, k, v,
                 q_pos, k_pos):
         ctx.args = (cfg, causal, q_chunk, kv_chunk)
-        ctx.res = (q.drop_carrier(), k.drop_carrier(), v.drop_carrier(),
-                   q_pos, k_pos)
+        ctx.ks = save_qtensors(ctx, q, k, v)
+        ctx.pos = (q_pos, k_pos)
         s, t, dh = q.shape[1], k.shape[1], q.shape[3]
         sp, tp = -s % q_chunk, -t % kv_chunk
         ones = torch.ones((1, t), dtype=torch.int32, device=k.data.device)
@@ -215,8 +238,8 @@ class _FlashFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         cfg, causal, q_chunk, kv_chunk = ctx.args
-        q, k, v, q_pos, k_pos = ctx.res
-        ctx.res = None
+        q, k, v = saved_qtensors(ctx, ctx.ks)
+        q_pos, k_pos = ctx.pos
         ins = [t.dequantize().requires_grad_() for t in (q, k, v)]
         qw, kw, vw = (QTensor(t.data, t.scale, t.k, carrier=c)
                       for t, c in zip((q, k, v), ins))

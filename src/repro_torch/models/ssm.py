@@ -181,8 +181,20 @@ def mamba1_block(cfg: QConfig, acfg: ArchConfig, p: dict, x: Tensor,
     a_mat = -torch.exp(p["A_log"])                    # (di, N)
     a = torch.exp(dt[..., None] * a_mat)              # (B, S, di, N)
     b = (dt * xc)[..., None] * bs[:, :, None, :]
-    y, h_last = ops.selective_scan(a, b, cs,
-                                   None if mode == "train" else state["h"])
+    h0 = None if mode == "train" else state["h"]
+    if mode != "decode" and cfg.scan_dtype == "bf16":
+        # the reference's bf16 carriers: a, b, c and h0 cast after the fp32
+        # discretisation, y back to fp32, and in chunk mode h_last too (the
+        # slot store stays fp32); decode stays fp32
+        bf = torch.bfloat16
+        y, h_last = ops.selective_scan(
+            a.to(bf), b.to(bf), cs.to(bf), None if h0 is None else h0.to(bf))
+        y = y.float()
+        if mode == "chunk":
+            h_last = h_last.float()
+    else:       # a bf16 state from a bf16 prefill decodes in fp32
+        y, h_last = ops.selective_scan(a, b, cs,
+                                       None if h0 is None else h0.float())
 
     y = y + p["D_skip"] * xc
     y = y * qt_carrier(qact(cfg, "silu", z))

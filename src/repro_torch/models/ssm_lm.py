@@ -128,10 +128,13 @@ class SSMLM(nn.Module):
         """Every layer in `mode`; returns (x, {"conv", "h"} stacked (L, ...)).
         `state` holds the stacked per-layer states ("chunk" / "decode")."""
         convs, hs = [], []
+        block = S.mamba1_block
+        if mode == "train":         # each layer checkpointed (remat "full")
+            block = L.maybe_remat(self.a, block)
         for i, p in enumerate(self._layer_views()):
             st = (None if state is None
                   else {"conv": state["conv"][i], "h": state["h"][i]})
-            x, ns = S.mamba1_block(self.q, self.a, p, x, mode, st)
+            x, ns = block(self.q, self.a, p, x, mode, st)
             convs.append(ns["conv"])
             hs.append(ns["h"])
         return x, {"conv": torch.stack(convs), "h": torch.stack(hs)}

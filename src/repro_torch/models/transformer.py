@@ -238,9 +238,13 @@ class LMTransformer(nn.Module):
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         x = self.embed[tokens]                        # exempt first layer
         pos = torch.arange(tokens.shape[1], device=self.device)
+
+        def body(h, p):
+            h = attn_sublayer(self.a, self.q, p, h, pos, "train", None)
+            return ffn_sublayer(self.a, self.q, p, h)
+        body = L.maybe_remat(self.a, body)
         for p in self._layer_views():
-            x = attn_sublayer(self.a, self.q, p, x, pos, "train", None)
-            x = ffn_sublayer(self.a, self.q, p, x)
+            x = body(x, p)
         logits = self._logits(x)
         lse = torch.logsumexp(logits, dim=-1)
         loss = torch.mean(lse - L.target_logit(logits, labels))

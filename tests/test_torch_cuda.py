@@ -14,7 +14,8 @@ per-score probability codes come from exact thresholds of that exp,
 checked over every fp32 input); K9 because both sides round h twice per
 step and sum y in float64 in n order; K9b because both sides recompute h
 so, round each product and sum of the reverse recurrence once and add
-dc's float64 products in one stated order.
+dc's float64 products in one stated order; on bf16 carriers both run
+that fp32 arithmetic and round each output once to bf16.
 Without a card each test skips.
 """
 import numpy as np
@@ -628,6 +629,176 @@ def test_cuda_selective_scan_bwd_repeats_and_checks(cuda, n):
     with pytest.raises(ValueError, match="N = 8"):
         ops.selective_scan_bwd(a8, b8, c8, torch.zeros(1, 4, 32,
                                                        device=cuda), h8)
+
+
+BF = torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_h0", [
+    ((1, 16, 8192, 16), True),      # a prefill page, bf16 carriers
+    ((1, 4096, 8192, 16), False),   # train_4k: ssm_train's bf16 step
+    ((4, 1, 8192, 16), True),       # one step (direct route)
+    ((1, 17, 8192, 16), True),      # across the staged tiles' boundaries
+    ((2, 33, 300, 16), False),
+    ((3, 5, 65, 16), True),
+    ((1, 4097, 512, 16), True),
+    ((2, 37, 1000, 4), True),       # N 4: the direct route at every S
+    ((2, 33, 128, 4), False),
+    ((64, 3, 2048, 16), True)])
+def test_cuda_selective_scan_bf16_bitwise(cuda, shape, with_h0):
+    """K9 on bf16 carriers equals its plain version bit for bit: the fp32
+    route on the exact fp32 values, y and h_last rounded once to bf16."""
+    g = torch.Generator(device=cuda).manual_seed(30 + shape[1])
+    a, b, c, h0 = (t.to(BF) for t in _scan_inputs(g, shape, cuda))
+    h0 = h0 if with_h0 else None
+    y, h = ops.selective_scan(a, b, c, h0)
+    yp, hp = ref.selective_scan(a, b, c, h0)
+    assert y.dtype == h.dtype == BF and torch.isfinite(y.float()).all()
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_h0,with_dh", [
+    ((1, 4096, 8192, 16), False, False),  # train_4k: ssm_train's bf16 step
+    ((1, 16, 8192, 16), True, True),
+    ((2, 37, 1000, 4), True, False),      # ragged S (chunks of 8), D, N 4
+    ((3, 9, 65, 16), True, True),
+    ((1, 17, 300, 16), False, True),
+    ((1, 4097, 512, 16), True, True),
+    ((64, 3, 2048, 16), True, False)])
+def test_cuda_selective_scan_bwd_bf16_bitwise(cuda, shape, with_h0,
+                                              with_dh):
+    """K9b on bf16 carriers equals its plain version bit for bit: the
+    checkpoints in their own fp32 buffer, every output rounded once to
+    bf16 (dc from its float64 sum through fp32)."""
+    g = torch.Generator(device=cuda).manual_seed(40 + shape[1])
+    a, b, c, h0, dy, dh = (t.to(BF) for t in _bwd_inputs(g, shape, cuda))
+    h0 = h0 if with_h0 else None
+    dh = dh if with_dh else None
+    got = ops.selective_scan_bwd(a, b, c, dy, h0, dh)
+    want = ref.selective_scan_bwd(a, b, c, dy, h0, dh)
+    assert all(x.dtype == BF for x in got if x is not None)
+    assert _bwd_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bf16_checks_and_autograd(cuda):
+    """Mixed f32 and bf16 operands raise ValueError (nothing upcasts);
+    autograd through ops.selective_scan on bf16 runs K9 and K9b once each
+    and gives bf16 gradients equal to the plain backward's."""
+    g = torch.Generator(device=cuda).manual_seed(50)
+    a, b, c, h0, dy, dh = _bwd_inputs(g, (2, 45, 200, 16), cuda)
+    ab, bb, cb, hb, dyb, dhb = (t.to(BF) for t in (a, b, c, h0, dy, dh))
+    for args in ((ab, bb, c, hb), (ab, bb, cb, h0), (a, bb, cb, hb)):
+        with pytest.raises(ValueError, match="bf16|dtype|float"):
+            ops.selective_scan(*args)
+    with pytest.raises(ValueError):
+        ops.selective_scan_bwd(ab, bb, cb, dy, hb, dhb)
+    with pytest.raises(ValueError):
+        ops.selective_scan(a.to(torch.float16), b.to(torch.float16),
+                           c.to(torch.float16))
+    leaves = [t.clone().requires_grad_() for t in (ab, bb, cb, hb)]
+    before = dict(ops.LAUNCHES)
+    y, h = ops.selective_scan(*leaves)
+    torch.autograd.backward((y, h), (dyb, dhb))
+    assert ops.LAUNCHES["selective_scan"] == before["selective_scan"] + 1
+    assert ops.LAUNCHES["selective_scan_bwd"] == \
+        before["selective_scan_bwd"] + 1
+    want = ref.selective_scan_bwd(ab, bb, cb, dyb, hb, dhb)
+    assert _bwd_equal([t.grad for t in leaves], want)
+    assert all(t.grad.dtype == BF for t in leaves)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_bf16_prefill_then_decode(cuda):
+    """falcon-mamba-7b.reduced() with scan_dtype "bf16" on the kernels: a
+    monolithic prefill (K9 on bf16 carriers; its state h is bf16, as the
+    reference's) then 3 decode steps (fp32, the state widened), logits
+    equal to the plain versions' run bit for bit."""
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.models import build_model
+    model = build_model(get("falcon-mamba-7b").reduced(),
+                        preset("full8").replace(scan_dtype="bf16"),
+                        device="cuda").init(0)
+    g = torch.Generator(device=cuda).manual_seed(60)
+    toks = torch.randint(0, 128, (2, 21), generator=g, device=cuda)
+    nxt = torch.randint(0, 128, (3, 2), generator=g, device=cuda)
+
+    def run():
+        st, lg = model.prefill(toks)
+        assert st["h"].dtype == BF
+        out = [lg]
+        for t in nxt:
+            st, lg = model.serve_step(st, t)
+            out.append(lg)
+        assert st["h"].dtype == torch.float32
+        return out
+
+    before = ops.LAUNCHES["selective_scan"]
+    got = run()
+    assert ops.LAUNCHES["selective_scan"] > before
+    with ops.plain_reference():
+        want = run()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+# reduced configs the kernels take: K5 wants heads of 32 or more and
+# chunks of 64 (one kv chunk at 64 tokens)
+REMAT_CASES = {
+    "granite-3-8b": ("granite-3-8b", dict(head_dim=32, q_chunk=64,
+                                          kv_chunk=64)),
+    "zamba2-7b": ("zamba2-7b", dict(n_layers=3, attn_every=2, head_dim=112,
+                                    q_chunk=64, kv_chunk=64,
+                                    scan_chunk=16)),
+    "falcon-mamba-7b": ("falcon-mamba-7b", {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REMAT_CASES)
+def test_cuda_remat_full_equals_none(cuda, case):
+    """Per-layer remat on the card, at reduced configs (the hybrid nested,
+    with a tail layer): the loss, every gradient and one full8 step's
+    weights and accumulator with remat "full" equal those with "none" bit
+    for bit (deterministic algorithms on, as in chip_smoke.py), and the
+    recompute launches the forward's kernels again."""
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {}
+        name, over = REMAT_CASES[case]
+        for remat in ("full", "none"):
+            acfg = get(name).reduced().replace(remat=remat, **over)
+            model = build_model(acfg, preset("full8"), device="cuda").init(0)
+            batch = TokenTask(acfg.vocab, 64, 2).batch(0)
+            ops.reset_launches()
+            loss, _ = model.loss(batch)
+            loss.backward()
+            launches = dict(ops.LAUNCHES)
+            grads = [p.grad.clone() for p in flatten(model.params())]
+            opt = init_momentum(model.params())
+            make_train_step(model, model.q, lr=0.05)(opt, batch, 0)
+            out[remat] = (loss.detach(), grads, launches,
+                          [p.detach().clone() for p in
+                           flatten(model.params())],
+                          [t.clone() for t in flatten(opt.acc)])
+        (lf, gf, nf, pf, af), (ln, gn, nn, pn, an) = out["full"], out["none"]
+        assert torch.equal(lf, ln)
+        assert all(torch.equal(x, y) for x, y in zip(gf, gn))
+        assert all(torch.equal(x, y) for x, y in zip(pf, pn))
+        assert all(torch.equal(x, y) for x, y in zip(af, an))
+        assert nf["qmatmul"] > nn["qmatmul"] > 0
+        assert nf["dgrad"] == nn["dgrad"] > 0
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 # --------------------------------------------------------------------------

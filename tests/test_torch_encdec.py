@@ -175,8 +175,9 @@ def test_config_matches_reference():
 
 
 def test_full_width_layout_on_meta():
-    """chip_smoke.py's model: every published width at full depth (24 + 24
-    layers), on the meta device (shapes only): 1.63 G parameters."""
+    """The published model, every width at full depth (24 + 24 layers;
+    chip_smoke.py runs 12 + 12 of them), on the meta device (shapes
+    only): 1.63 G parameters."""
     model = build_model(get(NAME), preset("full8"), device="meta")
     assert isinstance(model, EncDec)
     d, f, vp = 1024, 8192, 256512

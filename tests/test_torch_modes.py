@@ -134,8 +134,6 @@ def test_unknown_mode_and_preset_are_refused():
         QConfig(mode="int4").validate()
     with pytest.raises(ValueError, match="unknown preset"):
         preset("fp16")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        QConfig(mode="sim", scan_dtype="bf16").validate()
 
 
 # --------------------------------------------------------------------------

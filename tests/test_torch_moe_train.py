@@ -47,6 +47,17 @@ SLACK = (1e-3, 26)
 BOUNDS = {"full8": (0.95, 8192), "e2_16": (0.01, 1024)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread (test_torch_resnet.py): the MoE's many small
+    ops, run again by the layers' recompute, gain nothing from more, and
+    the suite's workers share the host's cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _codes(layers) -> np.ndarray:
     def c(w):
         w = w.detach().numpy() if torch.is_tensor(w) else np.asarray(w)

@@ -57,7 +57,6 @@ from repro.serving import make_engine as jmake_engine
 from repro_torch.configs import get
 from repro_torch.convert import ssm_params_from_jax
 from repro_torch.core import preset
-from repro_torch.core.qconfig import QConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import SSMLM, build_model
 from repro_torch.models import ssm as TS
@@ -434,8 +433,6 @@ def test_make_engine_serves_ssm_on_cpu():
 
 def test_unported_ssm_options_raise(models):
     tm = models[4]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        QConfig(scan_dtype="bf16").validate()
     with pytest.raises(NotImplementedError, match="item 5"):
         TS.mamba1_block(tm.q, tm.a, tm._layer(0), torch.zeros(1, 1, 64),
                         "decode", tm.init_state(1), tp_size=2)
