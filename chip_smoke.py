@@ -199,9 +199,10 @@ prints no result line:
              K4, K5 and K6; the sim runs launch K2.
  12. encdec  seamless-m4t-large-v2 (the enc-dec: d 1024, 16 heads of 64 on
              16 KV heads, FFN 8192 with gelu, LayerNorm, vocab 256206) at
-             full width, 12 + 12 of its 24 encoder + 24 decoder layers
+             full width, 6 + 6 of its 24 encoder + 24 decoder layers
              (full depth, 1.63 G parameters, until the full_depth phase
-             came), random weights from seed 0: 4 requests of 4096
+             came; 12 + 12 until the dp phase), random weights from
+             seed 0: 4 requests of 4096
              seeded N(0, 1) frames through `EncDec.prefill` (t_self
              1024) and 32 greedy `serve_step`s each from token 0, with the
              prefill wall, decode ms a step, tokens/s and the launches a
@@ -243,6 +244,23 @@ prints no result line:
              rebuilt from seed 0 takes step 1 through the plain versions,
              whose loss, parameters and accumulator must equal the kernel
              run's.
+ 15. dp      the data-parallel sharded step (make_sharded_train_step,
+             runtime/compress.py's integer wire): granite-3-8b at full
+             width, 2 of 40 layers, full8 native, a global batch of 2 x
+             2048 TokenTask ("arith") tokens in n_shards=2 virtual shards,
+             2 steps on the packed int16 wire: (a) in this process at
+             dp=1; (b) in two spawned ranks that share the card through a
+             gloo group (NCCL puts one rank on a card; the wire is staged
+             through host memory), dp=2, replicated, whose parameters and
+             accumulator after step 2 must equal (a)'s bit for bit (sha256
+             of every leaf); (c) the same ranks from a model rebuilt from
+             seed 0 with ZeRO-1, whose parameters, and accumulator chunks
+             gathered into the flat layout, must equal (a)'s.  Each rank's
+             K1-K5 launches must be > 0; per rank the step's wall split
+             into forward+backward, sync (gloo over loopback, not an NCCL
+             figure) and optimizer, the sync's bytes a step by dtype and
+             the peak memory.  A rank that fails or outlives its timeout
+             fails the phase.
 
 `python3 chip_smoke.py PHASE ...` (e.g. `modes`) runs the build and the
 named phases alone and prints no result lines.  It ends with a line `{"kernels": [...]}`, then the card line, then
@@ -3234,8 +3252,9 @@ ENCDEC_NEW = 32           # greedy tokens a request
 ENCDEC_START = 0          # the fixed start token of every request
 ENCDEC_TRAIN_STEPS = 3
 # encoder and decoder layers each, of the published 24 + 24: cut from full
-# depth since the full_depth phase (the whole run's time limit)
-ENCDEC_DEPTH = 12
+# depth to 12 + 12 with the full_depth phase and to 6 + 6 with the dp
+# phase (the whole run's time limit)
+ENCDEC_DEPTH = 6
 ENCDEC_KERNELS = ("qmatmul", "quantize", "ubn_norm", "flash_attention")
 # device time by kernel family: the substring of its kernels' names
 KERNEL_NAMES = {"K1": "qmm_", "K2": "quantize_kernel", "K3": "bwd_",
@@ -3734,6 +3753,232 @@ def phase_full_depth() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the data-parallel sharded step, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DP_ARCH = "granite-3-8b"
+DP_DEPTH = 2
+DP_SEQ = 2048
+DP_BATCH = 2              # global rows: one virtual shard each
+DP_SHARDS = 2
+DP_STEPS = 2
+DP_RANKS = 2
+DP_TIMEOUT = 600          # seconds for both ranks' runs
+DP_KERNELS = TRAIN_KERNELS
+
+
+def _digests(leaves, flat_dp: int = 0) -> list:
+    """sha256 of each leaf's bytes on the host; with flat_dp, of the leaf
+    flattened and zero-padded to the ZeRO-1 layout under that dp."""
+    import hashlib
+
+    from repro_torch.launch import shard as S
+    out = []
+    for t in leaves:
+        if flat_dp:
+            t = S.pad_flat(t, flat_dp * S.zero_chunk_len(t.numel(), flat_dp))
+        out.append(hashlib.sha256(
+            t.detach().contiguous().cpu().numpy()).hexdigest())
+    return out
+
+
+def dp_run(mesh, opt_shard: str, tag: str) -> dict:
+    """DP_STEPS sharded steps of DP_ARCH built from seed 0 on this rank
+    (mesh: launch/mesh.py, dp 1 or DP_RANKS) on the packed int16 wire: per
+    step the loss, wall and its split, the sync's bytes by (message,
+    dtype), launches and peak memory; then digests of the parameters and
+    of the accumulator (ZeRO-1's gathered into the flat layout)."""
+    import gc
+
+    import torch
+    from repro_torch.checkpoint.manager import tree_keys
+    from repro_torch.configs import get
+    from repro_torch.core import preset
+    from repro_torch.data import TokenTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shard as S
+    from repro_torch.launch.train import make_sharded_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import flatten, init_momentum
+    from repro_torch.runtime import compress as C
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = preset("full8")
+    model = build_model(get(DP_ARCH).replace(n_layers=DP_DEPTH), cfg,
+                        device="cuda").init(0)
+    params = model.params()
+    zero1 = opt_shard == "zero1"
+    opt = (S.zero_init_momentum(params, mesh.dp) if zero1
+           else init_momentum(params))
+    specs = (S.zero_opt_specs(params) if zero1
+             else S.opt_specs(S.param_specs(params)))
+    opt = S.shard_arrays(mesh, opt, specs)
+    stats: dict = {}
+    step = make_sharded_train_step(model, cfg, mesh=mesh, lr=0.05,
+                                   n_shards=DP_SHARDS, wire_codec="packed",
+                                   opt_shard=opt_shard, stats=stats)
+    task = TokenTask(model.a.vocab, DP_SEQ, DP_BATCH, kind="arith")
+    out = {"steps": [], "n_params": model.n_params()}
+    for i in range(DP_STEPS):
+        batch = S.put_batch(mesh, task.batch(i))
+        stats.clear()
+        C.TRACE = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.time()
+        loss = float(step(opt, batch, i)["loss"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        wire: dict = {}
+        for what, dtype, shape in C.TRACE:
+            key = f"{what}:{str(dtype).removeprefix('torch.')}"
+            wire[key] = wire.get(key, 0) + math.prod(shape) * (
+                torch.finfo(dtype).bits if dtype.is_floating_point
+                else torch.iinfo(dtype).bits) // 8
+        C.TRACE = None
+        out["steps"].append(dict(
+            loss=loss, wall=wall, split=dict(stats), wire=wire,
+            launches={k: v for k, v in ops.LAUNCHES.items() if v},
+            peak=torch.cuda.max_memory_allocated()))
+        assert math.isfinite(loss), f"{tag}: non-finite loss"
+        for k in DP_KERNELS:
+            assert ops.LAUNCHES[k] > 0, f"{tag}: {k} not launched in step " \
+                f"{i + 1}"
+    whole = S.gather_arrays(mesh, opt, specs)
+    out["names"] = [k for k, _ in tree_keys(params)]
+    out["params"] = _digests(flatten(params))
+    out["acc"] = _digests(flatten(whole.acc))
+    if not zero1 and mesh.dp == 1:          # (a)'s acc in (c)'s layout
+        out["acc_flat"] = _digests(flatten(whole.acc), DP_RANKS)
+    del model, opt, whole, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker() -> None:
+    """One rank of the dp phase (chip_smoke.py run with CHIP_SMOKE_DP_OUT
+    and a torchrun-like environment): runs (b) and (c) in a gloo group on
+    the card and writes its results as JSON."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method="env://", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        mesh = make_mesh(DP_RANKS)
+        res = {"b": dp_run(mesh, "replicated", f"dp rank {rank} (b)"),
+               "c": dp_run(mesh, "zero1", f"dp rank {rank} (c)"),
+               "device": torch.cuda.get_device_name(0)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(os.environ["CHIP_SMOKE_DP_OUT"],
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _dp_lines(who: str, run: dict) -> None:
+    for i, st in enumerate(run["steps"]):
+        sp = st["split"]
+        ints = {k: v for k, v in st["wire"].items()
+                if not k.endswith(("float32",))}
+        floats = {k: v for k, v in st["wire"].items() if k not in ints}
+        log(f"[dp] {who} step {i + 1}: loss {st['loss']:.6f}, wall "
+            f"{st['wall']:.3f} s (forward+backward {sp['fwd_bwd']:.3f}, "
+            f"sync {sp['sync']:.3f}, optimizer {sp['opt']:.3f}), "
+            f"{DP_BATCH * DP_SEQ / st['wall']:.1f} tokens/s, peak device "
+            f"memory {st['peak'] / 1e9:.2f} GB; integer bytes sent by "
+            f"(message, dtype) {ints}, fp32 {floats}; launches "
+            f"{st['launches']}")
+
+
+def phase_dp() -> dict:
+    """(a) in this process, then (b) and (c) in DP_RANKS spawned ranks;
+    the digests compared.  Returns (a)'s launches summed over its steps."""
+    import shutil
+    import socket
+
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.time()
+    log(f"[dp] {DP_ARCH} at full width, {DP_DEPTH} of 40 layers, full8 "
+        f"native, global batch {DP_BATCH} x {DP_SEQ} tokens (TokenTask "
+        f"arith), n_shards {DP_SHARDS}, {DP_STEPS} steps, packed int16 wire")
+    a = dp_run(make_mesh(1), "replicated", "dp (a)")
+    log(f"[dp] (a) dp=1 in this process ({DP_SHARDS} virtual shards one "
+        f"after another, {a['n_params'] / 1e9:.2f} G fp32 params):")
+    _dp_lines("(a) dp=1", a)
+    out = os.path.join(ROOT, "build", "dp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), CHIP_SMOKE_DP_OUT=out,
+               PYTHONUNBUFFERED="1")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, DP_TIMEOUT - (time.time() - t0))
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0 or r >= len(logs):
+            print(logs[r][-6000:] if r < len(logs) else "", flush=True)
+            raise AssertionError(f"dp: rank {r} exited with {p.returncode}")
+    log(f"[dp] {DP_RANKS} ranks ran (b) and (c) in {time.time() - t0:.1f} "
+        f"s (process start and model builds included): their compute on "
+        f"the one card, their wire a gloo group over 127.0.0.1 staged "
+        f"through host memory (the sync times below are gloo over "
+        f"loopback, not an NCCL figure)")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for run in ("b", "c"):
+            _dp_lines(f"({run}) dp=2 rank {r}" + (
+                " zero1" if run == "c" else ""), res[run])
+        b, c = res["b"], res["c"]
+        same = (sum(x == y for x, y in zip(b["params"], a["params"])),
+                sum(x == y for x, y in zip(b["acc"], a["acc"])),
+                sum(x == y for x, y in zip(c["params"], a["params"])),
+                sum(x == y for x, y in zip(c["acc"], a["acc_flat"])))
+        n = len(a["params"])
+        log(f"[dp] rank {r} against (a): (b) parameters equal {same[0]}/{n}, "
+            f"accumulator equal {same[1]}/{n}; (c) zero1 parameters equal "
+            f"{same[2]}/{n}, accumulator (gathered, flat layout) equal "
+            f"{same[3]}/{n}")
+        if same != (n, n, n, n):
+            for run, key in (("b", "params"), ("b", "acc"), ("c", "params"),
+                             ("c", "acc")):
+                want = a["acc_flat"] if (run, key) == ("c", "acc") else a[key]
+                log(f"[dp] rank {r} ({run}) {key} differing: "
+                    f"{[nm for nm, x, y in zip(a['names'], res[run][key], want) if x != y]}")
+        assert same == (n, n, n, n), f"dp: rank {r} differs from dp=1"
+    log(f"[dp] phase {time.time() - t_phase:.1f} s")
+    total: dict = {}
+    for st in a["steps"]:
+        for k, v in st["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3751,6 +3996,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    if os.environ.get("CHIP_SMOKE_DP_OUT"):      # a rank of the dp phase
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dp_worker()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the kernel run and the plain run of a training step must agree bit
@@ -3771,7 +4022,7 @@ def main() -> int:
     runs.update(ssm=phase_ssm(), ssm_train=phase_ssm_train(),
                 dense=phase_dense(), moe=phase_moe(), modes=phase_modes(),
                 encdec=phase_encdec(), hybrid=phase_hybrid(),
-                full_depth=phase_full_depth(), none={})
+                full_depth=phase_full_depth(), dp=phase_dp(), none={})
     for r in RESULTS:
         phase, key = PHASE_OF[r["name"]]
         r["launches"] = runs[phase].get(key, 0)

@@ -47,12 +47,36 @@ The enc-dec (seamless-m4t-large-v2) trains through `make_train_step` on
 {"frames", "tokens", "labels"} batches; the CLI, like the reference's,
 has no frames task for it.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the sharded step and the elastic runtime (--dp, --tp, --elastic, ...).
+`make_sharded_train_step` is the data-parallel step of the reference's
+`make_sharded_train_step` (its DESIGN.md §9 production step) over a
+torch.distributed process group: each rank runs its n_shards/dp virtual
+batch shards, the gradients meet on the integer wire
+(runtime/compress.py), and the weights after a step are a pure function
+of (global batch, n_shards), whatever dp is.  `--dp N` (N > 1) takes it:
+under a launcher (torchrun's WORLD_SIZE, RANK, LOCAL_RANK and
+MASTER_ADDR/PORT) the CLI joins the launcher's group, gloo on
+`--device cpu` and nccl on cuda (one rank a card); without one it
+spawns N ranks on 127.0.0.1 itself and prints rank 0's output.  With
+`--opt-shard zero1` each rank keeps its chunk of the accumulator, and
+checkpoints hold it gathered, in the reference's flat layout.
+
+    python -m repro_torch.launch.train --arch granite-3-8b --reduced \
+        --steps 3 --batch 8 --seq 32 --device cpu --dp 2 --n-shards 4
+    python -m repro_torch.launch.train ... --dp 2 --opt-shard zero1 \
+        --wire-bits 8 --wire-codec packed
+
+Not ported yet (each raises NotImplementedError naming ROADMAP Queue 1
+item 5): --tp, --elastic and --rebalance-flags.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import queue
+import socket
+import subprocess
+import sys
+import threading
 import time
 
 import torch
@@ -62,15 +86,21 @@ from repro_torch.configs import get as get_arch
 from repro_torch.core import prng
 from repro_torch.core.qconfig import preset
 from repro_torch.data import ImageTask, NpzImageTask, TokenTask
+from repro_torch.launch import shard as S
+from repro_torch.launch.mesh import TP_UNPORTED, make_mesh
 from repro_torch.models import build_model
-from repro_torch.optim import (dr_bits_schedule, fixed_point_lr, flatten,
-                               init_momentum, momentum_update,
-                               parse_boundaries, tree_map)
+from repro_torch.optim import (apply_leaf_update, dr_bits_schedule,
+                               fixed_point_lr, flatten, init_momentum,
+                               momentum_update, parse_boundaries,
+                               quantize_grad_leaf, tree_map, unflatten)
+from repro_torch.runtime.compress import (all_gather, all_reduce,
+                                          default_wire_codec, wire_sync_mean,
+                                          wire_sync_tree)
 
 SEED = 17
 
-SHARDED = ("is not ported yet: the sharded step, its gradient wire and the "
-           "elastic runtime are ROADMAP Queue 1 item 5")
+UNPORTED = ("is not ported yet: tensor parallelism (step 2b) and the "
+            "elastic runtime (step 3) are ROADMAP Queue 1 item 5")
 
 
 def make_train_step(model, qcfg, labels_tree=None, lr: float = 0.05,
@@ -142,15 +172,176 @@ def _grad_tree(tree):
     return tree_map(lambda p: p.grad, tree)
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
-    sharded = {"dp": 1, "tp": 1, "n_shards": 0, "wire_bits": 16,
-               "grad_sync": "int_ring", "wire_codec": "auto",
-               "opt_shard": "replicated", "elastic": False,
-               "rebalance_flags": 0}
-    for name, default in sharded.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} {SHARDED}")
+# --------------------------------------------------------------------------
+# the sharded data-parallel step (integer-wire gradient sync, ZeRO-1)
+# --------------------------------------------------------------------------
+
+
+def _quant_update_leaf(cfg, lab) -> bool:
+    """Leaves whose updated values land on the k_WU grid (Eq. 24): these
+    all-gather as integer payloads in the ZeRO-1 layout."""
+    return cfg.quantize and lab != "exempt" and cfg.quant_u
+
+
+@torch.no_grad()
+def _zero1_update(cfg, params, grads, state, labels, key, lr, mom, dr_bits,
+                  mesh) -> None:
+    """ZeRO-1 Momentum step, IN PLACE on params and this rank's chunks.
+
+    The accumulator lives as flat per-rank chunks (launch/shard.py); the
+    gradient is quantized on the FULL leaf (CQ amax + stochastic bits are
+    leaf-global), then each rank applies the elementwise update to its
+    chunk only and the updated chunks all-gather back: as int32 payloads
+    on the fixed 2^(1-k_WU) grid for quantized leaves (exact: the update
+    already lands on that grid), fp32 for exempt leaves.  Bit-identical to
+    the replicated `momentum_update` because the update is elementwise."""
+    dp, r = mesh.dp, mesh.rank
+    leaves = zip(flatten(params), flatten(grads), flatten(state.acc),
+                 flatten(labels))
+    for i, (p, g, a, lab) in enumerate(leaves):
+        gq = quantize_grad_leaf(cfg, g, lab, prng.fold_in(key, i), dr_bits)
+        c = a.shape[0]                       # local chunk length
+        p_c = S.pad_flat(p, dp * c)[r * c:(r + 1) * c].clone()
+        g_c = S.pad_flat(gq, dp * c)[r * c:(r + 1) * c]
+        apply_leaf_update(cfg, p_c, g_c, a, lab, lr, mom)
+        if _quant_update_leaf(cfg, lab):     # k_WU grid -> integer gather
+            step = 2.0 ** (1 - cfg.k_wu)
+            data = torch.round(p_c / step).to(torch.int32)
+            full = all_gather(data, mesh.group, "param").reshape(-1)
+            full = full.to(torch.float32) * step
+        else:
+            full = all_gather(p_c, mesh.group, "param").reshape(-1)
+        p.copy_(full[: p.numel()].reshape(p.shape))
+    state.step += 1
+
+
+def make_sharded_train_step(model, qcfg, labels_tree=None, mesh=None, *,
+                            lr: float = 0.05, mom: float = 0.75,
+                            dr_bits: int | None = None,
+                            n_shards: int | None = None, wire_bits: int = 16,
+                            grad_sync: str = "int_ring",
+                            wire_codec: str = "packed",
+                            opt_shard: str = "replicated",
+                            stats: dict | None = None):
+    """The data-parallel step over `mesh` (launch/mesh.py; None: one
+    process): step(opt_state, batch, step_idx) -> {"loss"}, with `batch`
+    this rank's rows of the global batch (`shard.put_batch`), updating the
+    model's parameters and opt_state IN PLACE on every rank.
+
+    Args:
+      n_shards: virtual batch shards (quantization granularity), default
+        dp.  Must be a multiple of dp; the global batch must divide by it.
+      wire_bits: integer wire width of the gradient sync (4/8/16/32).
+      grad_sync: "int_ring" (integer wire, DP-invariant) or "psum" (the
+        fp32 all-reduce baseline of the per-rank mean).
+      wire_codec: "packed" (wire_sync_tree: one stacked max, fused
+        pre-sum, one double-buffered ring, int8 hops two-per-int16), "leaf"
+        (per-leaf wire_sync_mean rings) or "auto" (by the group's backend,
+        runtime/compress.default_wire_codec).  Bitwise-identical results.
+      opt_shard: "replicated", or "zero1": opt_state.acc holds this rank's
+        flat chunk of each leaf (shard.zero_init_momentum, shard_arrays).
+      stats: a dict that each step adds its seconds to, under "fwd_bwd",
+        "sync" and "opt" (the card is synchronized between the parts), or
+        None for no timing.
+
+    Each of this rank's n_shards/dp virtual shards runs `model.loss` and
+    its backward on its own rows, one after another (the counterpart of
+    the reference's lax.map: every shard's amax and BN statistics stay its
+    own); their gradients stack as (vs_local, *shape).  The stochastic-
+    rounding keys are the reference's: fold_in(PRNGKey(17), step), the
+    optimizer's fold_in(., 1) and a leaf's fold_in(., i) in
+    `momentum_update`'s leaf order, so zero1 equals replicated bit for bit
+    and the weights after a step are a pure function of (global batch,
+    n_shards), not of the layout."""
+    mesh = make_mesh(1) if mesh is None else mesh
+    if wire_codec == "auto":
+        wire_codec, _ = default_wire_codec(group=mesh.group)
+    dp, tp = S.mesh_dims(mesh)
+    if tp != 1:
+        raise NotImplementedError(f"tp={tp}: {TP_UNPORTED}")
+    if grad_sync not in ("int_ring", "psum"):
+        raise ValueError(f"unknown grad_sync {grad_sync!r}")
+    if wire_codec not in ("packed", "leaf"):
+        raise ValueError(f"unknown wire_codec {wire_codec!r}")
+    if opt_shard not in ("replicated", "zero1"):
+        raise ValueError(f"unknown opt_shard {opt_shard!r}")
+    n_shards = dp if n_shards is None else n_shards
+    if n_shards % dp:
+        raise ValueError(f"n_shards={n_shards} must be a multiple of dp={dp}")
+    vs_local = n_shards // dp
+    lrq = fixed_point_lr(lr, qcfg)
+    labels = model.labels() if labels_tree is None else labels_tree
+    on_card = model.device.type == "cuda"
+
+    def clock() -> float:
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def lap(name: str, t0: float) -> float:
+        if stats is None:
+            return t0
+        t = clock()
+        stats[name] = stats.get(name, 0.0) + t - t0
+        return t
+
+    def sync_grads(grads: list) -> list:
+        if grad_sync != "int_ring":                     # fp32-wire baseline
+            return [all_reduce(g.mean(0), "sum", mesh.group, "psum") / dp
+                    for g in grads]
+        if wire_codec == "packed":
+            return wire_sync_tree(grads, mesh.group, n_shards=n_shards,
+                                  n_dev=dp, bits=wire_bits)
+        return [wire_sync_mean(g, mesh.group, n_shards=n_shards, n_dev=dp,
+                               bits=wire_bits) for g in grads]
+
+    def train_step(opt_state, batch: dict, step_idx: int) -> dict:
+        key = prng.fold_in(prng.prng_key(SEED), step_idx)
+        b_local = len(next(iter(batch.values())))
+        if b_local % vs_local:
+            raise ValueError(
+                f"global batch {b_local * dp} must divide by "
+                f"n_shards={n_shards} (dp={dp}, {vs_local} virtual shards "
+                f"per rank, local batch {b_local})")
+        rows = b_local // vs_local
+        params = model.params()
+        leaves = flatten(params)
+        t0 = clock() if stats is not None else 0.0
+        grads = [torch.empty((vs_local,) + tuple(p.shape),
+                             dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        losses = []
+        for v in range(vs_local):
+            model.zero_grad(set_to_none=True)
+            loss, _ = model.loss({k: x[v * rows:(v + 1) * rows]
+                                  for k, x in batch.items()})
+            loss.backward()          # frees this shard's graph
+            losses.append(loss.detach())
+            for g, p in zip(grads, leaves):
+                if p.grad is None:
+                    g[v].zero_()
+                else:
+                    g[v].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        t0 = lap("fwd_bwd", t0)
+        with torch.no_grad():
+            synced = sync_grads(grads)
+            del grads
+            loss = all_reduce(torch.stack(losses).mean(), "sum", mesh.group,
+                              "loss") / dp
+            t0 = lap("sync", t0)
+            okey = prng.fold_in(key, 1)
+            gtree = unflatten(params, synced)
+            if opt_shard == "zero1":
+                _zero1_update(qcfg, params, gtree, opt_state, labels, okey,
+                              lrq, mom, dr_bits, mesh)
+            else:
+                momentum_update(qcfg, params, gtree, opt_state, labels, okey,
+                                lrq, mom=mom, dr_bits=dr_bits)
+            lap("opt", t0)
+        return {"loss": loss}
+
+    return train_step
 
 
 def _task(acfg, args):
@@ -169,6 +360,86 @@ def _task(acfg, args):
         task = ImageTask(acfg.img_size, acfg.num_classes, args.batch)
     size = acfg.img_size
     return task, acfg, f"{size}x{size}x3 images, {acfg.num_classes} classes"
+
+
+def _refuse_unported(p: argparse.ArgumentParser, args) -> None:
+    unported = {"tp": 1, "elastic": False, "rebalance_flags": 0}
+    for name, default in unported.items():
+        if getattr(args, name) != default:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} {UNPORTED}")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argv: list, dp: int) -> None:
+    """Run this CLI in `dp` worker processes on 127.0.0.1 (a torchrun-like
+    environment: WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR/PORT), print
+    rank 0's output as it comes, and raise if any rank fails (the others
+    are then killed)."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+    base = dict(os.environ, WORLD_SIZE=str(dp), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()), PYTHONUNBUFFERED="1",
+                PYTHONPATH=src + (os.pathsep + path if path else ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(dp)]
+    lines: queue.Queue = queue.Queue()
+
+    def pump(r, f):
+        for line in f:
+            lines.put((r, line))
+        lines.put((r, None))
+
+    for r, proc in enumerate(procs):
+        threading.Thread(target=pump, args=(r, proc.stdout),
+                         daemon=True).start()
+    logs: dict = {r: [] for r in range(dp)}
+    failed, running = None, dp
+    while running:
+        r, line = lines.get()
+        if line is not None:
+            logs[r].append(line)
+            if r == 0:
+                print(line, end="", flush=True)
+            continue
+        running -= 1
+        if procs[r].wait() and failed is None:
+            failed = r
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+    if failed is not None:
+        raise RuntimeError(
+            f"rank {failed} of {dp} exited with {procs[failed].returncode}:"
+            f"\n{''.join(logs[failed][-30:])}")
+
+
+def _join_world(args):
+    """Join the launcher's process group (gloo on --device cpu, nccl on
+    cuda, each rank on card LOCAL_RANK).  Returns (mesh, device)."""
+    import torch.distributed as dist
+    world = int(os.environ["WORLD_SIZE"])
+    if world != args.dp:
+        raise ValueError(f"--dp {args.dp} in a world of {world} ranks")
+    device = args.device
+    if torch.device(device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    dist.init_process_group(
+        "nccl" if torch.device(device).type == "cuda" else "gloo",
+        init_method="env://", world_size=world,
+        rank=int(os.environ["RANK"]))
+    return make_mesh(args.dp), device
 
 
 def main(argv=None):
@@ -200,18 +471,44 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="with --ckpt-dir: continue from its latest "
                         "checkpoint (ignored without --ckpt-dir)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks (dp > 1 engages the sharded "
+                        "step with integer-wire gradient sync; without a "
+                        "launcher's WORLD_SIZE the CLI spawns them)")
+    p.add_argument("--n-shards", type=int, default=0,
+                   help="virtual batch shards (quantization granularity); "
+                        "0 = dp")
+    p.add_argument("--wire-bits", type=int, default=16,
+                   choices=[4, 8, 16, 32],
+                   help="integer wire width of the sharded gradient sync")
+    p.add_argument("--grad-sync", default="int_ring",
+                   choices=["int_ring", "psum"])
+    p.add_argument("--wire-codec", default="auto",
+                   choices=["auto", "packed", "leaf"],
+                   help="int_ring codec: 'packed' = whole-tree sync, "
+                        "'leaf' = per-leaf rings, 'auto' = packed on nccl, "
+                        "leaf on gloo (bitwise equal)")
+    p.add_argument("--opt-shard", default="replicated",
+                   choices=["replicated", "zero1"])
     # the reference CLI's other flags: accepted, and refused unless default
-    p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--n-shards", type=int, default=0)
-    p.add_argument("--wire-bits", type=int, default=16)
-    p.add_argument("--grad-sync", default="int_ring")
-    p.add_argument("--wire-codec", default="auto")
-    p.add_argument("--opt-shard", default="replicated")
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--rebalance-flags", type=int, default=0)
     args = p.parse_args(argv)
     _refuse_unported(p, args)
+    sharded = args.dp > 1
+    if sharded and "WORLD_SIZE" not in os.environ:
+        if (torch.device(args.device).type == "cuda"
+                and torch.cuda.device_count() < args.dp):
+            raise RuntimeError(
+                f"--dp {args.dp} on cuda needs {args.dp} cards (NCCL puts "
+                f"one rank on a card), this machine has "
+                f"{torch.cuda.device_count()}; --device cpu runs the ranks "
+                f"in a gloo world on the host")
+        _spawn(sys.argv[1:] if argv is None else list(argv), args.dp)
+        return
+    mesh, device = _join_world(args) if sharded else (None, args.device)
+    lead = mesh is None or mesh.rank == 0
 
     acfg = get_arch(args.arch)
     if args.reduced:
@@ -219,18 +516,34 @@ def main(argv=None):
     # --preset fp32 ignores --mode, as the reference's CLI does
     qcfg = preset(args.preset, args.mode if args.preset != "fp32" else None)
     task, acfg, shape = _task(acfg, args)
-    model = build_model(acfg, qcfg, device=args.device).init(0)
-    opt = init_momentum(model.params())
+    model = build_model(acfg, qcfg, device=device).init(0)
+    params = model.params()
+    zero1 = sharded and args.opt_shard == "zero1"
+    opt = (S.zero_init_momentum(params, args.dp) if zero1
+           else init_momentum(params))
+    specs = (S.zero_opt_specs(params) if zero1
+             else S.opt_specs(S.param_specs(params)))
     bounds = parse_boundaries(args.dr_boundaries)
-    print(f"[train] {acfg.name} {args.preset}/{qcfg.mode} on {model.device}: "
-          f"{sum(t.numel() for t in flatten(model.params())) / 1e6:.2f} M "
-          f"params, batch {args.batch} x {shape}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"[train] {acfg.name} {args.preset}/{qcfg.mode} on {model.device}: "
+        f"{sum(t.numel() for t in flatten(params)) / 1e6:.2f} M params, "
+        f"batch {args.batch} x {shape}")
     ckpt, start = None, 0
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir)
         if args.resume and ckpt.latest_step() is not None:
-            _, start, _ = ckpt.restore((model.params(), opt))
-            print(f"resumed from step {start}")
+            _, start, _ = ckpt.restore((params, opt))
+            say(f"resumed from step {start}")
+    if sharded:
+        if args.wire_codec == "auto":
+            codec, why = default_wire_codec(group=mesh.group)
+        else:
+            codec, why = args.wire_codec, "forced by --wire-codec"
+        opt = S.shard_arrays(mesh, opt, specs)
+        say(f"[shard] mesh dp={args.dp} tp={args.tp} "
+            f"n_shards={args.n_shards or args.dp} "
+            f"wire={args.grad_sync}:{args.wire_bits}b codec={codec} ({why}) "
+            f"opt={args.opt_shard}")
     steps: dict[int, object] = {}
     cur = None
     t0 = time.time()
@@ -238,19 +551,31 @@ def main(argv=None):
         bits = dr_bits_schedule(step, bounds, base_bits=qcfg.k_gw)
         if bits != cur:
             if bounds:
-                print(f"[dr] step {step}: CQ dr width -> {bits} bits")
+                say(f"[dr] step {step}: CQ dr width -> {bits} bits")
             cur = bits
         if bits not in steps:
-            steps[bits] = make_train_step(model, qcfg, lr=args.lr,
-                                          dr_bits=bits)
-        metrics = steps[bits](opt, task.batch(step), step)
+            steps[bits] = (make_sharded_train_step(
+                model, qcfg, mesh=mesh, lr=args.lr, dr_bits=bits,
+                n_shards=args.n_shards or None, wire_bits=args.wire_bits,
+                grad_sync=args.grad_sync, wire_codec=codec,
+                opt_shard=args.opt_shard) if sharded else make_train_step(
+                model, qcfg, lr=args.lr, dr_bits=bits))
+        batch = task.batch(step)
+        metrics = steps[bits](opt, S.put_batch(mesh, batch) if sharded
+                              else batch, step)
         acc = f"acc {float(metrics['acc']):.4f} " if "acc" in metrics else ""
-        print(f"step {step:5d} loss {float(metrics['loss']):.4f} {acc}"
-              f"({time.time() - t0:.1f}s)")
+        say(f"step {step:5d} loss {float(metrics['loss']):.4f} {acc}"
+            f"({time.time() - t0:.1f}s)")
         if ckpt and (step + 1) % args.save_every == 0:
-            ckpt.save(step + 1, (model.params(), opt))
+            whole = S.gather_arrays(mesh, opt, specs) if sharded else opt
+            if lead:
+                ckpt.save(step + 1, (params, whole))
     if ckpt:
         ckpt.wait()
+    if sharded:
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

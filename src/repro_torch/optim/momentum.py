@@ -50,6 +50,24 @@ def flatten(tree) -> list:
     return [tree]
 
 
+def unflatten(tree, leaves: list):
+    """A tree shaped like `tree` holding `leaves` in `flatten`'s order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def tree_map(fn, tree):
     """`fn` on every leaf of nested dicts and lists, keeping the structure."""
     if isinstance(tree, dict):
@@ -147,7 +165,10 @@ def apply_leaf_update(cfg: QConfig, p: Tensor, gq: Tensor, a: Tensor, lab,
     a.copy_(qf.q_direct(acc_full, cfg.k_acc))
     q = qf.q_direct(p - lr * acc_full, cfg.k_wu)           # Eq. 23, k_WU grid
     lim = 1.0 - 2.0 ** (1 - cfg.k_wu)
-    p.copy_(torch.clamp(q, -lim, lim))
+    # + 0.0: the grid's zero is +0.0, as an integer code's is (a weight
+    # rounded to zero from below would keep the sign bit, which the ZeRO-1
+    # step's int32 gather of the codes cannot carry); values unchanged
+    p.copy_(torch.clamp(q, -lim, lim).add_(0.0))
 
 
 @torch.no_grad()

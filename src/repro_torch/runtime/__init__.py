@@ -1,1 +1,2 @@
-"""Runtime helpers of the port (step watchdog)."""
+"""Runtime helpers of the port: the step watchdog (fault.py) and the
+integer gradient wire (compress.py)."""

@@ -35,7 +35,7 @@ from repro_torch.models import LMTransformer, build_model
 from repro_torch.optim import flatten
 from repro_torch.serving import Engine
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 DENSE = ("granite-34b", "phi4-mini-3.8b", "minitron-4b", "chameleon-34b")
 # published widths: (d_model, heads, kv heads, d_ff, vocab padded to 512)

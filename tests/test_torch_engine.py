@@ -32,7 +32,7 @@ from repro_torch.serving import (Engine, fused_decode_active, make_sampler,
                                  shared_prefix_traffic)
 
 from test_torch_kernels import _jax_flash_ml
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 KW = dict(max_lanes=2, page_size=8, max_ctx=32, prefill_chunk=2)
 PROMPT_LENS = (8, 13, 21)

@@ -41,7 +41,7 @@ from repro_torch.core import preset
 from repro_torch.models import Zamba2, build_model
 from repro_torch.optim import flatten
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 NAME = "zamba2-7b"
 CONFIGS = {"reduced": {}, "tail": {"n_layers": 3, "attn_every": 2}}

@@ -39,7 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import Zamba2, build_model
 from repro_torch.serving import Engine, make_engine
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 NAME = "zamba2-7b"
 KW = dict(max_lanes=2, page_size=8, max_ctx=32, prefill_chunk=2)

@@ -41,7 +41,7 @@ from repro_torch.configs import get
 from repro_torch.core import preset
 from repro_torch.models import ssm as TS
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 CHUNK = 8
 DI, DM = 128, 64                     # d_inner, d_model

@@ -67,7 +67,8 @@ from repro_torch.optim import (MomentumState, fixed_point_lr, flatten,
                                init_momentum, momentum_update)
 from repro_torch.optim.momentum import _mom_coeff
 
-from torch_parity import exact_pow2, ubn_rows_ok  # noqa: F401
+from torch_parity import (exact_pow2, one_torch_thread,  # noqa: F401
+                          ubn_rows_ok)
 
 MODES = ("fp32", "sim", "native")
 # qeinsum / qconv gradients: ulps of the gradient's largest magnitude

@@ -39,7 +39,7 @@ from repro_torch.optim import init_momentum
 from repro_torch.serving import Engine, make_engine
 from repro_torch.serving.engine import fused_decode_active
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 KW = dict(max_lanes=2, page_size=8, max_ctx=40)
 PROMPT_LENS = (13, 21)

@@ -64,7 +64,7 @@ from repro_torch.models import moe as M
 from repro_torch.optim import flatten
 from repro_torch.serving import Engine, make_engine, naive_serve
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 MOE = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b")
 

@@ -24,7 +24,7 @@ from repro_torch.serving import (Engine, PagePool, RadixCache, RequestState,
                                  Scheduler, make_engine,
                                  shared_prefix_traffic)
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 
 def _pool(n_pages=17, page_size=4):

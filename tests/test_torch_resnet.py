@@ -211,11 +211,18 @@ def test_qbatchnorm_forward_and_backward(shape, exact_pow2):
 # --------------------------------------------------------------------------
 
 
+_REF_INIT: dict = {}
+
+
 def _models(arch, name="full8"):
+    """The reduced config, the reference model and its weights (its eager
+    init takes seconds, so both are made once per module and preset) and a
+    fresh port model holding the same weights."""
     acfg = jget(arch).reduced()
-    jcfg = jpreset(name, "native")
-    jm = jbuild(acfg, jcfg)
-    params = jm.init(jax.random.PRNGKey(0))
+    if (arch, name) not in _REF_INIT:
+        jm = jbuild(acfg, jpreset(name, "native"))
+        _REF_INIT[arch, name] = jm, jm.init(jax.random.PRNGKey(0))
+    jm, params = _REF_INIT[arch, name]
     tm = build_model(get(arch).reduced(), preset(name), device="cpu")
     tm.load_params(resnet_params_from_jax(jax.tree.map(np.asarray, params)))
     return acfg, jm, params, tm
@@ -312,46 +319,35 @@ def test_loss_and_grads_within_bounds(arch, images, exact_pow2):
 @pytest.mark.parametrize("name", ["full8", "e2_16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_slice_within_bounds(arch, name, exact_pow2):
-    acfg, jm, params, tm = _models(arch, name)
-    jcfg, cfg = jpreset(name, "native"), preset(name)
-    jopt = jinit_momentum(params)
-    jstep = jax.jit(jmake_step(jm, jcfg, jm.labels(params), lr=0.05))
-    topt = momentum_from_jax(jax.tree.map(np.asarray, jopt.acc))
-    tstep = ttrain.make_train_step(tm, cfg, lr=0.05)
-    task = ImageTask(acfg.img_size, acfg.num_classes, 8)
-    hidden = [i for i, lab in enumerate(flatten(tm.labels())) if lab == "w"]
-
-    def codes(leaves):
-        return np.concatenate([np.asarray(leaves[i], np.float64).ravel()
-                               * 2 ** 23 for i in hidden])
-
-    for s in range(5):
-        batch = task.batch(s)
-        params, jopt, met = jstep(params, jopt,
-                                  jax.tree.map(jnp.asarray, batch),
-                                  jnp.int32(s))
-        tmet = tstep(topt, batch, s)
-        assert set(tmet) == {"loss", "acc"}
-        rel = abs(float(tmet["loss"]) - float(met["loss"])) \
-            / float(met["loss"])
-        d = np.abs(codes(jax.tree.leaves(params))
-                   - codes([p.detach().numpy()
-                            for p in flatten(tm.params())]))
-        share, dist = float(np.mean(d > 0)), float(d.max())
-        print(f"{arch} {name} step {s + 1}: loss rel {rel:.3e} (bound "
-              f"2e-3), codes differing {share:.5f}, max distance "
-              f"{dist:.0f}")
-        assert rel <= 2e-3
+    gaps, topt = _synthetic(arch, name)
+    assert all(rel <= 2e-3 for rel, _, _ in gaps), gaps
+    share, dist = gaps[-1][1:]
     assert share <= 0.95 and dist <= 2 ** 14, (share, dist)
     assert topt.step == 5
     assert all(torch.isfinite(x).all() for x in flatten(topt.acc))
 
 
-def _trajectory(arch, name, task, steps, n_micro=1):
+_SYNTHETIC: dict = {}
+
+
+def _synthetic(arch, name):
+    """The 5-step trajectory on the synthetic images (batch 8), made once
+    per module for the 5-step and the step-1 tests: (gaps, the port's
+    optimizer state after step 5)."""
+    if (arch, name) not in _SYNTHETIC:
+        acfg = get(arch).reduced()
+        _SYNTHETIC[arch, name] = _trajectory(
+            arch, name, ImageTask(acfg.img_size, acfg.num_classes, 8), 5,
+            keep_opt=True)
+    return _SYNTHETIC[arch, name]
+
+
+def _trajectory(arch, name, task, steps, n_micro=1, keep_opt=False):
     """make_train_step of both packages from the same weights over `steps`
     batches of `task`: per step the loss's relative gap, the share of the
     hidden weights' k_WU-grid codes that differ and their largest
-    distance in codes."""
+    distance in codes (with `keep_opt`, also the port's optimizer state
+    at the end)."""
     acfg, jm, params, tm = _models(arch, name)
     jcfg, cfg = jpreset(name, "native"), preset(name)
     jopt = jinit_momentum(params)
@@ -381,17 +377,16 @@ def _trajectory(arch, name, task, steps, n_micro=1):
         gaps.append((rel, float(np.mean(d > 0)), float(d.max())))
         print(f"{arch} {name} step {s + 1}: loss rel {rel:.3e}, codes "
               f"differing {gaps[-1][1]:.5f}, max distance {gaps[-1][2]:.0f}")
-    return gaps
+    return (gaps, topt) if keep_opt else gaps
 
 
 @pytest.mark.parametrize("name", ["full8", "e2_16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step1_within_bounds(arch, name, exact_pow2):
     """Step 1 on the synthetic images: at most 45% of the hidden codes
-    differ, by at most 2^12 (measured 33.8% and 1794)."""
-    acfg = get(arch).reduced()
-    (rel, share, dist), = _trajectory(
-        arch, name, ImageTask(acfg.img_size, acfg.num_classes, 8), 1)
+    differ, by at most 2^12 (measured 33.8% and 1794).  Step 1 of the
+    5-step trajectory, which is made once for both tests."""
+    rel, share, dist = _synthetic(arch, name)[0][0]
     assert rel <= 2e-3
     assert share <= 0.45 and dist <= 2 ** 12, (share, dist)
 

@@ -19,7 +19,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serving import Engine, make_engine
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 KW = dict(max_lanes=2, page_size=8, max_ctx=32, prefill_chunk=2)
 PROMPT_LENS = (8, 13, 21)

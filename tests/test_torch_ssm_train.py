@@ -64,7 +64,7 @@ from repro_torch.models import build_model
 from repro_torch.models import ssm as TS
 from repro_torch.optim import flatten
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 U = 2.0 ** -24
 ARCH = "falcon-mamba-7b"

@@ -58,7 +58,7 @@ from repro_torch.models import build_model
 from repro_torch.optim import (MomentumState, flatten, init_momentum,
                                momentum_update)
 
-from torch_parity import exact_pow2  # noqa: F401
+from torch_parity import exact_pow2, one_torch_thread  # noqa: F401
 
 
 def _t(x):
@@ -466,10 +466,9 @@ def test_train_cli_save_and_resume(capsys, tmp_path):
     assert "step     0 loss" in capsys.readouterr().out
 
 
-# the ids the cases had before the ported options' cases went (argv0-5,
+# the ids the cases had before the ported options' cases went (argv0-6,
 # argv9-10), so each remaining case keeps its name
 @pytest.mark.parametrize("argv,item", [
-    pytest.param(["--dp", "2"], "item 5", id="argv6-item 5"),
     pytest.param(["--tp", "2"], "item 5", id="argv7-item 5"),
     pytest.param(["--elastic"], "item 5", id="argv8-item 5")])
 def test_unported_training_options_raise(argv, item):

@@ -57,6 +57,19 @@ def exact_pow2_patched():
         jax.clear_caches()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a whole test module (autouse where a module
+    imports it).  Under the suite's parallel workers the port's many small
+    CPU ops wait on thread pools that the other workers also hold; the
+    tests' bounds do not depend on the thread count."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture
 def exact_pow2():
     with exact_pow2_patched():
